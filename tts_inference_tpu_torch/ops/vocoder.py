@@ -1,0 +1,108 @@
+"""K6: one fused SNAC residual unit (f32).
+
+Port of ``tts_inference_tpu/ops/pallas/vocoder.py::fused_residual_unit``:
+
+    snake → dilated depthwise conv(7) → snake → pointwise C×C → + bias → + x
+    → rows t >= valid[b] set to 0
+
+The kernel is hand-written CUDA C++ for Hopper (``csrc/vocoder.cu``);
+``fused_residual_unit_reference`` beside it is the plain PyTorch version. The
+wrapper takes the plain version only for tensors on the CPU; a CUDA tensor
+launches the kernel or raises.
+
+Layout: the public functions keep the JAX package's (B, T, C) indexing. The
+tensor may be channel-last contiguous or a transposed view of a channel-first
+(B, C, T) contiguous tensor (what the port's decoder keeps for cuDNN); the
+output has the input's memory layout. Parameters are the port's torch-layout
+unit dict: ``{"alpha1": (C,), "conv1": {"w": (C, 1, 7), "b"}, "alpha2",
+"conv2": {"w": (C, C, 1), "b"}}``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tts_inference_tpu_torch.ops import _build
+
+launches = _build.LaunchCounter()
+
+MAX_CHANNELS = 1024   # y2 tile (C × 32 f32) + weight slice in shared memory
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Snake activation x + sin²(αx)/α, per-channel α on the last axis."""
+    return x + torch.sin(alpha * x) ** 2 / (alpha + 1e-9)
+
+
+def valid_lengths(valid, b: int, t: int, device) -> torch.Tensor:
+    """None | int | (B,) → (B,) int32 content lengths on `device`."""
+    if valid is None:
+        return torch.full((b,), t, dtype=torch.int32, device=device)
+    v = torch.as_tensor(valid, dtype=torch.int32, device=device)
+    return v.expand(b).contiguous() if v.dim() == 0 else v
+
+
+def fused_residual_unit_reference(x, p, dilation, valid=None):
+    """Plain PyTorch version (cuDNN/CPU convolutions), same (B, T, C) API."""
+    b, t, c = x.shape
+    v = valid_lengths(valid, b, t, x.device)
+    y = snake(x, p["alpha1"]).transpose(1, 2)
+    y = F.conv1d(y, p["conv1"]["w"], p["conv1"]["b"], padding=3 * dilation,
+                 dilation=dilation, groups=c)
+    y = snake(y.transpose(1, 2), p["alpha2"]).transpose(1, 2)
+    y = F.conv1d(y, p["conv2"]["w"], p["conv2"]["b"]).transpose(1, 2)
+    keep = torch.arange(t, device=x.device)[None, :, None] < v[:, None, None]
+    return torch.where(keep, x + y, torch.zeros((), device=x.device))
+
+
+def _check(x, p, valid_vec):
+    b, t, c = x.shape
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_residual_unit: {x.dtype}; the kernel is f32")
+    if not (x.is_contiguous() or x.transpose(1, 2).is_contiguous()):
+        raise ValueError("fused_residual_unit: x must be (B, T, C) "
+                         "contiguous or a (B, C, T)-contiguous transpose")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"fused_residual_unit: {c} channels > {MAX_CHANNELS}")
+    tensors = {"alpha1": p["alpha1"], "alpha2": p["alpha2"],
+               "dw": p["conv1"]["w"], "dw_b": p["conv1"]["b"],
+               "pw": p["conv2"]["w"], "pw_b": p["conv2"]["b"]}
+    shapes = {"alpha1": (c,), "alpha2": (c,), "dw": (c, 1, 7), "dw_b": (c,),
+              "pw": (c, c, 1), "pw_b": (c,)}
+    for name, w in tensors.items():
+        if tuple(w.shape) != shapes[name]:
+            raise ValueError(f"fused_residual_unit: {name} {tuple(w.shape)} "
+                             f"!= {shapes[name]} (depthwise geometry)")
+        if w.dtype != torch.float32 or not w.is_contiguous() \
+                or w.device != x.device:
+            raise ValueError(f"fused_residual_unit: {name} must be "
+                             f"contiguous f32 on {x.device}")
+    if valid_vec.shape != (b,):
+        raise ValueError("fused_residual_unit: valid must be (B,)")
+    return tensors
+
+
+def fused_residual_unit(x, p, dilation, valid=None):
+    """(B, T, C) f32 residual-unit output; kernel on CUDA, plain on the CPU."""
+    b, t, c = x.shape
+    v = valid_lengths(valid, b, t, x.device)
+    w = _check(x, p, v)
+    if x.device.type == "cpu":
+        return fused_residual_unit_reference(x, p, dilation, v)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_residual_unit: no kernel for {x.device}")
+    lib = _build.load()
+    out = torch.empty_like(x)
+    if out.stride() != x.stride():
+        raise ValueError("fused_residual_unit: output layout differs")
+    sb, st, sc = x.stride()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.tts_fused_residual_unit(
+        x.data_ptr(), v.data_ptr(), w["alpha1"].data_ptr(),
+        w["dw"].data_ptr(), w["dw_b"].data_ptr(), w["alpha2"].data_ptr(),
+        w["pw"].data_ptr(), w["pw_b"].data_ptr(), out.data_ptr(),
+        b, t, c, int(dilation), sb, st, sc, stream)
+    _build.check(err, "fused_residual_unit")
+    launches.add()
+    return out
