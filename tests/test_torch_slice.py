@@ -251,15 +251,40 @@ def test_cli_generate_tiny_cpu(tmp_path):
     assert out.stat().st_size == 44 + 5 * P.SAMPLES_PER_FRAME * 2
 
 
-@pytest.mark.parametrize("flag", ["--quantize", "--paged-kv", "--kv-int8",
-                                  "--kv-int4", "--prefix-cache",
-                                  "--vocoder-bf16", "--tp=2", "--dp=2"])
+@pytest.mark.parametrize("flag", ["--quantize", "--kv-int4",
+                                  "--prefix-cache", "--vocoder-bf16",
+                                  "--tp=2", "--dp=2"])
 def test_cli_rejects_unported_configurations(flag):
     with pytest.raises(SystemExit) as e:
         cli.main(["serve", "--tiny", "--device", "cpu", flag])
     msg = str(e.value.code)
     assert "not ported" in msg and "ROADMAP.md Queue 1 item" in msg
     assert flag.split("=")[0] in msg
+
+
+@pytest.mark.parametrize("flags", [
+    ["--paged-kv", "--kv-int8", "--kv-on-demand"],
+    ["--paged-kv", "--kv-int4"],
+])
+def test_cli_paged_kv_flags(flags):
+    """`serve --paged-kv --kv-int8 --kv-on-demand` builds a scheduler over a
+    paged int8 cache; int4 KV pools are still rejected with their item."""
+    from tts_inference_tpu_torch.models.llama import PagedKVCache
+
+    args = cli.build_parser().parse_args(
+        ["serve", "--tiny", "--device", "cpu", "--no-warmup",
+         "--kv-block-size", "16", "--kv-pool-tokens", "256", *flags])
+    if "--kv-int4" in flags:
+        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 13"):
+            cli.build_serving(args)
+        return
+    rt, sched = cli.build_serving(args)
+    ecfg = sched.core.engine_cfg
+    assert ecfg.paged_kv and ecfg.kv_cache_int8 and ecfg.kv_on_demand
+    assert (ecfg.kv_block_size, ecfg.kv_pool_tokens) == (16, 256)
+    for core in (sched.core, rt.engine.core):
+        assert isinstance(core.cache, PagedKVCache) and core.cache.quantized
+        assert core.free_tokens() == 256
 
 
 def test_port_imports_without_jax():

@@ -6,9 +6,13 @@
 
 Defaults are the JAX package's ``cli serve`` defaults: Orpheus-3B geometry
 with seeded random bf16 weights, 8 continuous-batching slots, max_seq 4608,
-the f32 SNAC 24 kHz vocoder. Options of configurations that are not ported
-yet are accepted by the parser and rejected with the ROADMAP item that
-ports them — the port never runs a different path silently.
+the f32 SNAC 24 kHz vocoder. The KV cache and admission options map onto
+``EngineConfig`` as the JAX CLI maps them (``--paged-kv``, ``--kv-int8``,
+``--kv-on-demand``, ``--kv-pool-tokens``, ``--kv-block-size``,
+``--admission-policy``, ``--reserved-short-slots``, ``--short-tokens``).
+Options of configurations that are not ported yet are accepted by the
+parser and rejected with the ROADMAP item that ports them — the port never
+runs a different path silently.
 """
 
 from __future__ import annotations
@@ -23,8 +27,6 @@ import time
 UNPORTED = {
     "quantize": "int8 weights with a hand-written W8A16 kernel "
                 "(ROADMAP.md Queue 1 item 9)",
-    "paged_kv": "paged KV with kernels K3a/K3b (ROADMAP.md Queue 1 item 11)",
-    "kv_int8": "int8 KV cache (ROADMAP.md Queue 1 item 11, with paged KV)",
     "kv_int4": "int4 KV pools with kernel K5 (ROADMAP.md Queue 1 item 13)",
     "prefix_cache": "prefix cache (ROADMAP.md Queue 1 item 12)",
     "vocoder_bf16": "bf16 vocoder (ROADMAP.md Queue 1 item 14)",
@@ -42,8 +44,33 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--max-output-len", type=int, default=None)
     p.add_argument("--max-batch-size", type=int, default=None)
-    for flag in ("quantize", "paged_kv", "kv_int8", "kv_int4",
-                 "prefix_cache", "vocoder_bf16"):
+    p.add_argument("--paged-kv", action="store_true",
+                   help="paged KV cache: a block pool shared by the slots, "
+                        "per-slot block tables, capacity-gated admission "
+                        "(kernel K3a, or K3b with --kv-int8)")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache with per-position scales")
+    p.add_argument("--kv-on-demand", action="store_true",
+                   help="with --paged-kv: reserve only the prefill window at "
+                        "admission, grow blocks per decode launch, and on "
+                        "pool exhaustion preempt the youngest stream and "
+                        "resume it bit-identically")
+    p.add_argument("--kv-pool-tokens", type=int, default=None,
+                   help="paged KV pool size in tokens (default "
+                        "max(max_seq, slots x max_seq / 2))")
+    p.add_argument("--kv-block-size", type=int, default=None,
+                   help="paged KV block size in tokens (divides max_seq; "
+                        "default 128, or 64 with --tiny, whose max_seq is "
+                        "320)")
+    p.add_argument("--admission-policy", choices=("fifo", "sjf"),
+                   default=None,
+                   help="'sjf' = shortest job first with aging")
+    p.add_argument("--reserved-short-slots", type=int, default=None,
+                   help="slots only short requests (max_tokens <= "
+                        "--short-tokens) may occupy")
+    p.add_argument("--short-tokens", type=int, default=None,
+                   help="'short request' threshold in tokens")
+    for flag in ("quantize", "kv_int4", "prefix_cache", "vocoder_bf16"):
         p.add_argument("--" + flag.replace("_", "-"), action="store_true",
                        help=f"not ported yet: {UNPORTED[flag]}")
     p.add_argument("--tp", type=int, default=1,
@@ -74,6 +101,20 @@ def _build_runtime(args):
         eng_over["max_output_len"] = args.max_output_len
     if args.max_batch_size:
         eng_over["max_batch_size"] = args.max_batch_size
+    for flag, field in (("paged_kv", "paged_kv"),
+                        ("kv_int8", "kv_cache_int8"),
+                        ("kv_on_demand", "kv_on_demand")):
+        if getattr(args, flag):
+            eng_over[field] = True
+    if args.tiny and args.paged_kv and args.kv_block_size is None:
+        eng_over["kv_block_size"] = 64
+    for flag, field in (("kv_pool_tokens", "kv_pool_tokens"),
+                        ("kv_block_size", "kv_block_size"),
+                        ("admission_policy", "admission_policy"),
+                        ("reserved_short_slots", "reserved_short_slots"),
+                        ("short_tokens", "short_request_tokens")):
+        if getattr(args, flag) is not None:
+            eng_over[field] = getattr(args, flag)
     if eng_over:
         cfg = dataclasses.replace(
             cfg, engine=dataclasses.replace(cfg.engine, **eng_over))

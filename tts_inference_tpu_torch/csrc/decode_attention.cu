@@ -11,7 +11,8 @@
 // At the serve shapes (B·Hkv = 64 heads, W ≤ 4608) the bytes are few, so what
 // limits a simple kernel is how many loads it keeps in flight.
 //
-// What the design does about it:
+// What the design does about it (the body is shared with K3a/K3b, see
+// attention.cuh):
 //  - the window is split into chunks of kSplit keys; one block per (slot, kv
 //    head, chunk) streams that chunk's K/V rows exactly once with an online
 //    softmax over tiles of kTile keys, and a second pass combines the chunks
@@ -31,282 +32,48 @@
 //
 // Layouts (elements): q, out (B, Hkv, G, D) contiguous; k, v (B, W, Hkv, D)
 // with contiguous (W, Hkv, D) rows and a free batch stride, so a window
-// slice of the (B, max_seq, Hkv, D) cache is read in place. Scratch for the
-// chunk partials: f32 (B·Hkv·S·G·D) + 2·(B·Hkv·S·G), S = ceil(W / kSplit).
+// slice of the (B, max_seq, Hkv, D) cache is read in place.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = kThreads;  // keys per tile: one per thread for scores
-constexpr int kSplit = 256;      // keys per block
-constexpr int kMaxG = 8;         // query heads per kv head
-constexpr int kMaxD = 256;       // head dim: each lane owns 4 dims per 128
-
-__device__ inline void load8(const __nv_bfloat16* p, float o[8]) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const unsigned int u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
-__device__ inline void load8(const float* p, float o[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-__device__ inline void load4(const __nv_bfloat16* p, float o[4]) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-__device__ inline void load4(const float* p, float o[4]) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  o[0] = r.x; o[1] = r.y; o[2] = r.z; o[3] = r.w;
-}
-
-__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ inline float to_f32(float x) { return x; }
-__device__ inline void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-__device__ inline void store(float* p, float x) { *p = x; }
-
-__device__ inline float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ inline float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// One (slot, kv head, chunk): online softmax over the chunk's keys. With one
-// chunk it writes the output; otherwise the chunk's (acc, max, denominator).
+// Key j of slot b, head h: row j of the slot's (W, Hkv, D) window.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_chunk(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const int* __restrict__ pos,
-                       T* __restrict__ out, float* __restrict__ o_part,
-                       float* __restrict__ m_part, float* __restrict__ l_part,
-                       int hkv, int g, int d, int w, int nsplit,
-                       long long k_bstride, long long v_bstride, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;               // (g, d) queries in f32
-  float* p_s = q_s + g * d;        // (g, kTile) scores, then probabilities
-  float* r_s = p_s + g * kTile;    // (kWarps, g, d) per-warp accumulators
-  float* m_s = r_s + kWarps * g * d;  // (g) running max
-  float* l_s = m_s + g;            // (g) running denominator
-  float* a_s = l_s + g;            // (g) accumulator rescale for this tile
-
-  const int bh = blockIdx.y;
-  const int b = bh / hkv;
-  const int h = bh % hkv;
-  const int split = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  const T* qb = q + static_cast<size_t>(bh) * g * d;
-  for (int i = tid; i < g * d; i += kThreads) q_s[i] = to_f32(qb[i]);
-  if (tid < g) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+struct DenseKeys {
+  using Elem = T;
+  static constexpr bool kScaled = false;
+  struct Slot {
+    const T* kb;
+    const T* vb;
+    size_t row;  // elements between keys
+    __device__ const T* key(int j) const { return kb + static_cast<size_t>(j) * row; }
+    __device__ const T* value(int j) const { return vb + static_cast<size_t>(j) * row; }
+  };
+  const T* k;
+  const T* v;
+  long long k_bstride, v_bstride;
+  int hkv, d;
+  __device__ Slot slot(int b, int h) const {
+    return {k + static_cast<size_t>(b) * k_bstride + static_cast<size_t>(h) * d,
+            v + static_cast<size_t>(b) * v_bstride + static_cast<size_t>(h) * d,
+            static_cast<size_t>(hkv) * d};
   }
-  float acc[kMaxG][2][4];
-#pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[gi][c][i] = 0.f;
-  __syncthreads();
-
-  int limit = pos[b] + 1;
-  limit = limit > w ? w : (limit < 0 ? 0 : limit);
-  const int j0 = split * kSplit;
-  const int j1 = min(j0 + kSplit, limit);
-  const size_t row = static_cast<size_t>(hkv) * d;  // elements between keys
-  const T* kb = k + static_cast<size_t>(b) * k_bstride + static_cast<size_t>(h) * d;
-  const T* vb = v + static_cast<size_t>(b) * v_bstride + static_cast<size_t>(h) * d;
-
-  for (int t0 = j0; t0 < j1; t0 += kTile) {
-    const int nt = min(kTile, j1 - t0);
-    // scores: one thread per key, 8-element vectors along the head dim
-    if (tid < nt) {
-      const T* kr = kb + static_cast<size_t>(t0 + tid) * row;
-      float part[kMaxG];
-#pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi) part[gi] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < d; c += 8) {
-        float kv[8];
-        load8(kr + c, kv);
-#pragma unroll
-        for (int gi = 0; gi < kMaxG; ++gi) {
-          if (gi < g) {
-            const float* qq = q_s + gi * d + c;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) part[gi] += qq[i] * kv[i];
-          }
-        }
-      }
-#pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) p_s[gi * kTile + tid] = part[gi] * scale;
-    }
-    __syncthreads();
-    // online softmax: one warp per query head
-    for (int gi = warp; gi < g; gi += kWarps) {
-      float mx = -INFINITY;
-      for (int jj = lane; jj < nt; jj += 32) mx = fmaxf(mx, p_s[gi * kTile + jj]);
-      mx = warp_max(mx);
-      const float m_old = m_s[gi];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int jj = lane; jj < nt; jj += 32) {
-        const float e = expf(p_s[gi * kTile + jj] - m_new);
-        p_s[gi * kTile + jj] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile
-        a_s[gi] = alpha;
-        l_s[gi] = l_s[gi] * alpha + sum;
-        m_s[gi] = m_new;
-      }
-    }
-    __syncthreads();
-    // p·v: one warp per key, each lane owns dims lane*4 (+128)
-#pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi < g) {
-        const float a = a_s[gi];
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[gi][c][i] *= a;
-      }
-    }
-#pragma unroll 4
-    for (int jj = warp; jj < nt; jj += kWarps) {
-      const T* vr = vb + static_cast<size_t>(t0 + jj) * row;
-      float p[kMaxG];
-#pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi) p[gi] = gi < g ? p_s[gi * kTile + jj] : 0.f;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int di = c * 128 + lane * 4;
-        if (di < d) {
-          float vv[4];
-          load4(vr + di, vv);
-#pragma unroll
-          for (int gi = 0; gi < kMaxG; ++gi)
-            if (gi < g)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[gi][c][i] += p[gi] * vv[i];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // reduce the warps' accumulators
-#pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi) {
-    if (gi < g) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int di = c * 128 + lane * 4;
-        if (di < d)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) r_s[(warp * g + gi) * d + di + i] = acc[gi][c][i];
-      }
-    }
-  }
-  __syncthreads();
-  const size_t part_row = static_cast<size_t>(bh) * nsplit + split;
-  for (int i = tid; i < g * d; i += kThreads) {
-    float o = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) o += r_s[wi * g * d + i];
-    if (nsplit == 1) {
-      const float l = l_s[i / d];
-      store(out + static_cast<size_t>(bh) * g * d + i, l > 0.f ? o / l : 0.f);
-    } else {
-      o_part[part_row * g * d + i] = o;
-    }
-  }
-  if (nsplit > 1 && tid < g) {
-    m_part[part_row * g + tid] = m_s[tid];
-    l_part[part_row * g + tid] = l_s[tid];
-  }
-}
-
-// Combine the chunks of one (slot, kv head): rescale by exp(m_s - max).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_combine(const float* __restrict__ o_part, const float* __restrict__ m_part,
-                         const float* __restrict__ l_part, T* __restrict__ out, int g,
-                         int d, int nsplit) {
-  const int bh = blockIdx.x;
-  for (int i = threadIdx.x; i < g * d; i += kThreads) {
-    const int gi = i / d;
-    float mx = -INFINITY;
-    for (int s = 0; s < nsplit; ++s)
-      mx = fmaxf(mx, m_part[(static_cast<size_t>(bh) * nsplit + s) * g + gi]);
-    float num = 0.f, den = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t pr = static_cast<size_t>(bh) * nsplit + s;
-      const float m = m_part[pr * g + gi];
-      if (m == -INFINITY) continue;  // chunk past pos: no keys
-      const float e = expf(m - mx);
-      num += e * o_part[pr * g * d + i];
-      den += e * l_part[pr * g + gi];
-    }
-    store(out + static_cast<size_t>(bh) * g * d + i, den > 0.f ? num / den : 0.f);
-  }
-}
+};
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* pos, void* out,
-           void* scratch, int b, int hkv, int g, int d, int w, int nsplit,
-           long long k_bstride, long long v_bstride, float scale, cudaStream_t s) {
-  const size_t smem =
-      static_cast<size_t>(g * d + g * kTile + kWarps * g * d + 3 * g) * sizeof(float);
-  const size_t parts = static_cast<size_t>(b) * hkv * nsplit * g;
-  float* o_part = static_cast<float*>(scratch);
-  float* m_part = o_part + parts * d;
-  float* l_part = m_part + parts;
-  decode_attention_chunk<T><<<dim3(nsplit, b * hkv), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(pos), static_cast<T*>(out), o_part, m_part, l_part, hkv, g, d,
-      w, nsplit, k_bstride, v_bstride, scale);
-  if (nsplit > 1) {
-    decode_attention_combine<T><<<b * hkv, kThreads, 0, s>>>(o_part, m_part, l_part,
-                                                             static_cast<T*>(out), g, d, nsplit);
-  }
-  return static_cast<int>(cudaGetLastError());
+int launch_dense(const void* q, const void* k, const void* v, const void* pos, void* out,
+                 void* scratch, int b, int hkv, int g, int d, int w, long long k_bstride,
+                 long long v_bstride, float scale, cudaStream_t s) {
+  const DenseKeys<T> keys{static_cast<const T*>(k), static_cast<const T*>(v), k_bstride,
+                          v_bstride, hkv, d};
+  return attention_launch<T>(q, keys, pos, out, scratch, b, hkv, g, d, w, scale, s);
 }
 
 }  // namespace
 
 // Chunks the window is split into; the caller sizes the scratch from it.
-extern "C" int tts_decode_attention_splits(int w) { return (w + kSplit - 1) / kSplit; }
+extern "C" int tts_decode_attention_splits(int w) { return attention_splits(w); }
 
 // dtype: 0 = bfloat16, 1 = float32. Returns the launches' cudaError_t.
 extern "C" int tts_decode_attention(const void* q, const void* k, const void* v,
@@ -314,16 +81,13 @@ extern "C" int tts_decode_attention(const void* q, const void* k, const void* v,
                                     int hkv, int g, int d, int w, long long k_bstride,
                                     long long v_bstride, float scale, int dtype,
                                     void* stream) {
-  if (b < 1 || hkv < 1 || g < 1 || g > kMaxG || d < 8 || d % 8 || d > kMaxD || w < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nsplit = tts_decode_attention_splits(w);
-  if (nsplit > 1 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!attention_shape_ok(b, hkv, g, d, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(q, k, v, pos, out, scratch, b, hkv, g, d, w, nsplit,
-                                 k_bstride, v_bstride, scale, s);
+    return launch_dense<__nv_bfloat16>(q, k, v, pos, out, scratch, b, hkv, g, d, w,
+                                       k_bstride, v_bstride, scale, s);
   if (dtype == 1)
-    return launch<float>(q, k, v, pos, out, scratch, b, hkv, g, d, w, nsplit, k_bstride,
-                         v_bstride, scale, s);
+    return launch_dense<float>(q, k, v, pos, out, scratch, b, hkv, g, d, w, k_bstride,
+                               v_bstride, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,10 +14,21 @@ Port of the dense path of ``tts_inference_tpu/engine/engine.py``:
 - launches are asynchronous: ``*_launch`` returns device tensors and
   ``copy_async`` queues their device→host copies (pinned memory + a CUDA
   event), so the host fetches one launch while the next runs (depth-2
-  pipelining).
+  pipelining);
+- the KV cache is dense (bf16/f32 or int8) or paged (``paged_kv``): a pool
+  of blocks with a host-side block allocator, worst-case reservation at
+  admission or on-demand growth per decode launch (``kv_on_demand``), and
+  ``snapshot_slot``/``restore_slot``/``preempt_slot`` for the scheduler's
+  preempt-and-resume.
 
-Not ported yet (ROADMAP.md): paged KV, int8/int4 KV, prefix cache,
-preemption, meshes, and CUDA-graph capture of the decode burst.
+The block table is device state written from the host. The JAX package
+swapped in a fresh immutable array on every change; here every change is
+one stream-ordered host→device copy into the same table tensor, so a
+launch already enqueued reads the table it was launched with, and a later
+prefill into reused blocks runs after every launch that still wrote them.
+
+Not ported yet (ROADMAP.md): int4 KV, prefix cache, meshes, and CUDA-graph
+capture of the decode burst.
 """
 
 from __future__ import annotations
@@ -49,10 +60,6 @@ class GenerationResult:
 
 def _unported(engine_cfg: EngineConfig) -> Optional[str]:
     """The ROADMAP item of the first engine option the port lacks."""
-    if engine_cfg.paged_kv:
-        return "paged KV (ROADMAP.md Queue 1 item 11)"
-    if engine_cfg.kv_cache_int8:
-        return "int8 KV cache (ROADMAP.md Queue 1 item 11)"
     if engine_cfg.kv_cache_int4:
         return "int4 KV cache (ROADMAP.md Queue 1 item 13)"
     if engine_cfg.prefix_cache:
@@ -84,8 +91,27 @@ class EngineCore:
             protocol.HEAD_SLICE_BASE
             if engine_cfg.sliced_head
             and model_cfg.vocab_size > protocol.TOKEN_AUDIO_BASE else 0)
-        self.cache = llama.init_kv_cache(model_cfg, self.batch, self.max_seq,
-                                         device=self.device)
+        if engine_cfg.paged_kv:
+            bs_blk = engine_cfg.kv_block_size
+            if self.max_seq % bs_blk:
+                raise ValueError(f"max_seq {self.max_seq} not a multiple of "
+                                 f"kv_block_size {bs_blk}")
+            pool_tokens = engine_cfg.kv_pool_tokens or max(
+                self.max_seq, self.batch * self.max_seq // 2)
+            num_blocks = 1 + max(1, pool_tokens // bs_blk)  # +1 trash block
+            self.cache = llama.init_paged_kv_cache(
+                model_cfg, self.batch, self.max_seq, num_blocks=num_blocks,
+                block_size=bs_blk, int8=engine_cfg.kv_cache_int8,
+                device=self.device)
+            # host-side block allocator: block 0 is the trash block
+            self._free_blocks = list(range(num_blocks - 1, 0, -1))
+            self._slot_blocks: dict = {}
+            self._table_host = np.zeros(
+                (self.batch, self.max_seq // bs_blk), np.int32)
+        else:
+            self.cache = llama.init_kv_cache(
+                model_cfg, self.batch, self.max_seq, device=self.device,
+                int8=engine_cfg.kv_cache_int8)
         self.sampling_state = S.init_sampling_state(
             self.batch, model_cfg.vocab_size, seed, device=self.device)
         # host-side upper bounds on per-slot lengths: the KV window bucket
@@ -192,14 +218,186 @@ class EngineCore:
                 return b
         return self.max_seq
 
+    def resume_bucket_len(self, n: int) -> Optional[int]:
+        """Smallest prefill bucket (regular or resume tier) covering an
+        n-token resume re-prefill; None = too long to be preemptible."""
+        for b in sorted(set(self.engine_cfg.prefill_buckets)
+                        | set(self.engine_cfg.resume_buckets)):
+            if n <= b <= self.max_seq:
+                return int(b)
+        return None
+
+    # -- paged-KV block allocator (engine_cfg.paged_kv) ----------------------
+
+    def free_tokens(self) -> int:
+        """Unreserved KV pool capacity in tokens (all slots when dense)."""
+        if not self.engine_cfg.paged_kv:
+            return self.batch * self.max_seq
+        return len(self._free_blocks) * self.engine_cfg.kv_block_size
+
+    def kv_demand(self, prompt_len: int, max_tokens: int) -> int:
+        """Tokens a request reserves at admission: padded prompt bucket + its
+        token budget (none with kv_on_demand, which grows per decode launch)
+        + decode-call slack, rounded up to whole blocks."""
+        bs_blk = self.engine_cfg.kv_block_size
+        budget = 0 if self.engine_cfg.kv_on_demand else max_tokens
+        total = min(self.bucket_len(prompt_len) + budget
+                    + self.engine_cfg.decode_steps_per_call + 2, self.max_seq)
+        return -(-total // bs_blk) * bs_blk
+
+    def _push_table(self) -> None:
+        """Copy the host block table into the device table, in place and
+        ordered on the stream: launches enqueued before read the old table,
+        launches after it the new one. The source is pageable host memory,
+        which the CUDA driver stages before the copy call returns, so the
+        host table may change again at once."""
+        self.cache.block_table.copy_(torch.from_numpy(self._table_host),
+                                     non_blocking=True)
+
+    def _reserve_blocks(self, slots: Sequence[int],
+                        totals: Sequence[int]) -> None:
+        """Reserve ceil(total / block) pool blocks per slot; one table
+        push."""
+        bs_blk = self.engine_cfg.kv_block_size
+        for sl, total in zip(slots, totals):
+            n_blk = min(-(-int(total) // bs_blk), self._table_host.shape[1])
+            if n_blk > len(self._free_blocks):
+                raise RuntimeError(
+                    f"KV pool exhausted: need {n_blk} blocks, "
+                    f"{len(self._free_blocks)} free (capacity-gate "
+                    "admissions with free_tokens()/kv_demand())")
+            blocks = [self._free_blocks.pop() for _ in range(n_blk)]
+            self._slot_blocks[sl] = blocks
+            self._table_host[sl] = 0
+            self._table_host[sl, :n_blk] = blocks
+        self._push_table()
+
+    def _free_slot_blocks(self, slots: Sequence[int]) -> None:
+        changed = False
+        for sl in slots:
+            blocks = self._slot_blocks.pop(sl, None)
+            if blocks:
+                self._free_blocks.extend(blocks)
+                self._table_host[sl] = 0
+                changed = True
+        if changed:
+            self._push_table()
+
+    # -- on-demand growth + preemption (engine_cfg.kv_on_demand) -------------
+
+    def _blocks_deficit(self, n: int) -> dict:
+        """slot → additional blocks needed to cover the next n-step launch
+        (host bookkeeping only)."""
+        bs_blk = self.engine_cfg.kv_block_size
+        cap = self._table_host.shape[1]
+        out = {}
+        for sl in sorted(self._slot_blocks):
+            bound = int(self._len_bounds[sl])
+            if bound <= 0:
+                continue
+            need = min(-(-min(bound + n + 1, self.max_seq) // bs_blk), cap)
+            have = len(self._slot_blocks[sl])
+            if need > have:
+                out[sl] = need - have
+        return out
+
+    def starved_slots(self, n: Optional[int] = None) -> List[int]:
+        """Dry-run the next decode launch's block growth: the slots the pool
+        cannot cover. The scheduler preempts before launching when this is
+        non-empty."""
+        if not (self.engine_cfg.paged_kv and self.engine_cfg.kv_on_demand):
+            return []
+        n = n or self.engine_cfg.decode_steps_per_call
+        free = len(self._free_blocks)
+        starved = []
+        for sl, want in self._blocks_deficit(n).items():
+            if want <= free:
+                free -= want
+            else:
+                starved.append(sl)
+        return starved
+
+    def _grow_blocks(self, n: int) -> None:
+        """Extend each live slot's blocks to cover the next n decode steps
+        (kv_on_demand). The scheduler gates launches with starved_slots()
+        and preemption, so a shortage here is a hard error."""
+        deficit = self._blocks_deficit(n)
+        if not deficit:
+            return
+        for sl, want in deficit.items():
+            if want > len(self._free_blocks):
+                raise RuntimeError(
+                    f"KV pool exhausted growing slot {sl}: need {want} "
+                    f"blocks, {len(self._free_blocks)} free (gate launches "
+                    "with starved_slots() and preempt)")
+            blocks = [self._free_blocks.pop() for _ in range(want)]
+            have = len(self._slot_blocks[sl])
+            self._table_host[sl, have: have + want] = blocks
+            self._slot_blocks[sl].extend(blocks)
+        self._push_table()
+
+    def snapshot_slot(self, slot: int) -> dict:
+        """Host copy of a slot's sampling-chain state: the noise counter
+        (seed AND step — the noise of step t is a hash of both), repetition
+        presence and speech-protocol position. Taken at preemption after
+        the scheduler drained its launches; ``restore_slot`` is the
+        inverse, and together they make preempt → resume bit-identical."""
+        ss = self.sampling_state
+        return {"presence": to_numpy(ss.presence[slot]).copy(),
+                "seed": int(ss.seed[slot]), "step": int(ss.step[slot]),
+                "in_speech": bool(ss.in_speech[slot]),
+                "frame_pos": int(ss.frame_pos[slot])}
+
+    def restore_slot(self, slot: int, snap: dict) -> None:
+        """Write a snapshot_slot dict back into the slot's sampling state
+        (after the resume re-prefill, whose reset and first sample
+        clobbered it), in place on the stream."""
+        ss = self.sampling_state
+        ss.presence[slot] = torch.from_numpy(snap["presence"]).to(self.device)
+        ss.seed[slot] = snap["seed"]
+        ss.step[slot] = snap["step"]
+        ss.in_speech[slot] = snap["in_speech"]
+        ss.frame_pos[slot] = snap["frame_pos"]
+
+    def preempt_slot(self, slot: int) -> None:
+        """Release a preempted slot's KV blocks and host bounds without
+        touching device state: the resume admission's reset clears it, and
+        launches still in flight that write this slot land in the trash
+        block through the zeroed table row."""
+        self._len_bounds[slot] = 0
+        if self.engine_cfg.paged_kv:
+            self._free_slot_blocks([slot])
+
+    def _maybe_reserve(self, slots: Sequence[int], bucket: int,
+                       reserve_extra: Optional[Sequence[int]]) -> None:
+        """Paged: reserve each admitted slot's blocks — bucket + its token
+        budget (default max_output_len) + slack, or with kv_on_demand only
+        the prefill window and one decode-call window."""
+        if not self.engine_cfg.paged_kv:
+            return
+        slack = self.engine_cfg.decode_steps_per_call + 1
+        if self.engine_cfg.kv_on_demand:
+            # the bound matches the bucket+1 _len_bounds, so the first
+            # growth is a no-op
+            extras = [1] * len(slots)
+        else:
+            extras = (list(reserve_extra) if reserve_extra is not None
+                      else [self.engine_cfg.max_output_len] * len(slots))
+        self._reserve_blocks(slots, [min(bucket + e + slack, self.max_seq)
+                                     for e in extras])
+
     def _mask(self, slots: Sequence[int]) -> np.ndarray:
         mask = np.zeros(self.batch, bool)
         mask[list(slots)] = True
         return mask
 
     def _reset_host(self, slots: Sequence[int]) -> None:
+        """Host half of a slot reset: length bounds and, paged, the slots'
+        blocks."""
         for sl in slots:
             self._len_bounds[sl] = 0
+        if self.engine_cfg.paged_kv:
+            self._free_slot_blocks(slots)
 
     def _seed_arrays(self, slots: Sequence[int],
                      seeds: Optional[Sequence[Optional[int]]]):
@@ -236,15 +434,20 @@ class EngineCore:
     @torch.no_grad()
     def prefill_slots(self, prompts: Sequence[Sequence[int]],
                       slots: Sequence[int], sparams: S.SamplingParams,
+                      reserve_extra: Optional[Sequence[int]] = None,
                       seeds: Optional[Sequence[Optional[int]]] = None,
                       bucket: Optional[int] = None) -> np.ndarray:
         """Prefill the given slots; returns their first tokens (B,) on the
-        host. Runs over the whole slot batch; other slots are untouched."""
+        host. Runs over the whole slot batch; other slots are untouched.
+        Paged, each slot reserves bucket + reserve_extra[i] tokens of blocks
+        (default max_output_len). ``bucket`` overrides the prompt's bucket:
+        the preemption resume re-prefills through the resume tier so."""
         assert len(prompts) == len(slots)
         bucket = bucket or self.bucket_len(
             max((len(p) for p in prompts), default=1))
         tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
         self.reset_and_seed(slots, seeds)
+        self._maybe_reserve(slots, bucket, reserve_extra)
         tok = self._prefill_impl(bucket, tokens, lens, sparams, mask)
         for p, sl in zip(prompts, slots):
             self._len_bounds[sl] = min(len(p), bucket) + 1
@@ -255,19 +458,24 @@ class EngineCore:
                               slots: Sequence[int],
                               sparams: S.SamplingParams, last_tok, active,
                               n: Optional[int] = None,
+                              reserve_extra: Optional[Sequence[int]] = None,
                               kv_window: Optional[int] = None,
                               seeds: Optional[Sequence[Optional[int]]] = None):
         """Fused admission prefill + n decode steps, launched without
         waiting. Returns device tensors (toks (B, n+1), last_tok, active).
-        kv_window None = smallest bucket covering every live slot."""
+        kv_window None = smallest bucket covering every live slot;
+        reserve_extra as in prefill_slots."""
         n = n or self.engine_cfg.decode_steps_per_call
         assert len(prompts) == len(slots)
         bucket = self.bucket_len(max((len(p) for p in prompts), default=1))
         tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
         self._reset_host(slots)
         seed_arr, reseed = self._seed_arrays(slots, seeds)
+        self._maybe_reserve(slots, bucket, reserve_extra)
         for p, sl in zip(prompts, slots):
             self._len_bounds[sl] = min(len(p), bucket) + 1
+        if self.engine_cfg.paged_kv and self.engine_cfg.kv_on_demand:
+            self._grow_blocks(n)    # the slots already live decode too
         needed = int(self._len_bounds.max(initial=0)) + n + 1
         window = kv_window or self.kv_bucket(needed)
         out = self._prefill_decode_impl(
@@ -284,6 +492,8 @@ class EngineCore:
         (tokens (B, n), last_tok, active). last_tok/active may be device
         tensors of a previous launch: launches chain on the device."""
         n = n or self.engine_cfg.decode_steps_per_call
+        if self.engine_cfg.paged_kv and self.engine_cfg.kv_on_demand:
+            self._grow_blocks(n)
         needed = int(self._len_bounds.max(initial=0)) + n + 1
         window = self.kv_bucket(needed)
         out = self._decode_impl(n, window, sparams,
@@ -297,7 +507,8 @@ class EngineCore:
         """Run one admission and one decode launch, so the kernels, cuBLAS
         and cuDNN are initialised before the first request. Eager PyTorch
         compiles nothing per shape, so unlike the JAX package this does not
-        enumerate (bucket, window, steps)."""
+        enumerate (bucket, window, steps). Paged, the probe's blocks are
+        released at the end: the whole pool is free afterwards."""
         t = timer or PhaseTimer()
         sp = S.SamplingParams.from_config(SamplingConfig(greedy=True),
                                           self.batch, device=self.device)
@@ -363,7 +574,8 @@ class GenerationEngine:
         first = core.prefill_decode_launch(
             [list(prompt_ids)], [0], sp,
             np.zeros(core.batch, np.int32), np.zeros(core.batch, bool),
-            n=max(n_first, 1), seeds=[sampling.seed])
+            n=max(n_first, 1), reserve_extra=[max_new],
+            seeds=[sampling.seed])
         if on_first_tokens is not None:
             on_first_tokens(first[0])
         pending.append((*first, copy_async(first[0])[0]))

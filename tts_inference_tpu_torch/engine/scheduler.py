@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: multi-stream serving over one EngineCore.
 
-Port of ``tts_inference_tpu/engine/scheduler.py`` (FIFO path):
+Port of ``tts_inference_tpu/engine/scheduler.py``:
 
 - one EngineCore with B slots; per-slot sampling knobs are tensors, so one
   decode loop serves any mix of requests;
@@ -13,12 +13,17 @@ Port of ``tts_inference_tpu/engine/scheduler.py`` (FIFO path):
   depth-2 pipelining), feeds per-request extractors and lookahead decoders,
   and hands every stream's pending window to a two-stage vocode worker
   (launch thread + fetch/emit thread);
+- admission order is FIFO or shortest-job-first with aging
+  (``admission_policy``), and ``reserved_short_slots`` keep slots for short
+  requests; with paged KV a capacity gate holds requests the block pool
+  cannot take yet (``_held``), and with ``kv_on_demand`` a launch whose
+  block growth the pool cannot cover first preempts the youngest stream,
+  which later resumes by re-prefill and a restore of its sampling state —
+  bit-identical to an uninterrupted run;
 - ``stagger_chunks``, cancel and the watchdog behave as in the JAX package.
 
 All threads launch on one CUDA stream, so their device work serializes.
-Not ported yet (ROADMAP.md): sjf admission, reserved slots, capacity-held
-requests and preemption (they come with paged KV), the native extractor,
-lockstep serving.
+Not ported yet (ROADMAP.md): the native extractor, lockstep serving.
 """
 
 from __future__ import annotations
@@ -67,10 +72,17 @@ class TTSRequest:
     stream_cfg: StreamConfig = dataclasses.field(default_factory=StreamConfig)
     force_speech: bool = False
     noise_seed: int = 0
+    # declared output budget for admission order and KV reservation (None =
+    # sampling.max_tokens)
+    budget_tokens: Optional[int] = None
 
     id: int = dataclasses.field(default_factory=lambda: next(_req_counter))
     events: "queue.Queue" = dataclasses.field(default_factory=queue.Queue)
+    submitted_at: float = dataclasses.field(default_factory=time.perf_counter)
     cancelled: bool = False
+    # set while the request waits to resume after a preemption
+    _resume_state: Optional["_SlotState"] = dataclasses.field(
+        default=None, init=False, repr=False)
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -92,6 +104,11 @@ class _SlotState:
         self.chunk_index = 0
         self._restarts_seen = 0
         self.t0 = time.perf_counter()
+        # preemption resume: the raw token stream (the re-prefill input)
+        # and the sampling-state snapshot taken at preemption
+        self.prompt_ids: List[int] = []
+        self.token_ids: List[int] = []
+        self.resume_snapshot: Optional[dict] = None
 
     def _ms(self) -> float:
         return (time.perf_counter() - self.t0) * 1000.0
@@ -112,6 +129,7 @@ class _SlotState:
                 finished = True
                 break
         self.produced += len(row)
+        self.token_ids.extend(int(t) for t in row)
         self.metrics.tokens = self.produced
         codes = self.extractor.feed_many(row)
         if self.extractor.restart_count != self._restarts_seen:
@@ -162,10 +180,6 @@ class Scheduler:
                  eos_id: int = protocol.TOKEN_EOS, seed: int = 0,
                  device=None):
         ecfg = config.engine
-        if ecfg.admission_policy != "fifo" or ecfg.reserved_short_slots:
-            raise NotImplementedError(
-                "not ported yet: sjf admission / reserved slots "
-                "(ROADMAP.md Queue 1 item 11)")
         self.config = config
         self.vocoder = vocoder
         self.tokenizer = tokenizer
@@ -206,7 +220,13 @@ class Scheduler:
         self.admission_steps = max(2 * ecfg.decode_steps_per_call,
                                    first_codes - 1)
         self._inflight = collections.deque()
+        # requests that fit a free slot but not the paged-KV pool wait here,
+        # ahead of the backlog, until blocks free up
+        self._held = collections.deque()
+        # `pending` is only the cross-thread handoff; the scheduler thread
+        # drains it here and the admission policy picks from this list
         self._backlog: List[TTSRequest] = []
+        self.preemptions = 0    # kv_on_demand preempt-and-resume events
         self.watchdog_s: float = 120.0
         self._last_progress = time.perf_counter()
 
@@ -298,7 +318,16 @@ class Scheduler:
 
     @property
     def n_queued(self) -> int:
-        return self.pending.qsize() + len(self._backlog)
+        """Requests waiting for a slot: handoff queue, policy backlog and
+        capacity-held."""
+        return self.pending.qsize() + len(self._backlog) + len(self._held)
+
+    def _drop_queued(self, req: TTSRequest) -> None:
+        """Remove `req` from whichever wait container holds it."""
+        for box in (self._held, self._backlog):
+            if req in box:
+                box.remove(req)
+                return
 
     # -- scheduler loop ---------------------------------------------------------
 
@@ -361,29 +390,145 @@ class Scheduler:
         self._sp["allowed_max"][slot] = hi
         self._sp["frame_protocol"][slot] = sp.frame_protocol
 
+    def _admit_resume(self, resumes) -> bool:
+        """Re-admit preempted requests: re-prefill prompt + generated[:-1]
+        at a resume bucket, restore the sampling-state snapshot and set
+        last_tok, so the next decode launch continues the stream exactly.
+        Runs only with an empty launch pipeline (step() admits then); the
+        prefill's own sampled token and state are overwritten."""
+        did = False
+        for slot, req, prompt in resumes:
+            state = req._resume_state
+            req._resume_state = None
+            if req.cancelled:
+                req.events.put(("done", StreamMetrics()))
+                continue
+            bucket = self.core.resume_bucket_len(len(prompt))
+            if bucket is None:
+                req.events.put(("error",
+                                "resume re-prefill exceeds resume_buckets"))
+                continue
+            self.slots[slot] = state
+            self._set_sp_row(slot, req.sampling)
+            self.core.prefill_slots([prompt], [slot], self._sampling_params(),
+                                    seeds=[None], bucket=bucket)
+            self.core.restore_slot(slot, state.resume_snapshot)
+            state.resume_snapshot = None
+            self._last_tok[slot] = state.token_ids[-1]
+            self._active[slot] = True
+            did = True
+        return did
+
+    def _capacity_gate(self, batch: List[tuple]) -> None:
+        """Paged KV: drop the newest candidates from `batch` into the held
+        queue until what the rest take fits the free blocks.
+
+        With kv_on_demand, what they take includes the growth of the
+        admission launch, which decodes every live slot and every admitted
+        one for admission_steps: the live slots' deficit and, per fresh
+        slot, its prefill window plus those steps. The JAX gate counted
+        only the reservations, so an admission (or a resume followed by a
+        decode launch) could take the blocks the live slots were about to
+        grow into, and the launch then failed with the pool exhausted —
+        under serving traffic, where requests arrive after the preemption
+        dry run of the same step."""
+        ecfg = self.config.engine
+        bs_blk = ecfg.kv_block_size
+        slack = ecfg.decode_steps_per_call + 1
+        max_seq = self.core.max_seq
+        grow = 0
+        if ecfg.kv_on_demand:
+            grow = bs_blk * sum(
+                self.core._blocks_deficit(self.admission_steps).values())
+
+        def entry_demand(r, p, fresh_bucket):
+            if r._resume_state is not None:
+                b = self.core.resume_bucket_len(len(p)) or max_seq
+                total = min(b + slack + 1, max_seq)
+            elif ecfg.kv_on_demand:
+                # prefill window, grown through the admission launch; later
+                # growth is on demand, and preemption covers exhaustion
+                total = min(fresh_bucket + self.admission_steps + 2, max_seq)
+            else:
+                total = min(fresh_bucket + self._budget(r) + slack, max_seq)
+            return -(-total // bs_blk) * bs_blk
+
+        while batch:
+            fresh = [len(p) for _, r, p in batch if r._resume_state is None]
+            fresh_bucket = self.core.bucket_len(max(fresh)) if fresh else 0
+            demand = sum(entry_demand(r, p, fresh_bucket)
+                         for _, r, p in batch)
+            if demand + grow <= self.core.free_tokens():
+                return
+            _, req, _ = batch.pop()     # defer the newest candidate
+            self._held.appendleft(req)
+
+    @staticmethod
+    def _budget(r: TTSRequest) -> int:
+        return r.budget_tokens or r.sampling.max_tokens
+
     def _admit(self) -> bool:
-        """Admit pending requests FIFO into free slots with ONE fused
-        prefill + decode launch; True if a launch was pushed."""
+        """Admit waiting requests into free slots with ONE fused prefill +
+        decode launch (preempted requests resume first, by re-prefill); True
+        if anything was admitted. Candidates: held requests first (already
+        chosen, deferred only by the capacity gate), then the backlog in
+        policy order."""
         free = [i for i, s in enumerate(self.slots) if s is None]
         while True:
             try:
                 self._backlog.append(self.pending.get_nowait())
             except queue.Empty:
                 break
+        ecfg = self.config.engine
+        # slots >= long_cutoff admit only short requests, so a burst of
+        # long jobs never takes every slot
+        long_cutoff = len(self.slots) - ecfg.reserved_short_slots
+        ordered = list(self._backlog)
+        if ecfg.admission_policy == "sjf" and len(ordered) > 1:
+            # shortest job first with aging: the effective length shrinks
+            # by max_output_len per sjf_aging_ms waited; the sort is
+            # stable, so equal scores keep arrival order
+            now = time.perf_counter()
+            rate = ecfg.max_output_len / max(ecfg.sjf_aging_ms, 1e-6)
+            ordered.sort(key=lambda r: self._budget(r)
+                         - rate * (now - r.submitted_at) * 1000.0)
         batch: List[tuple] = []
-        for req in list(self._backlog):
+        for req in list(self._held) + ordered:
             if not free:
                 break
-            self._backlog.remove(req)
             if req.cancelled:
                 req.events.put(("done", StreamMetrics()))
+                self._drop_queued(req)
                 continue
-            batch.append((free.pop(0), req, self._build_prompt(req)))
+            if self._budget(req) <= ecfg.short_request_tokens:
+                # prefer a reserved slot, so general slots stay open
+                slot = max(free) if max(free) >= long_cutoff else free[0]
+            else:
+                general = [sl for sl in free if sl < long_cutoff]
+                if not general:
+                    continue   # a long request waits for a general slot
+                slot = general[0]
+            free.remove(slot)
+            self._drop_queued(req)
+            rs = req._resume_state
+            if rs is not None:
+                # resume: re-prefill prompt + generated so far; the last
+                # token re-enters as last_tok and the next decode step
+                # writes its KV, as in a live stream
+                batch.append((slot, req, rs.prompt_ids + rs.token_ids[:-1]))
+            else:
+                batch.append((slot, req, self._build_prompt(req)))
+        if ecfg.paged_kv and batch:
+            self._capacity_gate(batch)
+        resumes = [e for e in batch if e[1]._resume_state is not None]
+        batch = [e for e in batch if e[1]._resume_state is None]
+        did = self._admit_resume(resumes) if resumes else False
         if not batch:
-            return False
-        prompts, slots_idx, seeds = [], [], []
+            return did
+        prompts, slots_idx, seeds, extras = [], [], [], []
         for slot, req, prompt in batch:
             state = _SlotState(req, self)
+            state.prompt_ids = list(prompt)
             c = max(1, req.stream_cfg.frames_per_chunk)
             if req.stream_cfg.stagger_chunks and len(self.slots) >= 4 * c:
                 # de-phase this stream's chunk boundary by its slot index
@@ -395,11 +540,12 @@ class Scheduler:
             slots_idx.append(slot)
             seeds.append(req.sampling.seed if req.sampling.seed is not None
                          else req.id)
+            extras.append(self._budget(req))
             self._set_sp_row(slot, req.sampling)
         sp_arr = self._sampling_params()
         toks, tok, act = self.core.prefill_decode_launch(
             prompts, slots_idx, sp_arr, self._last_tok, self._active,
-            n=self.admission_steps, seeds=seeds)
+            n=self.admission_steps, reserve_extra=extras, seeds=seeds)
         with torch.no_grad():
             fused_pcm = self._launch_admit_pcm(toks, batch)
         admitted = set(slots_idx)
@@ -417,6 +563,11 @@ class Scheduler:
     def _release(self, slot: int) -> None:
         self.slots[slot] = None
         self._active[slot] = False
+        if self.config.engine.paged_kv:
+            # release the blocks at once so held requests can admit; a
+            # launch still in flight wrote them before anything enqueued
+            # later can reuse them (one stream)
+            self.core._free_slot_blocks([slot])
 
     def _vocode_tick(self, finishing: List[int]) -> None:
         """Plan every stream's pending window and hand the batch to the
@@ -545,6 +696,77 @@ class Scheduler:
             self._release(slot)
         return True
 
+    # -- preemption (EngineConfig.kv_on_demand) --------------------------------
+
+    def _drain_inflight(self) -> None:
+        """Fetch and process every in-flight launch: the device sampling
+        state has advanced through every launched step, so a preemption
+        snapshot is consistent only once the host has those tokens too."""
+        while self._inflight:
+            self._consume_one()
+
+    def _pick_victim(self) -> Optional[int]:
+        """The youngest resumable live stream: highest request id whose
+        prompt + generated re-prefill fits a resume bucket."""
+        best = None
+        for slot, state in enumerate(self.slots):
+            if state is None or state.req.cancelled or not state.token_ids:
+                continue
+            resume_len = len(state.prompt_ids) + len(state.token_ids) - 1
+            if self.core.resume_bucket_len(resume_len) is None:
+                continue
+            if best is None or state.req.id > best[1]:
+                best = (slot, state.req.id)
+        return best[0] if best is not None else None
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a stream from its slot, keeping what its bit-identical
+        resume needs: the raw token stream and the sampling-state snapshot.
+        The request rejoins the head of the held queue; its emitted audio
+        stands, the stream just gaps."""
+        state = self.slots[slot]
+        state.resume_snapshot = self.core.snapshot_slot(slot)
+        self.core.preempt_slot(slot)
+        self.slots[slot] = None
+        self._active[slot] = False
+        state.req._resume_state = state
+        self._held.appendleft(state.req)
+        self.preemptions += 1
+
+    def _maybe_preempt(self) -> bool:
+        """When the pool cannot cover the next launch's on-demand block
+        growth, preempt youngest-first until it can. Drains the launch
+        pipeline first, so snapshots match the processed stream exactly."""
+        ecfg = self.config.engine
+        if not (ecfg.paged_kv and ecfg.kv_on_demand):
+            return False
+        n = ecfg.decode_steps_per_call
+        if self._backlog or self._held or not self.pending.empty():
+            # an admission launch decodes every live slot for
+            # admission_steps: size the dry run to that
+            n = max(n, self.admission_steps)
+        if not self.core.starved_slots(n):
+            return False
+        self._drain_inflight()
+        while True:
+            starved = self.core.starved_slots(n)
+            if not starved:
+                return True
+            victim = self._pick_victim()
+            if victim is None:
+                # nothing resumable: end the starved streams with a clean
+                # error rather than wedge the engine
+                for sl in starved:
+                    st = self.slots[sl]
+                    if st is not None:
+                        st.req.events.put((
+                            "error", "evicted: KV pool exhausted and stream "
+                            "too long to preempt and resume (raise "
+                            "kv_pool_tokens or resume_buckets)"))
+                        self._release(sl)
+                return True
+            self._preempt(victim)
+
     def _push_decode(self, sp, tok, act) -> None:
         nxt = self.core.decode_steps_launch(sp, tok, act)
         self._inflight.append((nxt, copy_async(*nxt), sp, self._launch_ids(),
@@ -555,9 +777,9 @@ class Scheduler:
         step processes the oldest launch, the next one already runs on the
         device (launched with device-chained tok/active)."""
         self._ensure_vocode_worker()
-        did = False
+        did = self._maybe_preempt()
         while (self._inflight and self.pending.empty() and not self._backlog
-               and self._active.any()
+               and not self._held and self._active.any()
                and len(self._inflight) < PIPELINE_DEPTH):
             (_, tok_d, act_d), _, sp_used, _, _, _ = self._inflight[-1]
             self._push_decode(sp_used, tok_d, act_d)
@@ -576,6 +798,8 @@ class Scheduler:
             if state is not None:
                 state.req.events.put(("error", message))
                 self._release(slot)
+        while self._held:
+            self._held.popleft().events.put(("error", message))
         for req in self._backlog:
             req.events.put(("error", message))
         self._backlog.clear()
@@ -597,7 +821,7 @@ class Scheduler:
             now = time.perf_counter()
             if did_work:
                 self._last_progress = now
-            elif (self.n_active or self._backlog
+            elif (self.n_active or self._held or self._backlog
                   or not self.pending.empty()) \
                     and now - self._last_progress > self.watchdog_s:
                 self.fail_all(

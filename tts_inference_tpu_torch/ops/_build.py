@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-ONE shared library with a plain C interface, which is loaded with ctypes.
+Every ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers they share) is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C interface, which is loaded with ctypes.
 The build runs at first use (never at import: the CPU tests import every
 module, and no CUDA toolkit is needed to run them), into
 ``build/tts_kernels/`` under the repository root, named by a hash of the
@@ -48,7 +48,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -62,6 +62,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tts_decode_attention.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, ll, ll, ctypes.c_float, i, p]
     lib.tts_decode_attention.restype = i
+    lib.tts_paged_attention_splits.argtypes = [i, i]
+    lib.tts_paged_attention_splits.restype = i
+    lib.tts_paged_attention.argtypes = [
+        p, p, p, p, ll, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    lib.tts_paged_attention.restype = i
+    lib.tts_paged_attention_int8.argtypes = [
+        p, p, p, p, p, p, ll, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    lib.tts_paged_attention_int8.restype = i
     lib.tts_fused_residual_unit.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, p]
     lib.tts_fused_residual_unit.restype = i

@@ -84,9 +84,14 @@ class Server(base.Server):
         body["last_request"] = m.as_wire() if m is not None else None
         if self.scheduler is not None:
             s = self.scheduler
-            body["scheduler"] = {"slots": len(s.slots), "active": s.n_active,
-                                 "queued": s.n_queued,
-                                 "vocode_pending": s._vocode_pending}
+            sch = {"slots": len(s.slots), "active": s.n_active,
+                   "queued": s.n_queued, "vocode_pending": s._vocode_pending}
+            ecfg = s.core.engine_cfg
+            if ecfg.paged_kv:
+                sch["kv_free_tokens"] = s.core.free_tokens()
+                if ecfg.kv_on_demand:
+                    sch["preemptions"] = s.preemptions
+            body["scheduler"] = sch
         if self.rt.device.type == "cuda":
             stats = torch.cuda.memory_stats(self.rt.device)
             body["device_memory"] = {
