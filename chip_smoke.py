@@ -7,9 +7,13 @@ no result line is printed:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build of the hand-written kernels from ``tts_inference_tpu_torch/csrc``;
-3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the serve paths' shapes, with max |Δ| and µs per call of both (K1,
-   K6; K3a and K3b over pools filled by the port's own pool writes);
+3. kernel phase: each of the seven kernels (K1, K6, K3a, K3b, K5 over pools
+   filled by the port's own pool writes; K4 and K2 over weights quantized
+   by the port) against its plain PyTorch version on the card, at the serve
+   paths' shapes: max |Δ| and its tolerance, device µs per call of both (a
+   CUDA graph of the calls, replayed), the least time the card could take
+   (bytes or operations), and the time of the one PyTorch call that
+   computes the same function where there is one;
 4. serve phase: the full Orpheus-3B + SNAC 24 kHz geometry with seeded
    random weights behind the port's aiohttp server (``cli serve``
    defaults: 8 slots, max_seq 4608, dense bf16 KV); 8 concurrent
@@ -27,10 +31,19 @@ no result line is printed:
 9. paged reference: the tiny slice paged (K3a), dense int8 and paged int8
    (K3b) on the card against the CPU, and a preempt → resume on the card
    against the same requests served without preemption;
-10. the card line, the kernels' JSON line, and last
+10. int4 serve phase: ``serve --quantize --weight-bits 4 --paged-kv
+    --kv-int4``; K4 carries every layer linear of every forward pass, K5
+    every decode step, K2 the head; K1, K3a, K3b none;
+11. int8 weights serve phase: ``serve --quantize``; K2 carries every linear
+    and the head, K1 every decode step;
+12. quantized reference: the tiny slice with int4 weights + int4 KV and with
+    int8 weights on the card against the same quantized leaves on the CPU;
+13. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX. Exits nonzero without a card.
+Imports nothing of JAX and nothing of the JAX package. Exits nonzero
+without a card. ``--only PHASES`` runs some phases during development and
+prints no result line.
 """
 
 from __future__ import annotations
@@ -46,23 +59,61 @@ import time
 import torch
 
 K1_TOL = 2e-2    # bf16 inputs; compared in f32
-K3_TOL = 2e-2    # K3a/K3b: bf16 queries and outputs; compared in f32
+K3_TOL = 2e-2    # K3a/K3b/K5: bf16 queries and outputs; compared in f32
 K6_TOL = 1e-4    # f32 with TF32 off on both sides
+# K4/K2: the kernel and the plain version both accumulate in f32, in another
+# order, and round once: a bf16 output may differ by one bf16 step of the
+# largest output (2^-7 relative), an f32 output by summation order only
+QMM_TOL_BF16 = 2.0 ** -7
+QMM_TOL_F32 = 1e-4
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
+# device memory, dense bf16 tensor cores, f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time per call, by CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 3, rotate=None,
+            replays: int = 3) -> float:
+    """Mean DEVICE time per call: `iters` calls are captured into a CUDA
+    graph, and CUDA events time `replays` replays of it, so the host's time
+    to enqueue a call (tens of µs of Python per wrapper call, more than most
+    of these kernels run) is not in the number. With `rotate` (a list of
+    argument tuples whose tensors together exceed the 50 MB L2), call i gets
+    rotate[i % len]: the weights then come from device memory, as on the
+    serve path, where 28 layers' weights pass between two uses of one."""
+    calls = [fn] if rotate is None else [
+        (lambda a=a: fn(*a)) for a in rotate]
+    iters = max(iters, len(calls))
+    for i in range(max(warmup, len(calls))):
+        calls[i % len(calls)]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
 
 
 def card_line() -> str:
@@ -86,7 +137,36 @@ def build_phase() -> float:
     return dt
 
 
+def _report(name: str, shape: str, err: float, tol: float, ms: float,
+            plain_ms: float, bnd: dict, library_ms=None, extra: str = ""):
+    """Print one kernel case and fail it when the kernel disagrees with its
+    plain version."""
+    lib = "none" if library_ms is None else f"{library_ms * 1e3:.1f} us"
+    print(f"{name} {shape}: max|d|={err:.3e} (tol {tol:.1e}) kernel "
+          f"{ms * 1e3:.1f} us plain {plain_ms * 1e3:.1f} us bound "
+          f"{bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']} library "
+          f"{lib}{extra}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{name} {shape}: max|d| {err} > {tol}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": library_ms}
+
+
+def _attention_bound(pos, hkv: int, g: int, d: int, kv_bytes_per_key: float,
+                     q_bytes: int) -> dict:
+    """Decode attention reads the keys and values j <= pos[b] of every kv
+    head once (kv_bytes_per_key bytes for one head's K and V rows together,
+    scales included), reads q and writes the output; 4·G·D operations per
+    key and head (q·k and p·v)."""
+    keys = int((pos.long() + 1).sum())
+    b = pos.numel()
+    nbytes = keys * hkv * kv_bytes_per_key + 2 * b * hkv * g * d * q_bytes
+    return bound(nbytes, 4.0 * g * d * keys * hkv, "bf16")
+
+
 def _k1_case(w: int, gen: torch.Generator):
+    import torch.nn.functional as F
+
     from tts_inference_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
 
@@ -106,24 +186,25 @@ def _k1_case(w: int, gen: torch.Generator):
     err = (got.float() - want.float()).abs().max().item()
     ms = time_ms(lambda: decode_attention(q, k, v, pos))
     plain = time_ms(lambda: decode_attention_reference(q, k, v, pos))
-    print(f"K1 decode_attention B8 Hkv8 G3 D128 bf16 W{w}: "
-          f"max|d|={err:.3e} kernel {ms * 1e3:.1f} us plain "
-          f"{plain * 1e3:.1f} us", flush=True)
-    if not err <= K1_TOL:
-        raise AssertionError(f"K1 W={w}: max|d| {err} > {K1_TOL}")
-    return err, ms, plain
+    # the library call: one scaled_dot_product_attention over the same
+    # window with the position mask (timed here, used nowhere in the port)
+    qs = q.reshape(b, hkv * g, 1, d)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(w, device=dev)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True))
+    return _report("K1 decode_attention", f"B8 Hkv8 G3 D128 bf16 W{w}", err,
+                   K1_TOL, ms, plain,
+                   _attention_bound(pos, hkv, g, d, 2 * d * 2, 2), lib)
 
 
-def _k3_case(int8: bool, b: int, w: int, gen: torch.Generator):
-    """K3a (bf16 pools) or K3b (int8 pools) at (B, W) with the serve path's
-    Hkv 8, G 3, D 128 and block 128. Pools are written by the port's own
-    pool_scatter / _quantize_kv from random bf16 K/V; each slot holds a
-    random number of blocks at random pool rows (slot 0 the whole window,
-    slot 1 one block), its table row is 0 past its last block, and the
-    kernel reads a column slice of a wider table, as the engine hands it."""
-    from tts_inference_tpu_torch.models.llama import _quantize_kv, pool_scatter
-    from tts_inference_tpu_torch.ops import paged_attention as pa
-
+def _paged_case_inputs(b: int, w: int, gen: torch.Generator):
+    """Random paged-attention inputs at the serve path's Hkv 8, G 3, D 128
+    and block 128: each slot holds a random number of blocks at random pool
+    rows (slot 0 the whole window, slot 1 one block), its table row is 0
+    past its last block, and the kernels read a column slice of a wider
+    table, as the engine hands it."""
     hkv, g, d, bs = 8, 3, 128, 128
     dev = "cuda"
     wb = w // bs
@@ -143,7 +224,36 @@ def _k3_case(int8: bool, b: int, w: int, gen: torch.Generator):
     q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
     kv = [torch.randn(b, w, hkv, d, generator=gen, device=dev).bfloat16()
           for _ in range(2)]
-    if int8:
+    return n, table[:, :wb], pos, rows, offs, q, kv
+
+
+def _k3_case(kind: str, b: int, w: int, gen: torch.Generator):
+    """K3a (bf16 pools), K3b (int8 pools) or K5 (int4 pools packed by head
+    pair) at (B, W). Pools are written by the port's own pool_scatter and
+    quantizers from random bf16 K/V. No PyTorch call computes attention
+    over a block pool, so there is no library time."""
+    from tts_inference_tpu_torch.models.llama import _quantize_kv, pool_scatter
+    from tts_inference_tpu_torch.ops import paged_attention as pa
+    from tts_inference_tpu_torch.ops import paged_attention_int4 as pa4
+
+    hkv, g, d, bs = 8, 3, 128, 128
+    dev = "cuda"
+    n, table, pos, rows, offs, q, kv = _paged_case_inputs(b, w, gen)
+    if kind == "K5":
+        pools = [torch.zeros(n, hkv // 2, bs, d, dtype=torch.int8, device=dev)
+                 for _ in range(2)]
+        scales = [torch.zeros(n, 2, hkv // 2, bs, device=dev)
+                  for _ in range(2)]
+        for pool, sc, x in zip(pools, scales, kv):
+            xq, xs = pa4.quantize_kv_int4(x)
+            pool_scatter(pool, rows, offs, xq)
+            pool_scatter(sc, rows, offs, pa4.scales_to_planes(xs), n_mid=2)
+        args = (q, *pools, *scales, table, pos)
+        kern = pa4.paged_decode_attention_int4
+        plain = pa4.paged_decode_attention_int4_reference
+        name, what, key_bytes = ("K5 paged_decode_attention_int4", "int4",
+                                 2 * (d / 2 + 4))
+    elif kind == "K3b":
         pools = [torch.zeros(n, hkv, bs, d, dtype=torch.int8, device=dev)
                  for _ in range(2)]
         scales = [torch.zeros(n, hkv, bs, device=dev) for _ in range(2)]
@@ -151,31 +261,29 @@ def _k3_case(int8: bool, b: int, w: int, gen: torch.Generator):
             xq, xs = _quantize_kv(x)
             pool_scatter(pool, rows, offs, xq)
             pool_scatter(sc, rows, offs, xs)
-        args = (q, *pools, *scales, table[:, :wb], pos)
+        args = (q, *pools, *scales, table, pos)
         kern = pa.paged_decode_attention_int8
         plain = pa.paged_decode_attention_int8_reference
+        name, what, key_bytes = ("K3b paged_decode_attention_int8", "int8",
+                                 2 * (d + 4))
     else:
         pools = [torch.zeros(n, hkv, bs, d, dtype=torch.bfloat16, device=dev)
                  for _ in range(2)]
         for pool, x in zip(pools, kv):
             pool_scatter(pool, rows, offs, x)
-        args = (q, *pools, table[:, :wb], pos)
+        args = (q, *pools, table, pos)
         kern = pa.paged_decode_attention
         plain = pa.paged_decode_attention_reference
+        name, what, key_bytes = "K3a paged_decode_attention", "bf16", 2 * d * 2
     got = kern(*args)
     want = plain(*args)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ms = time_ms(lambda: kern(*args))
     plain_ms = time_ms(lambda: plain(*args))
-    name = "K3b paged_decode_attention_int8" if int8 \
-        else "K3a paged_decode_attention"
-    print(f"{name} B{b} Hkv8 G3 D128 bs128 {'int8' if int8 else 'bf16'} "
-          f"W{w}: max|d|={err:.3e} kernel {ms * 1e3:.1f} us plain "
-          f"{plain_ms * 1e3:.1f} us", flush=True)
-    if not err <= K3_TOL:
-        raise AssertionError(f"{name} B={b} W={w}: max|d| {err} > {K3_TOL}")
-    return err, ms, plain_ms
+    return _report(name, f"B{b} Hkv8 G3 D128 bs128 {what} W{w}", err, K3_TOL,
+                   ms, plain_ms,
+                   _attention_bound(pos, hkv, g, d, key_bytes, 2))
 
 
 def _k6_unit(c: int, gen: torch.Generator):
@@ -193,6 +301,10 @@ def _k6_unit(c: int, gen: torch.Generator):
 
 
 def _k6_case(c: int, t: int, dil: int, gen: torch.Generator):
+    """One residual unit. Its plain version IS the library sequence (two
+    snakes in elementwise calls, a depthwise and a pointwise cuDNN
+    convolution, an add): no single PyTorch call computes the unit, so the
+    sequence's time stands as the library time."""
     from tts_inference_tpu_torch.ops.vocoder import (
         fused_residual_unit, fused_residual_unit_reference)
 
@@ -210,20 +322,127 @@ def _k6_case(c: int, t: int, dil: int, gen: torch.Generator):
     err = (got - want).abs().max().item()
     ms = time_ms(lambda: fused_residual_unit(x, p, dil, valid))
     plain = time_ms(lambda: fused_residual_unit_reference(x, p, dil, valid))
-    print(f"K6 fused_residual_unit B8 C{c} T{t} dil{dil} f32: "
-          f"max|d|={err:.3e} kernel {ms * 1e3:.1f} us plain "
-          f"{plain * 1e3:.1f} us", flush=True)
-    if not err <= K6_TOL:
-        raise AssertionError(f"K6 C={c} dil={dil}: max|d| {err} > {K6_TOL}")
-    return err, ms, plain
+    # x read and the output written once, the weights once; the pointwise
+    # product (2·C per output element), the 7-tap depthwise convolution and
+    # two snakes (~8 operations each), in f32
+    elems = b * t * c
+    bnd = bound(4.0 * (2 * elems + c * c + 10 * c),
+                elems * (2.0 * c + 14 + 16), "f32")
+    return _report("K6 fused_residual_unit", f"B8 C{c} T{t} dil{dil} f32",
+                   err, K6_TOL, ms, plain, bnd, plain)
+
+
+def _qmm_weight(k: int, n: int, dtype, gen: torch.Generator):
+    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+    return w.to(dtype)
+
+
+def _qmm_finish(name, shape, x, kern, plain, rotate, out_f32, wbytes, k, n,
+                ctx_weight=None):
+    """Compare one quantized matmul with its plain version and time both
+    over weights that rotate through more than the L2 holds. No PyTorch call
+    multiplies by these packed formats, so there is no library time; the
+    bf16 ``torch.matmul`` of the same (M, K, N) is printed as context."""
+    m = x.numel() // k
+    got = kern(*rotate[0])
+    want = plain(*rotate[0])
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    tol = (QMM_TOL_F32 * max(1.0, top) if out_f32 or x.dtype == torch.float32
+           else QMM_TOL_BF16 * top)
+    ms = time_ms(kern, rotate=rotate)
+    plain_ms = time_ms(plain, rotate=rotate)
+    xb = 4 if x.dtype == torch.float32 else 2
+    ob = 4 if out_f32 else xb
+    bnd = bound(wbytes + m * k * xb + m * n * ob, 2.0 * m * k * n,
+                "f32" if x.dtype == torch.float32 else "bf16")
+    extra = ""
+    res_extra = {}
+    if ctx_weight is not None:
+        ws = [ctx_weight() for _ in range(_copies(2 * k * n))]
+        xbf = x.bfloat16()
+        ctx = time_ms(lambda w: xbf @ w, rotate=[(w,) for w in ws])
+        extra = f"; bf16 torch.matmul of the same shape {ctx * 1e3:.1f} us"
+        res_extra = {"bf16_matmul_ms": ctx}
+    res = _report(name, shape, err, tol, ms, plain_ms, bnd, None, extra)
+    return {**res, **res_extra}
+
+
+def _copies(nbytes: int) -> int:
+    """How many weight copies a timing rotates through: more than 60 MB,
+    at most 40 (small weights)."""
+    return min(40, max(2, -(-60_000_000 // nbytes)))
+
+
+def _k4_case(m: int, k: int, n: int, group: int, dtype,
+             gen: torch.Generator, context: bool = False):
+    from tts_inference_tpu_torch.models.quant import quantize_linear_i4
+    from tts_inference_tpu_torch.ops.int4_matmul import (int4_mm,
+                                                         int4_mm_reference)
+
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    qs = [quantize_linear_i4(_qmm_weight(k, n, dtype, gen), group)
+          for _ in range(_copies(k * n // 2))]
+    g = k // qs[0].scale.shape[0]
+    wbytes = qs[0].w_p.shape[0] * n + qs[0].scale.numel() * 4
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    return _qmm_finish(
+        "K4 int4_mm", f"M{m} K{k} N{n} G{g} {dt}", x, int4_mm,
+        int4_mm_reference, [(x, q.w_p, q.scale) for q in qs], False, wbytes,
+        k, n, (lambda: _qmm_weight(k, n, torch.bfloat16, gen))
+        if context else None)
+
+
+def _k2_case(m: int, k: int, n: int, gen: torch.Generator,
+             context: bool = False):
+    from tts_inference_tpu_torch.models.quant import quantize_linear
+    from tts_inference_tpu_torch.ops.int4_matmul import w8_mm, w8_mm_reference
+
+    x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    qs = [quantize_linear(_qmm_weight(k, n, torch.bfloat16, gen))
+          for _ in range(_copies(k * n))]
+    return _qmm_finish(
+        "K2 w8_mm", f"M{m} K{k} N{n} (in, out) bf16", x, w8_mm,
+        w8_mm_reference, [(x, q.w_i8, q.scale) for q in qs], False,
+        k * n + 4 * n, k, n,
+        (lambda: _qmm_weight(k, n, torch.bfloat16, gen)) if context else None)
+
+
+def _k2_head_case(gen: torch.Generator):
+    """The tied head: the last 28,940 rows of a (156,940, 3072) int8
+    embedding, read in place as a row slice, f32 logits."""
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.models.quant import QuantEmbed
+    from tts_inference_tpu_torch.ops.int4_matmul import w8_mm, w8_mm_reference
+
+    v, h, base, m = 156940, 3072, protocol.HEAD_SLICE_BASE, 8
+    emb = QuantEmbed(
+        torch.randint(-127, 128, (v, h), generator=gen, device="cuda",
+                      dtype=torch.int8),
+        torch.rand(v, generator=gen, device="cuda") * 1e-3 + 1e-4)
+    x = torch.randn(m, h, generator=gen, device="cuda").bfloat16()
+    n = v - base
+
+    def kern(x, w, s):
+        return w8_mm(x, w, s, rows=True, out_dtype=torch.float32)
+
+    def plain(x, w, s):
+        return w8_mm_reference(x, w, s, rows=True, out_dtype=torch.float32)
+
+    return _qmm_finish("K2 w8_mm", f"M{m} K{h} N{n} rows [{base}:] of "
+                       f"({v}, {h}), f32 out", x, kern, plain,
+                       [(x, emb.w_i8[base:], emb.scale[base:])], True,
+                       n * h + 4 * n, h, n)
 
 
 def kernel_phase() -> dict:
-    """Each kernel against its plain version at the serve path's shapes."""
+    """Each kernel against its plain version at the serve paths' shapes."""
     # the vocoder's f32 parity needs full-precision cuDNN and matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
     k1 = {w: _k1_case(w, gen) for w in (256, 512, 2048, 4608)}
     # SNAC 24 kHz: (C, T per frame) after each upsample stage, 16-frame bucket
     k6 = {}
@@ -231,23 +450,50 @@ def kernel_phase() -> dict:
         for dil in (1, 3, 9):
             k6[(c, dil)] = _k6_case(c, 16 * t_frame, dil, gen)
     # the serve windows at 8 slots; the long-audio window (bench.py --mode
-    # long: 4 slots, 12,160 positions = 95 blocks); 64 paged int8 slots
-    k3a = {(b, w): _k3_case(False, b, w, gen)
+    # long: 4 slots, 12,160 positions = 95 blocks); 64 paged quantized slots
+    k3a = {(b, w): _k3_case("K3a", b, w, gen)
            for b, w in ((8, 512), (8, 2048), (8, 4608), (4, 12160))}
-    k3b = {(b, w): _k3_case(True, b, w, gen)
+    k3b = {(b, w): _k3_case("K3b", b, w, gen)
            for b, w in ((8, 512), (8, 2048), (8, 4608), (64, 512))}
+    k5 = {(b, w): _k3_case("K5", b, w, gen)
+          for b, w in ((8, 512), (8, 2048), (8, 4608), (4, 12160), (64, 512))}
+    # the Orpheus-3B linears (q/o, k/v, gate/up, down) at a decode step's
+    # M 8; a finer group; odd M; a prefill M; the tiny configuration's f32
+    # linears (K 64 / 128, groups 32 / 64, N 64 padded to 128 columns)
+    linears = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
+    k4 = {(8, k, n): _k4_case(8, k, n, 512, bf16, gen, context=True)
+          for k, n in linears}
+    k4[(8, 3072, 8192, 128)] = _k4_case(8, 3072, 8192, 128, bf16, gen)
+    for m in (1, 3, 512):
+        k4[(m, 3072, 3072)] = _k4_case(m, 3072, 3072, 512, bf16, gen,
+                                       context=m == 512)
+    for k, n in ((64, 64), (64, 32), (64, 128), (128, 64)):
+        k4[(4, k, n)] = _k4_case(4, k, n, 512, f32, gen)
+    k2 = {(8, k, n): _k2_case(8, k, n, gen, context=True) for k, n in linears}
+    k2[(512, 3072, 3072)] = _k2_case(512, 3072, 3072, gen, context=True)
+    k2["head"] = _k2_head_case(gen)
+
+    def worst(cases):
+        return max(c["max_abs_err"] for c in cases.values())
+
+    def summed(cases):
+        out = {"max_abs_err": worst(cases),
+               "bound_by": next(iter(cases.values()))["bound_by"]}
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            out[key] = sum(c[key] for c in cases.values())
+        return out
+
     return {
-        "K1": {"max_abs_err": max(e for e, _, _ in k1.values()),
-               # the window the serve phase's decode steps mostly read
-               "ms": k1[512][1], "plain_ms": k1[512][2]},
-        "K3a": {"max_abs_err": max(e for e, _, _ in k3a.values()),
-                "ms": k3a[(8, 512)][1], "plain_ms": k3a[(8, 512)][2]},
-        "K3b": {"max_abs_err": max(e for e, _, _ in k3b.values()),
-                "ms": k3b[(8, 512)][1], "plain_ms": k3b[(8, 512)][2]},
-        "K6": {"max_abs_err": max(e for e, _, _ in k6.values()),
-               # all 12 units of one 8-row, 16-frame vocoder call
-               "ms": sum(m for _, m, _ in k6.values()),
-               "plain_ms": sum(p for _, _, p in k6.values())},
+        # the window the serve phases' decode steps mostly read
+        "K1": {**k1[512], "max_abs_err": worst(k1)},
+        "K3a": {**k3a[(8, 512)], "max_abs_err": worst(k3a)},
+        "K3b": {**k3b[(8, 512)], "max_abs_err": worst(k3b)},
+        "K5": {**k5[(8, 512)], "max_abs_err": worst(k5)},
+        # all 12 units of one 8-row, 16-frame vocoder call
+        "K6": summed(k6),
+        # the gate / up projection of a decode step, the largest linear
+        "K4": {**k4[(8, 3072, 8192)], "max_abs_err": worst(k4)},
+        "K2": {**k2[(8, 3072, 8192)], "max_abs_err": worst(k2)},
     }
 
 
@@ -328,20 +574,35 @@ async def _drive(port: int, generate: bool) -> dict:
 
 
 def _launch_counters() -> dict:
-    from tts_inference_tpu_torch.ops import (decode_attention,
-                                             paged_attention, vocoder)
+    from tts_inference_tpu_torch.ops import (decode_attention, int4_matmul,
+                                             paged_attention,
+                                             paged_attention_int4, vocoder)
 
     return {"K1": decode_attention.launches, "K3a": paged_attention.launches,
-            "K3b": paged_attention.launches_int8, "K6": vocoder.launches}
+            "K3b": paged_attention.launches_int8,
+            "K5": paged_attention_int4.launches, "K6": vocoder.launches,
+            "K4": int4_matmul.launches, "K2": int4_matmul.launches_w8}
 
 
-def serve_phase(name: str, argv, attention: str, generate: bool = True,
+# launches of a kernel in a serve phase, from (layers, decode steps, forward
+# passes = decode steps + prefills): an attention kernel runs once per layer
+# and decode step, the 7 linears of a layer once per layer and forward pass,
+# the head once per forward pass
+PER_STEP = lambda layers, steps, passes: layers * steps          # noqa: E731
+LINEARS = lambda layers, steps, passes: 7 * layers * passes      # noqa: E731
+HEAD = lambda layers, steps, passes: passes                      # noqa: E731
+LINEARS_AND_HEAD = lambda layers, steps, passes: (               # noqa: E731
+    7 * layers + 1) * passes
+
+
+def serve_phase(name: str, argv, expect: dict, generate: bool = True,
                 min_preemptions: int = 0) -> dict:
     """Build `cli serve` (runtime + scheduler) from `argv`, put the port's
     aiohttp app on a localhost port and drive it: 8 concurrent /ws/tts
-    streams, then (with `generate`) one /generate, then /metrics. The
-    `attention` kernel (K1, K3a or K3b) must carry every decode step of
-    every layer in that window and the other two none; K6 must run."""
+    streams, then (with `generate`) one /generate, then /metrics. `expect`
+    maps each kernel of the phase's path to its launch count as a function
+    of (layers, decode steps, forward passes); every kernel it does not name
+    must not run, except K6, which must."""
     from aiohttp import web
 
     from tts_inference_tpu_torch import cli
@@ -351,11 +612,14 @@ def serve_phase(name: str, argv, attention: str, generate: bool = True,
     t0 = time.perf_counter()
     rt, scheduler = cli.build_serving(args)
     core = scheduler.core
+    kv = (" int4" if getattr(core.cache, "int4", False)
+          else " int8" if core.cache.quantized else "")
+    weights = type(core.params["layers"][0]["wq"]).__name__
     print(f"serve[{name}]: runtime + warmup {time.perf_counter() - t0:.1f} s "
           f"on {rt.device}; {rt.config.model.num_hidden_layers} layers, "
           f"hidden {rt.config.model.hidden_size}, {core.batch} slots, "
           f"max_seq {core.max_seq}, cache {type(core.cache).__name__}"
-          f"{' int8' if core.cache.quantized else ''}, free KV tokens "
+          f"{kv}, weights {weights}, free KV tokens "
           f"{core.free_tokens()}", flush=True)
     port = _free_port()
     cores = (core, rt.engine.core)
@@ -379,8 +643,10 @@ def serve_phase(name: str, argv, attention: str, generate: bool = True,
         for c in counters.values():
             c.reset()
         steps0 = sum(c.decode_steps for c in cores)
+        prefills0 = sum(c.prefills for c in cores)
         res = asyncio.run(run())
         steps = sum(c.decode_steps for c in cores) - steps0
+        passes = steps + sum(c.prefills for c in cores) - prefills0
         launches = {k: c.count for k, c in counters.items()}
     finally:
         scheduler.stop()
@@ -393,13 +659,15 @@ def serve_phase(name: str, argv, attention: str, generate: bool = True,
     if generate and res["generate_samples"] != PCM_BYTES // 2:
         raise AssertionError(f"/generate: {res['generate_samples']} samples")
     on_cuda = rt.device.type == "cuda"
-    others = [k for k in ("K1", "K3a", "K3b") if k != attention]
-    if on_cuda and not (launches[attention] >= layers * steps > 0
-                        and launches["K6"] > 0
+    want = {k: fn(layers, steps, passes) for k, fn in expect.items()}
+    others = [k for k in launches if k not in want and k != "K6"]
+    if on_cuda and not (steps > 0 and launches["K6"] > 0
+                        and all(launches[k] == n for k, n in want.items())
                         and all(launches[k] == 0 for k in others)):
         raise AssertionError(f"serve[{name}] kernel launches {launches}: "
-                             f"need {attention} >= {layers} x {steps} steps, "
-                             f"K6 > 0, {others} == 0")
+                             f"need {want} for {layers} layers, {steps} "
+                             f"decode steps, {passes} forward passes, K6 > 0,"
+                             f" {others} == 0")
     sched_metrics = res["metrics"]["scheduler"]
     if sched_metrics.get("preemptions", 0) < min_preemptions:
         raise AssertionError(f"serve[{name}]: /metrics {sched_metrics}, "
@@ -414,7 +682,8 @@ def serve_phase(name: str, argv, attention: str, generate: bool = True,
         "aggregate_rtf": N_STREAMS * audio_s / res["wave_s"],
         "wave_wall_s": res["wave_s"],
         "generate_wall_s": res.get("generate_s"),
-        "decode_steps": steps, "launches": launches,
+        "decode_steps": steps, "forward_passes": passes,
+        "launches": launches,
         "scheduler_metrics": sched_metrics,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if on_cuda else None),
@@ -436,8 +705,8 @@ def exactness_phase(rt) -> dict:
     the windowed lookahead (the streaming path), compared in PCM16."""
     import numpy as np
 
-    from tts_inference_tpu import protocol
-    from tts_inference_tpu.config import SamplingConfig
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig
     from tts_inference_tpu_torch.models.snac import to_pcm16
     from tts_inference_tpu_torch.streaming.lookahead import \
         LookaheadStreamingDecoder
@@ -488,32 +757,35 @@ def _copy_tree(dst, src) -> None:
     if isinstance(dst, dict):
         for k in dst:
             _copy_tree(dst[k], src[k])
-    elif isinstance(dst, list):
+    elif isinstance(dst, (list, tuple)):   # tuples: the quantized leaves
         for d, s in zip(dst, src):
             _copy_tree(d, s)
     elif dst is not None:
         dst.copy_(src)
 
 
-def _tiny_pair(device, **engine_over):
+def _tiny_pair(device, quantize=False, weight_bits=8, **engine_over):
     """The tiny_config() runtime on the CPU and on `device` (the card), with
-    the same weights (the card's copied from the CPU's)."""
-    from tts_inference_tpu.config import tiny_config
+    the same weights (the card's copied from the CPU's, quantized leaves
+    byte for byte)."""
+    from tts_inference_tpu_torch.config import tiny_config
     from tts_inference_tpu_torch.runtime import Runtime
 
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine,
                                                               **engine_over))
-    cpu = Runtime.create(cfg, seed=0, device="cpu")
-    gpu = Runtime.create(cfg, seed=0, device=device)
+    cpu = Runtime.create(cfg, seed=0, device="cpu", quantize=quantize,
+                         weight_bits=weight_bits)
+    gpu = Runtime.create(cfg, seed=0, device=device, quantize=quantize,
+                         weight_bits=weight_bits)
     _copy_tree(gpu.engine.core.params, cpu.engine.core.params)
     _copy_tree(gpu.vocoder.params, cpu.vocoder.params)
     return cpu, gpu
 
 
 def _tiny_sampling():
-    from tts_inference_tpu import protocol
-    from tts_inference_tpu.config import SamplingConfig
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig
 
     return SamplingConfig(
         greedy=True, max_tokens=70,
@@ -523,19 +795,24 @@ def _tiny_sampling():
 
 def _cpu_top2_gap(rt, prompt, toks, i, sampling) -> float:
     """The CPU's logit gap between the best and the second-best allowed
-    token at greedy step i: prompt + toks[:i] prefilled into a paged int8
-    cache, then the repetition penalty and the token range applied as the
-    sampler applies them."""
+    token at greedy step i: prompt + toks[:i] prefilled into a cache of the
+    runtime's kind, then the repetition penalty and the token range applied
+    as the sampler applies them."""
     from tts_inference_tpu_torch.models import llama
     from tts_inference_tpu_torch.ops import sampling as S
 
     core, cfg = rt.engine.core, rt.config.model
-    bs = rt.config.engine.kv_block_size
-    nblk = core.max_seq // bs
-    cache = llama.init_paged_kv_cache(cfg, 1, core.max_seq,
-                                      num_blocks=1 + nblk, block_size=bs,
-                                      int8=True)
-    cache.block_table[0] = torch.arange(1, 1 + nblk, dtype=torch.int32)
+    ecfg = rt.config.engine
+    if ecfg.paged_kv:
+        bs = ecfg.kv_block_size
+        nblk = core.max_seq // bs
+        cache = llama.init_paged_kv_cache(
+            cfg, 1, core.max_seq, num_blocks=1 + nblk, block_size=bs,
+            int8=ecfg.kv_cache_int8, int4=ecfg.kv_cache_int4)
+        cache.block_table[0] = torch.arange(1, 1 + nblk, dtype=torch.int32)
+    else:
+        cache = llama.init_kv_cache(cfg, 1, core.max_seq,
+                                    int8=ecfg.kv_cache_int8)
     ids = torch.tensor([list(prompt) + list(toks[:i])], dtype=torch.int32)
     n = torch.tensor([ids.shape[1]], dtype=torch.int32)
     logits, _ = llama.prefill(core.params, cfg, ids, n, cache,
@@ -552,15 +829,16 @@ def _cpu_top2_gap(rt, prompt, toks, i, sampling) -> float:
     return float(top[0] - top[1])
 
 
-def _tiny_check(name: str, device, flip_gap=None, **engine_over) -> dict:
+def _tiny_check(name: str, device, flip_gap=None, quantize=False,
+                weight_bits=8, **engine_over) -> dict:
     """Greedy tokens of the tiny slice equal on the card and the CPU, and
     PCM within PCM16_TOL. With `flip_gap`, a differing token is allowed
-    where the CPU's top-2 logit gap is at most flip_gap (a one-level int8
-    rounding flip between the machines); the phase prints the step and the
-    gap, and compares no PCM then."""
+    where the CPU's top-2 logit gap is at most flip_gap (a one-level
+    rounding flip of a quantized KV entry between the machines); the phase
+    prints the step and the gap, and compares no PCM then."""
     import numpy as np
 
-    cpu, gpu = _tiny_pair(device, **engine_over)
+    cpu, gpu = _tiny_pair(device, quantize, weight_bits, **engine_over)
     sampling = _tiny_sampling()
     prompt = cpu.pipeline.build_prompt("hello", force_speech=True)
     toks = [[t for c in r.engine.stream(prompt, sampling) for t in c]
@@ -637,8 +915,8 @@ def _preempt_run(rt, pool_tokens: int) -> dict:
     """Two stochastic requests (repetition penalty on) through a scheduler
     on the card over a paged on-demand pool of `pool_tokens`; returns each
     request's tokens and PCM and the preemption count."""
-    from tts_inference_tpu import protocol
-    from tts_inference_tpu.config import SamplingConfig, StreamConfig
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig, StreamConfig
     from tts_inference_tpu_torch.engine import scheduler as TS
 
     class Recording(TS.Scheduler):
@@ -702,7 +980,7 @@ def paged_reference_phase(device="cuda") -> dict:
     table's ordering on the stream that the CPU cannot make."""
     import numpy as np
 
-    from tts_inference_tpu.config import tiny_config
+    from tts_inference_tpu_torch.config import tiny_config
     from tts_inference_tpu_torch.runtime import Runtime
 
     res = {}
@@ -739,6 +1017,24 @@ def paged_reference_phase(device="cuda") -> dict:
     return res
 
 
+def quant_reference_phase(device="cuda") -> dict:
+    """The tiny slice on the card against the CPU from the same quantized
+    leaves: int4 weights + int4 KV pools (K4 on every layer linear, K5, K2
+    on the head) and int8 weights over the dense cache (K2, K1). A differing
+    greedy token is allowed only where the CPU's top-2 logit gap is <= 1e-3
+    (quantized KV entries round at near-ties between the machines)."""
+    res = {}
+    with torch.no_grad():
+        res["int4"] = _tiny_check("int4", device, flip_gap=1e-3,
+                                  quantize=True, weight_bits=4, paged_kv=True,
+                                  kv_cache_int4=True, kv_block_size=16)
+        res["int8w"] = _tiny_check("int8w", device, flip_gap=1e-3,
+                                   quantize=True, weight_bits=8)
+    print("reference[quant]: card vs CPU on tiny_config", json.dumps(res),
+          flush=True)
+    return res
+
+
 def _free(phase: dict) -> None:
     """Drop a full-width runtime before the next one is built."""
     phase.pop("rt", None)
@@ -747,7 +1043,34 @@ def _free(phase: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+KERNELS = (
+    # key, name, source under tts_inference_tpu_torch/csrc, the TPU kernel
+    ("K1", "decode_attention", "decode_attention.cu",
+     "tts_inference_tpu/ops/pallas/decode_attention.py:97"),
+    ("K6", "fused_residual_unit", "vocoder.cu",
+     "tts_inference_tpu/ops/pallas/vocoder.py:212"),
+    ("K3a", "paged_decode_attention", "paged_attention.cu",
+     "tts_inference_tpu/ops/pallas/paged_attention.py:224"),
+    ("K3b", "paged_decode_attention_int8", "paged_attention.cu",
+     "tts_inference_tpu/ops/pallas/paged_attention.py:286"),
+    ("K4", "int4_mm", "quant_matmul.cu",
+     "tts_inference_tpu/ops/pallas/int4_matmul.py:192"),
+    ("K5", "paged_decode_attention_int4", "paged_attention.cu",
+     "tts_inference_tpu/ops/pallas/paged_attention_int4.py:285"),
+    ("K2", "w8_mm", "quant_matmul.cu", None),   # no TPU original
+)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help="development: run only these phases (comma list of "
+                         "kernels, dense, paged, quant) and print no result "
+                         "line; the full run takes no arguments")
+    only = ap.parse_args(argv).only
+    only = set(only.split(",")) if only else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -758,39 +1081,56 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     build_phase()
-    kern = kernel_phase()
-    dense = serve_phase("dense", ["serve"], "K1")
-    exactness_phase(dense["rt"])
-    reference_phase(dense["rt"])
-    _free(dense)
-    paged8 = serve_phase(
-        "paged_int8", ["serve", "--paged-kv", "--kv-int8", "--kv-on-demand",
-                       "--kv-block-size", "128", "--kv-pool-tokens", "2048"],
-        "K3b", generate=False, min_preemptions=1)
-    _free(paged8)
-    paged = serve_phase("paged_bf16", ["serve", "--paged-kv"], "K3a")
-    _free(paged)
-    paged_reference_phase()
-    launches = {k: ph["launches"][k] for k, ph in (
-        ("K1", dense), ("K6", dense), ("K3a", paged), ("K3b", paged8))}
+
+    def on(phase: str) -> bool:
+        return only is None or phase in only
+
+    kern = kernel_phase() if on("kernels") else None
+    phases = {}
+    if on("dense"):
+        dense = phases["dense"] = serve_phase("dense", ["serve"],
+                                              {"K1": PER_STEP})
+        exactness_phase(dense["rt"])
+        reference_phase(dense["rt"])
+        _free(dense)
+    if on("paged"):
+        phases["paged_int8"] = serve_phase(
+            "paged_int8", ["serve", "--paged-kv", "--kv-int8",
+                           "--kv-on-demand", "--kv-block-size", "128",
+                           "--kv-pool-tokens", "2048"],
+            {"K3b": PER_STEP}, generate=False, min_preemptions=1)
+        _free(phases["paged_int8"])
+        phases["paged_bf16"] = serve_phase("paged_bf16",
+                                           ["serve", "--paged-kv"],
+                                           {"K3a": PER_STEP})
+        _free(phases["paged_bf16"])
+        paged_reference_phase()
+    if on("quant"):
+        phases["int4"] = serve_phase(
+            "int4", ["serve", "--quantize", "--weight-bits", "4",
+                     "--paged-kv", "--kv-int4"],
+            {"K4": LINEARS, "K5": PER_STEP, "K2": HEAD}, generate=False)
+        _free(phases["int4"])
+        phases["int8w"] = serve_phase(
+            "int8w", ["serve", "--quantize"],
+            {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, generate=False)
+        _free(phases["int8w"])
+        quant_reference_phase()
+    if only is not None:
+        print(f"chip_smoke: phases {sorted(only)} passed; no result line "
+              "without the full run", flush=True)
+        return 0
+    # each kernel's launches on the main path of the phase that runs it
+    on_path = {"K1": "dense", "K6": "dense", "K3a": "paged_bf16",
+               "K3b": "paged_int8", "K4": "int4", "K5": "int4",
+               "K2": "int8w"}
     kernels = [
-        {"name": "decode_attention", "route": "cuda",
-         "source": "tts_inference_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "tts_inference_tpu/ops/pallas/decode_attention.py:97",
-         "launches": launches["K1"], **kern["K1"]},
-        {"name": "fused_residual_unit", "route": "cuda",
-         "source": "tts_inference_tpu_torch/csrc/vocoder.cu",
-         "replaces": "tts_inference_tpu/ops/pallas/vocoder.py:212",
-         "launches": launches["K6"], **kern["K6"]},
-        {"name": "paged_decode_attention", "route": "cuda",
-         "source": "tts_inference_tpu_torch/csrc/paged_attention.cu",
-         "replaces": "tts_inference_tpu/ops/pallas/paged_attention.py:224",
-         "launches": launches["K3a"], **kern["K3a"]},
-        {"name": "paged_decode_attention_int8", "route": "cuda",
-         "source": "tts_inference_tpu_torch/csrc/paged_attention.cu",
-         "replaces": "tts_inference_tpu/ops/pallas/paged_attention.py:286",
-         "launches": launches["K3b"], **kern["K3b"]},
-    ]
+        {"name": name, "route": "cuda",
+         "source": f"tts_inference_tpu_torch/csrc/{src}", "replaces": tpu,
+         "launches": phases[on_path[key]]["launches"][key], **kern[key]}
+        for key, name, src, tpu in KERNELS]
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel never ran on its main path: {kernels}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

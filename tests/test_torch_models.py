@@ -25,7 +25,7 @@ from tts_inference_tpu_torch.streaming.lookahead import \
 
 from tests.torch_port_helpers import (AUDIO_RANGE, interleaved_codes,
                                       numpy_llama_tree, numpy_snac_tree,
-                                      random_codes, to_jax)
+                                      port_config, random_codes, to_jax)
 
 TINY_LM = ModelConfig.tiny(vocab_size=512)
 TINY_SNAC = SnacConfig.tiny()
@@ -94,9 +94,10 @@ def test_llama_tiny_prefill_and_decode_match_jax():
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     lens = np.array([16, 9], np.int32)
-    jc, tc = jl.init_kv_cache(cfg, 2, 64), tl.init_kv_cache(cfg, 2, 64)
+    jc = jl.init_kv_cache(cfg, 2, 64)
+    tc = tl.init_kv_cache(port_config(cfg), 2, 64)
     jlog, jc = jl.prefill(jp, cfg, jnp.asarray(toks), jnp.asarray(lens), jc)
-    tlog, tc = tl.prefill(tp, cfg, torch.from_numpy(toks),
+    tlog, tc = tl.prefill(tp, port_config(cfg), torch.from_numpy(toks),
                           torch.from_numpy(lens), tc)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4)
     tok = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
@@ -106,7 +107,8 @@ def test_llama_tiny_prefill_and_decode_match_jax():
         active = np.array([True, step < 3])
         jlog, jc = jl.decode_one(jp, cfg, jnp.asarray(tok), jc,
                                  jnp.asarray(active), kv_window=32)
-        tlog, tc = tl.decode_one(tp, cfg, torch.from_numpy(tok), tc,
+        tlog, tc = tl.decode_one(tp, port_config(cfg),
+                                 torch.from_numpy(tok), tc,
                                  torch.from_numpy(active), kv_window=32)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
                                    atol=1e-4)
@@ -128,15 +130,17 @@ def test_llama_full_geometry_layer_matches_jax():
     rng = np.random.default_rng(4)
     toks = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
     lens = np.array([8, 5], np.int32)
-    jc, tc = jl.init_kv_cache(cfg, 2, 32), tl.init_kv_cache(cfg, 2, 32)
+    jc = jl.init_kv_cache(cfg, 2, 32)
+    tc = tl.init_kv_cache(port_config(cfg), 2, 32)
     jlog, jc = jl.prefill(jp, cfg, jnp.asarray(toks), jnp.asarray(lens), jc)
-    tlog, tc = tl.prefill(tp, cfg, torch.from_numpy(toks),
+    tlog, tc = tl.prefill(tp, port_config(cfg), torch.from_numpy(toks),
                           torch.from_numpy(lens), tc)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-3)
     tok = np.array([7, 9], np.int32)
     for _ in range(2):
         jlog, jc = jl.decode_one(jp, cfg, jnp.asarray(tok), jc, kv_window=16)
-        tlog, tc = tl.decode_one(tp, cfg, torch.from_numpy(tok), tc,
+        tlog, tc = tl.decode_one(tp, port_config(cfg),
+                                 torch.from_numpy(tok), tc,
                                  kv_window=16)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-3)
         tok = tlog.argmax(-1).numpy().astype(np.int32)
@@ -146,7 +150,7 @@ def test_rope_tables_match_jax():
     cfg = ModelConfig()
     pos = np.array([[0, 1, 4095, 4607]], np.int32)
     jc, jsn = jl.rope_tables(cfg, jnp.asarray(pos))
-    tc, tsn = tl.rope_tables(cfg, torch.from_numpy(pos))
+    tc, tsn = tl.rope_tables(port_config(cfg), torch.from_numpy(pos))
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
     np.testing.assert_allclose(tsn.numpy(), np.asarray(jsn), atol=1e-5)
 
@@ -323,14 +327,15 @@ def test_windowed_decode_equals_batch_decode(snac_pair, lookahead):
     decode — to the JAX package's own bound for the same property
     (tests/test_lookahead.py: atol 2e-5 on the float audio)."""
     _, tp = snac_pair
-    dec = ts.SnacDecoder(tp, TINY_SNAC, frame_buckets=(8, 16, 32, 64))
+    dec = ts.SnacDecoder(tp, port_config(TINY_SNAC),
+                         frame_buckets=(8, 16, 32, 64))
     rng = np.random.default_rng(6)
     codes = interleaved_codes(rng, TINY_SNAC, 40)
     l1, l2, l3 = P.deinterleave_frames(np.asarray(codes, np.int32))
     full = dec.decode_frames(l1, l2, l3, noise_seed=7)
-    la = LookaheadStreamingDecoder(dec, StreamConfig(
+    la = LookaheadStreamingDecoder(dec, port_config(StreamConfig(
         frames_per_chunk=5, lookahead_frames=lookahead,
-        left_context_frames=4), noise_seed=7)
+        left_context_frames=4)), noise_seed=7)
     chunks = []
     for i in range(0, len(codes), P.FRAME_SIZE):
         la.feed(codes[i:i + P.FRAME_SIZE])
@@ -348,5 +353,5 @@ def test_windowed_decode_equals_batch_decode(snac_pair, lookahead):
 
 def test_bf16_vocoder_is_rejected(snac_pair):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SnacDecoder(snac_pair[1], dataclasses.replace(TINY_SNAC,
-                                                         dtype="bfloat16"))
+        ts.SnacDecoder(snac_pair[1], dataclasses.replace(
+            port_config(TINY_SNAC), dtype="bfloat16"))

@@ -19,8 +19,8 @@ from tts_inference_tpu.utils.tokenizer import ByteTokenizer
 from tts_inference_tpu_torch.engine import scheduler as TS
 from tts_inference_tpu_torch.runtime import Runtime
 
-from tests.torch_port_helpers import (AUDIO_RANGE, numpy_llama_tree,
-                                      numpy_snac_tree, to_jax)
+from tests.torch_port_helpers import (AUDIO_RANGE, for_side, numpy_llama_tree,
+                                      numpy_snac_tree, port_config, to_jax)
 
 SCFG = StreamConfig(frames_per_chunk=2, lookahead_frames=3,
                     left_context_frames=4)
@@ -41,12 +41,14 @@ def trees():
 
 @pytest.fixture(scope="module")
 def rt(trees):
-    return Runtime.create(tiny_config(), device="cpu", llama_tree=trees[0],
+    return Runtime.create(port_config(tiny_config()), device="cpu",
+                          llama_tree=trees[0],
                           snac_tree=trees[1])
 
 
 def port_sched(rt, cfg):
-    return TS.Scheduler(rt.engine.core.params, cfg, rt.vocoder, rt.tokenizer)
+    return TS.Scheduler(rt.engine.core.params, port_config(cfg), rt.vocoder,
+                        rt.tokenizer)
 
 
 def run_until_idle(sched, max_iters=4000):
@@ -87,10 +89,10 @@ def on_demand(pool):
 def stochastic(text, max_tokens=60):
     # stochastic sampling + repetition penalty: the state a resume must
     # carry across a preemption
-    return TS.TTSRequest(text=text, sampling=SamplingConfig(
+    return TS.TTSRequest(text=text, sampling=port_config(SamplingConfig(
         max_tokens=max_tokens, seed=123, temperature=0.8, top_p=0.9,
-        repetition_penalty=1.15, token_range=AUDIO_RANGE),
-        stream_cfg=SCFG, force_speech=True)
+        repetition_penalty=1.15, token_range=AUDIO_RANGE)),
+        stream_cfg=port_config(SCFG), force_speech=True)
 
 
 def test_preempt_resume_is_byte_identical(rt):
@@ -162,9 +164,12 @@ def test_paged_int8_scheduler_matches_jax(trees, rt):
     cfg = engine_cfg(paged_kv=True, kv_cache_int8=True, kv_block_size=16)
 
     def run(mod, sched):
-        reqs = [mod.TTSRequest(text=f"request {i}", sampling=SamplingConfig(
-            greedy=True, max_tokens=21 + 7 * i, token_range=AUDIO_RANGE),
-            stream_cfg=SCFG, force_speech=True) for i in range(3)]
+        reqs = [mod.TTSRequest(
+            text=f"request {i}", sampling=for_side(mod, SamplingConfig(
+                greedy=True, max_tokens=21 + 7 * i,
+                token_range=AUDIO_RANGE)),
+            stream_cfg=for_side(mod, SCFG), force_speech=True)
+            for i in range(3)]
         for r in reqs:
             sched.submit(r)
         return finish(sched, reqs)
@@ -195,9 +200,9 @@ def _admission_order(mod, sched, scenario):
     sched.core.prefill_decode_launch = spy
 
     def req(text, n):
-        return mod.TTSRequest(text=text, sampling=SamplingConfig(
-            greedy=True, max_tokens=n, token_range=AUDIO_RANGE),
-            stream_cfg=SCFG, force_speech=True)
+        return mod.TTSRequest(text=text, sampling=for_side(mod, SamplingConfig(
+            greedy=True, max_tokens=n, token_range=AUDIO_RANGE)),
+            stream_cfg=for_side(mod, SCFG), force_speech=True)
 
     if scenario == "reserved":
         reqs = [req(f"long {i}", 28) for i in range(5)]

@@ -1,7 +1,8 @@
 """PyTorch port, the whole slice on the CPU: GenerationEngine, TTSPipeline
 and the continuous-batching Scheduler against the JAX package on
 ``tiny_config()`` with the same numpy weights; isolation under churn; the
-port's server and CLI; and the port importing with jax poisoned."""
+port's server and CLI; and the port importing with jax and the JAX package
+poisoned."""
 
 import asyncio
 import importlib
@@ -16,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tts_inference_tpu import protocol as P
 from tts_inference_tpu.config import SamplingConfig, StreamConfig, tiny_config
@@ -29,11 +31,12 @@ from tts_inference_tpu_torch import cli
 from tts_inference_tpu_torch.engine import scheduler as TS
 from tts_inference_tpu_torch.runtime import Runtime
 
-from tests.torch_port_helpers import (AUDIO_RANGE, numpy_llama_tree,
-                                      numpy_snac_tree, to_jax)
+from tests.torch_port_helpers import (AUDIO_RANGE, for_side, numpy_llama_tree,
+                                      numpy_snac_tree, port_config, to_jax)
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = tiny_config()
+TCFG = port_config(CFG)      # the port's own copy of the same config
 SCFG = StreamConfig(frames_per_chunk=2, lookahead_frames=3,
                     left_context_frames=4)
 
@@ -54,7 +57,7 @@ def pair():
     jeng = JEngine(jparams, CFG.model, CFG.engine, first_bursts=bursts)
     jvoc = JSnac(to_jax(stree), CFG.snac)
     jpipe = JPipeline(jeng, jvoc, ByteTokenizer(), CFG)
-    rt = Runtime.create(CFG, device="cpu", llama_tree=ltree, snac_tree=stree)
+    rt = Runtime.create(TCFG, device="cpu", llama_tree=ltree, snac_tree=stree)
     return {"params": jparams, "engine": jeng, "vocoder": jvoc,
             "pipeline": jpipe}, rt
 
@@ -87,14 +90,15 @@ def test_core_prefill_slots_matches_jax(pair):
 
     j, rt = pair
     jc = JCore(j["params"], CFG.model, CFG.engine)
-    tc = TCore(rt.engine.core.params, CFG.model, CFG.engine)
+    tc = TCore(rt.engine.core.params, TCFG.model, TCFG.engine)
     prompts = [P.format_prompt_ids([300 + i] * (5 + 9 * i), force_speech=True)
                for i in range(2)]
     sp = greedy(10)
     want = np.asarray(jc.prefill_slots(
         prompts, [0, 2], jS.SamplingParams.from_config(sp, jc.batch)))
     got = tc.prefill_slots(prompts, [0, 2],
-                           tS.SamplingParams.from_config(sp, tc.batch))
+                           tS.SamplingParams.from_config(port_config(sp),
+                                                         tc.batch))
     np.testing.assert_array_equal(got[[0, 2]], want[[0, 2]])
     np.testing.assert_array_equal(tc.cache.lengths.numpy(),
                                   np.asarray(jc.cache.lengths))
@@ -144,13 +148,15 @@ def test_scheduler_matches_jax(pair):
     j, rt = pair
 
     def reqs(mod):
-        return [mod.TTSRequest(text=f"request {i}", sampling=greedy(21 + 7 * i),
-                               stream_cfg=SCFG, force_speech=True)
+        return [mod.TTSRequest(text=f"request {i}",
+                               sampling=for_side(mod, greedy(21 + 7 * i)),
+                               stream_cfg=for_side(mod, SCFG),
+                               force_speech=True)
                 for i in range(3)]
 
     want = _run_scheduler(JS, JS.Scheduler(j["params"], CFG, j["vocoder"],
                                            ByteTokenizer()), reqs(JS))
-    sched = TS.Scheduler(rt.engine.core.params, CFG, rt.vocoder,
+    sched = TS.Scheduler(rt.engine.core.params, TCFG, rt.vocoder,
                          rt.tokenizer)
     assert sched.core.batch == 4
     got = _run_scheduler(TS, sched, reqs(TS))
@@ -166,11 +172,11 @@ def test_isolation_under_churn(pair):
     _, rt = pair
 
     def req(text, seed, n):
-        return TS.TTSRequest(text=text, sampling=SamplingConfig(
-            max_tokens=n, seed=seed, token_range=AUDIO_RANGE),
-            stream_cfg=SCFG, force_speech=True)
+        return TS.TTSRequest(text=text, sampling=port_config(SamplingConfig(
+            max_tokens=n, seed=seed, token_range=AUDIO_RANGE)),
+            stream_cfg=port_config(SCFG), force_speech=True)
 
-    mk = lambda: TS.Scheduler(rt.engine.core.params, CFG, rt.vocoder,  # noqa: E731
+    mk = lambda: TS.Scheduler(rt.engine.core.params, TCFG, rt.vocoder,  # noqa: E731
                               rt.tokenizer)
     [(alone, _)] = _run_scheduler(TS, mk(), [req("probe", 42, 42)])
     noise = [req(f"noise {i}", 7 + i, 14 + 7 * (i % 3)) for i in range(6)]
@@ -251,15 +257,43 @@ def test_cli_generate_tiny_cpu(tmp_path):
     assert out.stat().st_size == 44 + 5 * P.SAMPLES_PER_FRAME * 2
 
 
-@pytest.mark.parametrize("flag", ["--quantize", "--kv-int4",
-                                  "--prefix-cache", "--vocoder-bf16",
-                                  "--tp=2", "--dp=2"])
+@pytest.mark.parametrize("flag", ["--kv-int4", "--prefix-cache",
+                                  "--vocoder-bf16", "--tp=2", "--dp=2"])
 def test_cli_rejects_unported_configurations(flag):
+    if flag == "--kv-int4":
+        # ported, but only over a paged cache: the JAX package's message
+        with pytest.raises(ValueError, match="kv_cache_int4 requires "
+                                             "paged_kv"):
+            cli.main(["serve", "--tiny", "--device", "cpu", "--no-warmup",
+                      flag])
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["serve", "--tiny", "--device", "cpu", flag])
     msg = str(e.value.code)
     assert "not ported" in msg and "ROADMAP.md Queue 1 item" in msg
     assert flag.split("=")[0] in msg
+
+
+@pytest.mark.parametrize("flags,linear,embed", [
+    (["--quantize"], "QuantLinear", "QuantEmbed"),
+    (["--quantize", "--weight-bits", "8"], "QuantLinear", "QuantEmbed"),
+    (["--quantize", "--weight-bits", "4"], "QuantLinearI4", "QuantEmbed"),
+    (["--weight-bits", "4"], "Tensor", "Tensor"),
+])
+def test_cli_quantize_flags(flags, linear, embed):
+    """`serve --quantize [--weight-bits 4]` quantizes the LM at boot: int8
+    or int4 layer linears, the embedding (the tied head) int8 in both;
+    --weight-bits alone changes nothing."""
+    args = cli.build_parser().parse_args(
+        ["serve", "--tiny", "--device", "cpu", "--no-warmup", *flags])
+    rt, sched = cli.build_serving(args)
+    params = sched.core.params
+    assert params is rt.engine.core.params
+    for lp in params["layers"]:
+        for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            assert type(lp[k]).__name__ == linear
+        assert type(lp["input_norm"]).__name__ == "Tensor"
+    assert type(params["embed"]).__name__ == embed
 
 
 @pytest.mark.parametrize("flags", [
@@ -268,37 +302,77 @@ def test_cli_rejects_unported_configurations(flag):
 ])
 def test_cli_paged_kv_flags(flags):
     """`serve --paged-kv --kv-int8 --kv-on-demand` builds a scheduler over a
-    paged int8 cache; int4 KV pools are still rejected with their item."""
+    paged int8 cache, `serve --paged-kv --kv-int4` over int4 pools packed by
+    head pair with nibble-plane scale pools."""
     from tts_inference_tpu_torch.models.llama import PagedKVCache
 
     args = cli.build_parser().parse_args(
         ["serve", "--tiny", "--device", "cpu", "--no-warmup",
          "--kv-block-size", "16", "--kv-pool-tokens", "256", *flags])
-    if "--kv-int4" in flags:
-        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 13"):
-            cli.build_serving(args)
-        return
     rt, sched = cli.build_serving(args)
     ecfg = sched.core.engine_cfg
-    assert ecfg.paged_kv and ecfg.kv_cache_int8 and ecfg.kv_on_demand
+    int4 = "--kv-int4" in flags
+    assert ecfg.paged_kv and ecfg.kv_cache_int4 == int4
+    assert ecfg.kv_cache_int8 == ecfg.kv_on_demand == (not int4)
     assert (ecfg.kv_block_size, ecfg.kv_pool_tokens) == (16, 256)
+    hkv, d = rt.config.model.num_key_value_heads, rt.config.model.head_dim
     for core in (sched.core, rt.engine.core):
         assert isinstance(core.cache, PagedKVCache) and core.cache.quantized
+        assert core.cache.int4 == int4
         assert core.free_tokens() == 256
+        if int4:
+            assert core.cache.k[0].shape == (17, hkv // 2, 16, d)
+            assert core.cache.k[0].dtype == torch.int8
+            assert core.cache.k_scale[0].shape == (17, 2, hkv // 2, 16)
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, and chip_smoke, imports with both jax and
+    the JAX package poisoned."""
     mods = [m.name for m in pkgutil.walk_packages(
         tts_inference_tpu_torch.__path__, "tts_inference_tpu_torch.")]
     assert "tts_inference_tpu_torch.engine.scheduler" in mods
+    assert "tts_inference_tpu_torch.utils.host_copy" in mods
+    mods.append("chip_smoke")
     code = ("import sys; sys.modules['jax'] = None\n"
+            "sys.modules['tts_inference_tpu'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "assert not any(k == 'jax' or k.startswith('jax.')"
-            " for k, v in sys.modules.items() if v is not None)\n"
+            "bad = ('jax', 'tts_inference_tpu')\n"
+            "assert not any(k in bad or k.startswith(tuple(b + '.' for b in"
+            " bad)) for k, v in sys.modules.items() if v is not None)\n"
             "print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=str(REPO)),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "ok" in res.stdout, res.stderr
     importlib.import_module("tts_inference_tpu_torch.cli")
+
+
+def test_port_names_no_module_of_the_jax_package():
+    """No import line of the port or of chip_smoke.py names the JAX package
+    (docstrings may name a counterpart file)."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+tts_inference_tpu(?!_torch)\b")
+    files = sorted((REPO / "tts_inference_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert not hits, hits
+
+
+def test_runtime_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without a device the runtime runs on cuda and raises when there is
+    none; the CPU is used only when the caller asks for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Runtime.create(TCFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["generate", "--tiny", "--text", "hi", "--no-warmup"])
+    rt = Runtime.create(TCFG, device="cpu")
+    assert rt.device.type == "cpu"
+    assert rt.engine.core.params["final_norm"].device.type == "cpu"

@@ -113,3 +113,27 @@ def interleaved_codes(rng, cfg: SnacConfig, n_frames: int):
     """Flat 7-per-frame codes with the per-position offsets applied."""
     return [int(rng.integers(0, cfg.codebook_size)) + P.POSITION_OFFSETS[p]
             for _ in range(n_frames) for p in range(P.FRAME_SIZE)]
+
+
+def port_config(jax_cfg):
+    """The port's copy of a JAX-package config dataclass (Config or one of
+    its sections), built field by field, so the port never receives an
+    object of the JAX package."""
+    import dataclasses
+
+    from tts_inference_tpu_torch import config as tcfg
+
+    cls = getattr(tcfg, type(jax_cfg).__name__)
+    fields = {}
+    for f in dataclasses.fields(jax_cfg):
+        v = getattr(jax_cfg, f.name)
+        fields[f.name] = port_config(v) if dataclasses.is_dataclass(v) else v
+    return cls(**fields)
+
+
+def for_side(mod, cfg):
+    """`cfg` as the package that module `mod` belongs to takes it: a module
+    of the port gets the port's own copy, the JAX package its original."""
+    if mod.__name__.startswith("tts_inference_tpu_torch"):
+        return port_config(cfg)
+    return cfg

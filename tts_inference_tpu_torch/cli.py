@@ -8,8 +8,11 @@ Defaults are the JAX package's ``cli serve`` defaults: Orpheus-3B geometry
 with seeded random bf16 weights, 8 continuous-batching slots, max_seq 4608,
 the f32 SNAC 24 kHz vocoder. The KV cache and admission options map onto
 ``EngineConfig`` as the JAX CLI maps them (``--paged-kv``, ``--kv-int8``,
-``--kv-on-demand``, ``--kv-pool-tokens``, ``--kv-block-size``,
-``--admission-policy``, ``--reserved-short-slots``, ``--short-tokens``).
+``--kv-int4``, ``--kv-on-demand``, ``--kv-pool-tokens``, ``--kv-block-size``,
+``--admission-policy``, ``--reserved-short-slots``, ``--short-tokens``);
+``--quantize [--weight-bits 4]`` quantizes the LM weights at boot (kernels K2
+and K4). Without ``--device`` both commands run on ``cuda`` and fail when
+there is none; ``--device cpu`` asks for the CPU.
 Options of configurations that are not ported yet are accepted by the
 parser and rejected with the ROADMAP item that ports them — the port never
 runs a different path silently.
@@ -25,9 +28,6 @@ import time
 
 # flag → the ROADMAP.md item that ports it
 UNPORTED = {
-    "quantize": "int8 weights with a hand-written W8A16 kernel "
-                "(ROADMAP.md Queue 1 item 9)",
-    "kv_int4": "int4 KV pools with kernel K5 (ROADMAP.md Queue 1 item 13)",
     "prefix_cache": "prefix cache (ROADMAP.md Queue 1 item 12)",
     "vocoder_bf16": "bf16 vocoder (ROADMAP.md Queue 1 item 14)",
     "tp": "tensor parallelism (ROADMAP.md Queue 1 item 15, multi-GPU)",
@@ -39,7 +39,8 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tiny", action="store_true",
                    help="tiny random-weight runtime (tests, CPU)")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when present, else cpu)")
+                   help="torch device (default: cuda; an error when there is "
+                        "none — ask for the CPU with --device cpu)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--max-output-len", type=int, default=None)
@@ -50,6 +51,15 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "(kernel K3a, or K3b with --kv-int8)")
     p.add_argument("--kv-int8", action="store_true",
                    help="int8 KV cache with per-position scales")
+    p.add_argument("--kv-int4", action="store_true",
+                   help="with --paged-kv: int4 KV pools packed by head pair "
+                        "(kernel K5)")
+    p.add_argument("--quantize", action="store_true",
+                   help="weight-only quantization of the LM at boot")
+    p.add_argument("--weight-bits", type=int, default=8, choices=(8, 4),
+                   help="with --quantize: 8 = per-channel int8 (default, "
+                        "kernel K2), 4 = per-group int4 layer linears "
+                        "(kernel K4; embedding and head stay int8)")
     p.add_argument("--kv-on-demand", action="store_true",
                    help="with --paged-kv: reserve only the prefill window at "
                         "admission, grow blocks per decode launch, and on "
@@ -70,7 +80,7 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "--short-tokens) may occupy")
     p.add_argument("--short-tokens", type=int, default=None,
                    help="'short request' threshold in tokens")
-    for flag in ("quantize", "kv_int4", "prefix_cache", "vocoder_bf16"):
+    for flag in ("prefix_cache", "vocoder_bf16"):
         p.add_argument("--" + flag.replace("_", "-"), action="store_true",
                        help=f"not ported yet: {UNPORTED[flag]}")
     p.add_argument("--tp", type=int, default=1,
@@ -90,7 +100,7 @@ def check_ported(args) -> None:
 
 
 def _build_runtime(args):
-    from tts_inference_tpu.config import (Config, extended_kv_buckets,
+    from tts_inference_tpu_torch.config import (Config, extended_kv_buckets,
                                           tiny_config)
     from tts_inference_tpu_torch.runtime import Runtime
 
@@ -103,6 +113,7 @@ def _build_runtime(args):
         eng_over["max_batch_size"] = args.max_batch_size
     for flag, field in (("paged_kv", "paged_kv"),
                         ("kv_int8", "kv_cache_int8"),
+                        ("kv_int4", "kv_cache_int4"),
                         ("kv_on_demand", "kv_on_demand")):
         if getattr(args, flag):
             eng_over[field] = True
@@ -122,13 +133,14 @@ def _build_runtime(args):
         cfg.engine, kv_buckets=extended_kv_buckets(
             cfg.engine.kv_buckets, cfg.engine.max_seq_len)))
     return Runtime.create(cfg, seed=args.seed, device=args.device,
-                          warmup=not args.no_warmup)
+                          warmup=not args.no_warmup, quantize=args.quantize,
+                          weight_bits=args.weight_bits)
 
 
 def cmd_generate(args) -> int:
-    from tts_inference_tpu import protocol
-    from tts_inference_tpu.config import SamplingConfig
-    from tts_inference_tpu.utils.audio import duration_s, write_wav
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.utils.audio import duration_s, write_wav
 
     rt = _build_runtime(args)
     sampling = SamplingConfig(

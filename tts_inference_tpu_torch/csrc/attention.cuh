@@ -1,16 +1,20 @@
 // Shared body of the decode-attention kernels, for Hopper (sm_90a): K1
-// (decode_attention.cu, a dense KV window) and K3a/K3b (paged_attention.cu,
-// a block pool driven by a block table, bf16/f32 or int8 with scales).
+// (decode_attention.cu, a dense KV window) and K3a/K3b/K5
+// (paged_attention.cu, a block pool driven by a block table: bf16/f32, int8
+// with scales, or int4 packed by head pair with scales).
 //
 // One decode query per (slot, kv head) attends to the keys j <= pos[b] of
 // its window: q·kᵀ/√D → softmax → ·v, accumulated in f32, written in q's
 // dtype. The kernels differ only in where key j of a slot lives and whether
 // its row carries a scale, so the body is a template over a `Keys` type:
 //
-//   Keys::Elem            element type of the K/V rows (bf16, f32 or int8)
-//   Keys::kScaled         true when rows are int8 with per-row f32 scales
+//   Keys::Elem            storage type of the K/V rows (bf16, f32 or int8:
+//                         one element per head-dim position)
+//   Keys::kScaled         true when rows are integers with per-row f32 scales
 //   keys.slot(b, h)       per-(slot, head) addressing, with
 //     .key(j) / .value(j)         pointer to the D elements of key j
+//     .read8(p, o) / .read4(p, o) 8 / 4 elements at p as f32 (K5 picks the
+//                                 head's nibble of each byte here)
 //     .key_scale(j) / .value_scale(j)   (kScaled only) the row's scale
 //
 // Design (flash-decoding): the window is cut into chunks of kSplit keys;
@@ -171,7 +175,7 @@ attention_chunk(const T* __restrict__ q, const Keys keys, const int* __restrict_
 #pragma unroll 4
       for (int c = 0; c < d; c += 8) {
         float kx[8];
-        load8(kr + c, kx);
+        kv.read8(kr + c, kx);
 #pragma unroll
         for (int gi = 0; gi < kMaxG; ++gi) {
           if (gi < g) {
@@ -238,7 +242,7 @@ attention_chunk(const T* __restrict__ q, const Keys keys, const int* __restrict_
         const int di = c * 128 + lane * 4;
         if (di < d) {
           float vv[4];
-          load4(vr + di, vv);
+          kv.read4(vr + di, vv);
 #pragma unroll
           for (int gi = 0; gi < kMaxG; ++gi)
             if (gi < g)

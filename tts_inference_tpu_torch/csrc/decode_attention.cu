@@ -49,6 +49,8 @@ struct DenseKeys {
     size_t row;  // elements between keys
     __device__ const T* key(int j) const { return kb + static_cast<size_t>(j) * row; }
     __device__ const T* value(int j) const { return vb + static_cast<size_t>(j) * row; }
+    __device__ void read8(const T* p, float o[8]) const { load8(p, o); }
+    __device__ void read4(const T* p, float o[4]) const { load4(p, o); }
   };
   const T* k;
   const T* v;

@@ -15,8 +15,9 @@ Port of the dense path of ``tts_inference_tpu/engine/engine.py``:
   ``copy_async`` queues their device→host copies (pinned memory + a CUDA
   event), so the host fetches one launch while the next runs (depth-2
   pipelining);
-- the KV cache is dense (bf16/f32 or int8) or paged (``paged_kv``): a pool
-  of blocks with a host-side block allocator, worst-case reservation at
+- the KV cache is dense (bf16/f32 or int8) or paged (``paged_kv``; bf16/f32,
+  int8, or int4 packed by head pair): a pool of blocks with a host-side
+  block allocator, worst-case reservation at
   admission or on-demand growth per decode launch (``kv_on_demand``), and
   ``snapshot_slot``/``restore_slot``/``preempt_slot`` for the scheduler's
   preempt-and-resume.
@@ -27,8 +28,8 @@ one stream-ordered host→device copy into the same table tensor, so a
 launch already enqueued reads the table it was launched with, and a later
 prefill into reused blocks runs after every launch that still wrote them.
 
-Not ported yet (ROADMAP.md): int4 KV, prefix cache, meshes, and CUDA-graph
-capture of the decode burst.
+Not ported yet (ROADMAP.md): prefix cache, meshes, and CUDA-graph capture of
+the decode burst.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ from typing import Callable, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tts_inference_tpu import protocol
-from tts_inference_tpu.config import EngineConfig, ModelConfig, SamplingConfig
-from tts_inference_tpu.utils.timing import PhaseTimer
+from tts_inference_tpu_torch import protocol
+from tts_inference_tpu_torch.config import (EngineConfig, ModelConfig,
+                                            SamplingConfig)
+from tts_inference_tpu_torch.utils.timing import PhaseTimer
 from tts_inference_tpu_torch.models import llama
 from tts_inference_tpu_torch.ops import sampling as S
 from tts_inference_tpu_torch.utils import copy_async, to_numpy
@@ -60,8 +62,6 @@ class GenerationResult:
 
 def _unported(engine_cfg: EngineConfig) -> Optional[str]:
     """The ROADMAP item of the first engine option the port lacks."""
-    if engine_cfg.kv_cache_int4:
-        return "int4 KV cache (ROADMAP.md Queue 1 item 13)"
     if engine_cfg.prefix_cache:
         return "prefix cache (ROADMAP.md Queue 1 item 12)"
     return None
@@ -83,7 +83,7 @@ class EngineCore:
         self.engine_cfg = engine_cfg
         self.eos_id = eos_id
         self.device = torch.device(device) if device is not None \
-            else params["embed"].device
+            else params["final_norm"].device
         self.batch = batch_size or engine_cfg.max_batch_size
         self.max_seq = engine_cfg.max_seq_len
         # sliced LM head: every emittable token has id >= HEAD_SLICE_BASE
@@ -91,6 +91,9 @@ class EngineCore:
             protocol.HEAD_SLICE_BASE
             if engine_cfg.sliced_head
             and model_cfg.vocab_size > protocol.TOKEN_AUDIO_BASE else 0)
+        if engine_cfg.kv_cache_int4 and not engine_cfg.paged_kv:
+            raise ValueError("kv_cache_int4 requires paged_kv (the dense "
+                             "cache has no int4 layout)")
         if engine_cfg.paged_kv:
             bs_blk = engine_cfg.kv_block_size
             if self.max_seq % bs_blk:
@@ -102,7 +105,7 @@ class EngineCore:
             self.cache = llama.init_paged_kv_cache(
                 model_cfg, self.batch, self.max_seq, num_blocks=num_blocks,
                 block_size=bs_blk, int8=engine_cfg.kv_cache_int8,
-                device=self.device)
+                int4=engine_cfg.kv_cache_int4, device=self.device)
             # host-side block allocator: block 0 is the trash block
             self._free_blocks = list(range(num_blocks - 1, 0, -1))
             self._slot_blocks: dict = {}
@@ -118,6 +121,7 @@ class EngineCore:
         # is picked without a device sync
         self._len_bounds = np.zeros(self.batch, np.int64)
         self.decode_steps = 0   # decode steps launched (all slots at once)
+        self.prefills = 0       # prefill passes launched
 
     # -- device code --------------------------------------------------------
 
@@ -161,6 +165,7 @@ class EngineCore:
         """Prefill `tokens` (B, S bucket) for slots in slot_mask and sample
         their first token; other slots are untouched."""
         seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
+        self.prefills += 1
         logits, _ = llama.prefill(self.params, self.model_cfg, tokens, seg,
                                   self.cache, kv_window=kv_window,
                                   logits_base=self.logits_base)

@@ -40,10 +40,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tts_inference_tpu import protocol
-from tts_inference_tpu.config import Config, SamplingConfig, StreamConfig
-from tts_inference_tpu.utils.audio import pcm16_bytes
-from tts_inference_tpu.utils.tokenizer import TokenizerProtocol
+from tts_inference_tpu_torch import protocol
+from tts_inference_tpu_torch.config import Config, SamplingConfig, StreamConfig
+from tts_inference_tpu_torch.utils.audio import pcm16_bytes
+from tts_inference_tpu_torch.utils.tokenizer import TokenizerProtocol
 from tts_inference_tpu_torch.engine.engine import EngineCore
 from tts_inference_tpu_torch.models.snac import SnacDecoder
 from tts_inference_tpu_torch.ops import sampling as S

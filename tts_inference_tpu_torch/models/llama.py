@@ -12,10 +12,13 @@ Differences from the JAX package, all deliberate:
   the same effect; ``forward`` still returns the cache for call-site parity;
 - a single decode token (s == 1) always runs a kernel: K1
   (``ops.decode_attention``) over the dense window — dequantized first for
-  int8 — and K3a/K3b (``ops.paged_attention``) over the paged pools; the
-  hand-written kernel on CUDA, its plain version on the CPU. Prefill and
-  other chunks (s > 1) run ``_attention`` over the gathered window;
-- int4 KV pools are not ported yet (ROADMAP.md Queue 1 item 13).
+  int8 — and K3a/K3b (``ops.paged_attention``) or K5
+  (``ops.paged_attention_int4``) over the paged pools; the hand-written
+  kernel on CUDA, its plain version on the CPU. Prefill and other chunks
+  (s > 1) run ``_attention`` over the gathered (and, for quantized pools,
+  dequantized) window;
+- the linears go through ``models.quant.mm``: plain weights to
+  ``torch.matmul``, int8 and int4 leaves to the kernels K2 and K4.
 """
 
 from __future__ import annotations
@@ -29,12 +32,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tts_inference_tpu.config import ModelConfig
+from tts_inference_tpu_torch.config import ModelConfig
 from tts_inference_tpu_torch.models.quant import (embed_rows, head_logits, mm,
                                                   tied_logits)
 from tts_inference_tpu_torch.ops.decode_attention import decode_attention
 from tts_inference_tpu_torch.ops.paged_attention import (
     gather_window, paged_decode_attention, paged_decode_attention_int8)
+from tts_inference_tpu_torch.ops.paged_attention_int4 import (
+    gather_window_int4, paged_decode_attention_int4, quantize_kv_int4,
+    scales_to_planes)
 
 Params = Dict
 
@@ -131,7 +137,11 @@ class PagedKVCache:
     allocated, the write target of masked slots and unallocated table
     entries (which are 0), and never attended — reads are masked by
     position. int8 mode: int8 pools plus per-(block, head, position) f32
-    scale pools (num_blocks, kv_heads, block_size).
+    scale pools (num_blocks, kv_heads, block_size). int4 mode: pools are
+    packed by head pair, (num_blocks, kv_heads/2, block_size, head_dim) int8
+    (``ops/paged_attention_int4.py`` has the layout), and the scale pools are
+    (num_blocks, 2, kv_heads/2, block_size) nibble planes: half the int8
+    pools' bytes, in capacity and in what a decode step reads.
     """
 
     k: List[torch.Tensor]
@@ -158,6 +168,12 @@ class PagedKVCache:
     def quantized(self) -> bool:
         return len(self.k_scale) > 0
 
+    @property
+    def int4(self) -> bool:
+        """Pools packed by head pair (the scale pools then have a nibble
+        plane axis)."""
+        return self.quantized and self.k_scale[0].dim() == 4
+
 
 Cache = Union[KVCache, PagedKVCache]
 
@@ -172,18 +188,28 @@ def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                         device="cpu") -> PagedKVCache:
     """Pool of `num_blocks` blocks (block 0 is the trash block) and per-slot
     tables sized for max_seq positions."""
-    if int4:
-        raise NotImplementedError(
-            "not ported yet: int4 KV pools with kernel K5 (ROADMAP.md Queue "
-            "1 item 13)")
     if max_seq % block_size:
         raise ValueError(f"max_seq {max_seq} not a multiple of block_size "
                          f"{block_size}")
+    if int8 and int4:
+        raise ValueError("kv int8 and int4 are mutually exclusive")
     n, hkv = cfg.num_hidden_layers, cfg.num_key_value_heads
     shape = (num_blocks, hkv, block_size, cfg.head_dim)
     table = torch.zeros((batch, max_seq // block_size), dtype=torch.int32,
                         device=device)
     lengths = torch.zeros(batch, dtype=torch.int32, device=device)
+    if int4:
+        if hkv % 2:
+            raise ValueError(f"int4 KV needs an even kv-head count, got "
+                             f"{hkv} (head-pair packing)")
+        pshape = (num_blocks, hkv // 2, block_size, cfg.head_dim)
+        sshape = (num_blocks, 2, hkv // 2, block_size)   # nibble planes
+        return PagedKVCache(
+            k=_layers(n, pshape, torch.int8, device),
+            v=_layers(n, pshape, torch.int8, device),
+            block_table=table, lengths=lengths,
+            k_scale=_layers(n, sshape, torch.float32, device),
+            v_scale=_layers(n, sshape, torch.float32, device))
     if int8:
         sshape = (num_blocks, hkv, block_size)
         return PagedKVCache(
@@ -215,23 +241,32 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def pool_scatter(c: torch.Tensor, rows: torch.Tensor, offs: torch.Tensor,
-                 new: torch.Tensor, n_mid: int = 1) -> torch.Tensor:
+                 new: torch.Tensor, n_mid: int = 1,
+                 memo: Optional[dict] = None) -> torch.Tensor:
     """Scatter per-position values into a head-batched pool, in place.
 
     c: (N, *mid, bs[, D]) pool; rows/offs: (B, S) pool row / in-block
     offset per position; new: (B, S, *mid[, D]); n_mid = number of pool
     axes between the block row and the position axis (1 for the K/V pools
-    and the int8 scale pools). Flattening (N, *mid) into one leading axis
+    and the int8 scale pools, 2 for the int4 nibble-plane scale pools).
+    Flattening (N, *mid) into one leading axis
     makes the two indexed axes adjacent, so one ``index_put_`` writes every
     (position, head) row. Duplicate indices occur only in the trash block
-    (row 0), where the surviving value does not matter."""
+    (row 0), where the surviving value does not matter. The two index
+    tensors depend on (rows, offs) and the pool's middle width only, which
+    are the same for every layer of a forward pass: `memo` keeps them."""
     n = c.shape[0]
     mid = int(np.prod(c.shape[1:1 + n_mid]))
     tail = c.shape[1 + n_mid:]
     b, s = rows.shape
-    flat = rows.long()[:, :, None] * mid + torch.arange(
-        mid, device=c.device)[None, None, :]
-    offs_b = offs.long()[:, :, None].expand(b, s, mid)
+    if memo is not None and mid in memo:
+        flat, offs_b = memo[mid]
+    else:
+        flat = rows.long()[:, :, None] * mid + torch.arange(
+            mid, device=c.device)[None, None, :]
+        offs_b = offs.long()[:, :, None].expand(b, s, mid)
+        if memo is not None:
+            memo[mid] = (flat, offs_b)
     c.view((n * mid,) + tuple(tail)).index_put_(
         (flat, offs_b), new.reshape((b, s, mid) + tuple(tail[1:])).to(c.dtype))
     return c
@@ -310,8 +345,9 @@ def _dequant(c: torch.Tensor, sc: torch.Tensor, dtype) -> torch.Tensor:
 def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
            write_pos, mask, write_mask, kv_window: Optional[int], paged_at):
     """One decoder layer; writes this chunk's K/V into layer `li` of the
-    cache. paged_at: (rows, offs) of the written positions for a paged
-    cache (``_paged_slots``), None for a dense one."""
+    cache. paged_at: (rows, offs, memo) of the written positions for a
+    paged cache (``_paged_slots`` plus ``pool_scatter``'s index memo), None
+    for a dense one."""
     b, s, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
 
@@ -325,15 +361,23 @@ def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
     ck, cv = cache.k[li], cache.v[li]
     ks = cache.k_scale[li] if cache.quantized else None
     vs = cache.v_scale[li] if cache.quantized else None
-    if cache.quantized:
+    packed_i4 = paged_at is not None and cache.int4
+    if packed_i4:
+        kq, k_sc = quantize_kv_int4(k)      # (B, S, P2, D), (B, S, Hkv)
+        vq, v_sc = quantize_kv_int4(v)
+        writes = ((ck, kq, 1), (cv, vq, 1),
+                  (ks, scales_to_planes(k_sc), 2),
+                  (vs, scales_to_planes(v_sc), 2))
+    elif cache.quantized:
         kq, k_sc = _quantize_kv(k)
         vq, v_sc = _quantize_kv(v)
-        writes = ((ck, kq), (cv, vq), (ks, k_sc), (vs, v_sc))
+        writes = ((ck, kq, 1), (cv, vq, 1), (ks, k_sc, 1), (vs, v_sc, 1))
     else:
-        writes = ((ck, k), (cv, v))
-    for c, new in writes:
+        writes = ((ck, k, 1), (cv, v, 1))
+    for c, new, n_mid in writes:
         if paged_at is not None:
-            pool_scatter(c, *paged_at, new)
+            pool_scatter(c, paged_at[0], paged_at[1], new, n_mid=n_mid,
+                         memo=paged_at[2])
         else:
             _write_cache(c, new, write_pos, write_mask)
 
@@ -344,11 +388,19 @@ def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
         idx = cache.block_table[:, : w // bs]     # forward() block-aligns w
         if s == 1:
             qg = q.reshape(b, nkv, nq // nkv, hd)
-            if cache.quantized:
+            if packed_i4:
+                attn = paged_decode_attention_int4(qg, ck, cv, ks, vs, idx,
+                                                   write_pos)
+            elif cache.quantized:
                 attn = paged_decode_attention_int8(qg, ck, cv, ks, vs, idx,
                                                    write_pos)
             else:
                 attn = paged_decode_attention(qg, ck, cv, idx, write_pos)
+        elif packed_i4:
+            # prefill / resume chunk: gather, unpack and dequantize
+            kw = gather_window_int4(ck, ks, idx).to(k.dtype)
+            vw = gather_window_int4(cv, vs, idx).to(k.dtype)
+            attn = _attention(q, kw, vw, mask)
         else:
             # prefill / resume chunk: gather the window's blocks
             kw, vw = gather_window(ck, idx), gather_window(cv, idx)
@@ -401,8 +453,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         kv_idx = torch.arange(window, dtype=torch.int32, device=tokens.device)
         mask = kv_idx[None, None, :] <= positions[:, :, None]
     write_mask = seg_lens > 0
-    paged_at = (_paged_slots(cache.block_table, write_pos, s, write_mask,
-                             cache.block_size) if paged else None)
+    paged_at = ((*_paged_slots(cache.block_table, write_pos, s, write_mask,
+                               cache.block_size), {}) if paged else None)
     x = embed_rows(params["embed"], tokens, param_dtype(cfg))
     for li, lp in enumerate(params["layers"]):
         x = _layer(lp, cfg, x, cos, sin, cache, li, write_pos, mask,

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tts_inference_tpu.config import SnacConfig
+from tts_inference_tpu_torch.config import SnacConfig
 from tts_inference_tpu_torch.ops.vocoder import (fused_residual_unit, snake,
                                                  valid_lengths)
 from tts_inference_tpu_torch.utils import copy_async, to_numpy

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers they share) is
-compiled by ``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C interface, which is loaded with ctypes.
-The build runs at first use (never at import: the CPU tests import every
+compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source and all
+of them started together, and linked into ONE shared library with a plain C
+interface, which is loaded with ctypes. The build runs at first use (never at import: the CPU tests import every
 module, and no CUDA toolkit is needed to run them), into
 ``build/tts_kernels/`` under the repository root, named by a hash of the
 sources so an edited kernel is rebuilt and an unchanged one is reused.
@@ -10,6 +11,7 @@ sources so an edited kernel is rebuilt and an unchanged one is reused.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -23,7 +25,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tts_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -73,6 +75,45 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tts_fused_residual_unit.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, p]
     lib.tts_fused_residual_unit.restype = i
+    lib.tts_paged_attention_int4.argtypes = [
+        p, p, p, p, p, p, ll, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    lib.tts_paged_attention_int4.restype = i
+    lib.tts_quant_matmul_splits.argtypes = [p, i, i, i, i, ll, i, i, i]
+    lib.tts_quant_matmul_splits.restype = i
+    lib.tts_quant_matmul.argtypes = [
+        p, p, p, p, p, i, i, i, i, ll, i, i, i, i, p]
+    lib.tts_quant_matmul.restype = i
+
+
+def _run(cmd) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    return log
+
+
+def _compile(path: Path) -> str:
+    """One ``nvcc -c`` per source, all at once, then one link; returns the
+    compilers' output."""
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    srcs = _sources()
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+            logs = list(pool.map(
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", str(so[0]), "-o",
+                                 str(so[1])]), zip(srcs, objs)))
+        logs.append(_run([nvcc, "-shared", "-o", str(tmp),
+                          *(str(o) for o in objs)]))
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def load() -> ctypes.CDLL:
@@ -84,16 +125,8 @@ def load() -> ctypes.CDLL:
         path = library_path()
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(s) for s in _sources())]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{build_log}")
-            os.replace(tmp, path)
+            build_log = _compile(path)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         _declare(lib)

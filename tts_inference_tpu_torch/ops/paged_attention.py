@@ -1,4 +1,5 @@
-"""K3a / K3b: paged GQA decode attention over a block pool.
+"""K3a / K3b: paged GQA decode attention over a block pool (K5, the int4
+pools, is ``ops/paged_attention_int4.py`` over the same launcher).
 
 Port of ``tts_inference_tpu/ops/pallas/paged_attention.py``. The kernels are
 hand-written CUDA C++ for Hopper (``csrc/paged_attention.cu``, sharing its
@@ -66,19 +67,25 @@ def paged_decode_attention_int8_reference(q, k_pool, v_pool, ks_pool,
     return decode_attention_reference(q, k, v, pos)
 
 
-def _check(q, k_pool, v_pool, table, pos, scales):
-    """Raise on what the kernels do not take; returns (B, Hkv, G, D, bs,
-    WB)."""
-    name = "paged_decode_attention" + ("_int8" if scales else "")
+def check_paged(name, q, k_pool, v_pool, table, pos, scales=(),
+                heads_per_row=1):
+    """Raise on what the paged kernels do not take; returns (B, Hkv, G, D,
+    bs, WB). heads_per_row = kv heads packed into one pool row: 1 for K3a /
+    K3b, 2 for K5, whose pools are (N, Hkv/2, bs, D) and whose scale pools
+    are (N, 2, Hkv/2, bs) nibble planes."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (B, Hkv, G, D), got "
                          f"{tuple(q.shape)}")
     b, hkv, g, d = q.shape
+    if hkv % heads_per_row:
+        raise ValueError(f"{name}: {hkv} kv heads (head-pair packing needs "
+                         "an even count)")
+    rows = hkv // heads_per_row
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
-            or k_pool.shape[1] != hkv or k_pool.shape[3] != d:
+            or k_pool.shape[1] != rows or k_pool.shape[3] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs pools "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    bs = k_pool.shape[2]
+    n, bs = k_pool.shape[0], k_pool.shape[2]
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: q is {q.dtype}; the kernel takes bf16 or "
                         "f32")
@@ -86,9 +93,11 @@ def _check(q, k_pool, v_pool, table, pos, scales):
     if k_pool.dtype != pool_dt or v_pool.dtype != pool_dt:
         raise TypeError(f"{name}: pools {k_pool.dtype}/{v_pool.dtype}, "
                         f"expected {pool_dt}")
+    sshape = (n, rows, bs) if heads_per_row == 1 \
+        else (n, heads_per_row, rows, bs)
     for t in scales:
-        if t.shape != k_pool.shape[:3] or t.dtype != torch.float32:
-            raise ValueError(f"{name}: scale pools must be (N, Hkv, bs) f32, "
+        if t.shape != sshape or t.dtype != torch.float32:
+            raise ValueError(f"{name}: scale pools must be {sshape} f32, "
                              f"got {tuple(t.shape)} {t.dtype}")
     if d % 8 or d > 256:
         raise ValueError(f"{name}: head dim {d} must be a multiple of 8 up "
@@ -117,8 +126,12 @@ def _check(q, k_pool, v_pool, table, pos, scales):
     return b, hkv, g, d, bs, table.shape[1]
 
 
-def _launch(fn, counter, q, k_pool, v_pool, scales, table, pos):
-    b, hkv, g, d, bs, wb = _check(q, k_pool, v_pool, table, pos, scales)
+def launch_paged(fn, counter, q, k_pool, v_pool, scales, table, pos,
+                 heads_per_row=1):
+    """Check the arguments and launch the paged kernel `fn` of the library
+    (``tts_paged_attention[_int8|_int4]``) on q's stream."""
+    b, hkv, g, d, bs, wb = check_paged(fn, q, k_pool, v_pool, table, pos,
+                                       scales, heads_per_row)
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {q.device}")
     lib = _build.load()
@@ -144,10 +157,10 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos):
     """K3a: (B, Hkv, G, D) attention over bf16/f32 pools; kernel on CUDA,
     plain version on the CPU."""
     if q.device.type == "cpu":
-        _check(q, k_pool, v_pool, table, pos, ())
+        check_paged("paged_decode_attention", q, k_pool, v_pool, table, pos)
         return paged_decode_attention_reference(q, k_pool, v_pool, table, pos)
-    return _launch("tts_paged_attention", launches, q, k_pool, v_pool, (),
-                   table, pos)
+    return launch_paged("tts_paged_attention", launches, q, k_pool, v_pool,
+                        (), table, pos)
 
 
 def paged_decode_attention_int8(q, k_pool, v_pool, ks_pool, vs_pool, table,
@@ -156,8 +169,9 @@ def paged_decode_attention_int8(q, k_pool, v_pool, ks_pool, vs_pool, table,
     kernel on CUDA, plain version on the CPU."""
     scales = (ks_pool, vs_pool)
     if q.device.type == "cpu":
-        _check(q, k_pool, v_pool, table, pos, scales)
+        check_paged("paged_decode_attention_int8", q, k_pool, v_pool, table,
+                    pos, scales)
         return paged_decode_attention_int8_reference(
             q, k_pool, v_pool, ks_pool, vs_pool, table, pos)
-    return _launch("tts_paged_attention_int8", launches_int8, q, k_pool,
-                   v_pool, scales, table, pos)
+    return launch_paged("tts_paged_attention_int8", launches_int8, q, k_pool,
+                        v_pool, scales, table, pos)

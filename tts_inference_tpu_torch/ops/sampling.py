@@ -25,8 +25,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tts_inference_tpu import protocol
-from tts_inference_tpu.config import SamplingConfig
+from tts_inference_tpu_torch import protocol
+from tts_inference_tpu_torch.config import SamplingConfig
 from tts_inference_tpu_torch.models.snac import _mix32, _mul32
 
 NEG_INF = -1e30

@@ -14,17 +14,25 @@ from typing import Dict, Optional
 
 import torch
 
-from tts_inference_tpu import protocol
-from tts_inference_tpu.config import Config
-from tts_inference_tpu.utils.tokenizer import ByteTokenizer
+from tts_inference_tpu_torch import protocol
+from tts_inference_tpu_torch.config import Config
+from tts_inference_tpu_torch.utils.tokenizer import ByteTokenizer
 from tts_inference_tpu_torch import weights
 from tts_inference_tpu_torch.engine.engine import GenerationEngine
+from tts_inference_tpu_torch.models.quant import quantize_llama_params
 from tts_inference_tpu_torch.models.snac import SnacDecoder
 from tts_inference_tpu_torch.streaming.pipeline import TTSPipeline
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card. The port serves from the CPU only when the caller asks for
+    it (``device="cpu"``, ``--device cpu``): a machine without a working
+    CUDA device is an error, never a quiet change of device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: tts_inference_tpu_torch runs on cuda by "
+            "default; pass device='cpu' (--device cpu) to run on the CPU")
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass
@@ -41,9 +49,13 @@ class Runtime:
     def create(cls, config: Optional[Config] = None, *, seed: int = 0,
                device=None, warmup: bool = False,
                llama_tree: Optional[Dict] = None,
-               snac_tree: Optional[Dict] = None) -> "Runtime":
+               snac_tree: Optional[Dict] = None, quantize: bool = False,
+               weight_bits: int = 8) -> "Runtime":
         """Random weights from `seed` (LM: seed, vocoder: seed + 1, like the
-        JAX package), or the JAX pytrees `llama_tree` / `snac_tree`."""
+        JAX package), or the JAX pytrees `llama_tree` / `snac_tree`. With
+        `quantize` the LM weights are quantized on the device after init or
+        import: weight_bits 8 = per-channel int8 everywhere, 4 = per-group
+        int4 layer linears with the embedding and the head in int8."""
         config = config or Config()
         dev = torch.device(device) if device is not None else default_device()
         timings = {}
@@ -52,6 +64,10 @@ class Runtime:
         params = (weights.llama_params_from_jax(llama_tree, dev)
                   if llama_tree is not None
                   else weights.init_llama_params(config.model, seed, dev))
+        if quantize:
+            # layer by layer, dropping each full-precision weight as it goes
+            params = quantize_llama_params(params, bits=weight_bits,
+                                           free_source=True)
         timings["load_model_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

@@ -19,8 +19,8 @@ from typing import List, Optional
 
 import numpy as np
 
-from tts_inference_tpu import protocol
-from tts_inference_tpu.config import StreamConfig
+from tts_inference_tpu_torch import protocol
+from tts_inference_tpu_torch.config import StreamConfig
 from tts_inference_tpu_torch.models.snac import SnacDecoder
 
 

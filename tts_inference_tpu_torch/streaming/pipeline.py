@@ -18,11 +18,11 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
-from tts_inference_tpu import protocol
-from tts_inference_tpu.config import Config, SamplingConfig, StreamConfig
-from tts_inference_tpu.utils.audio import pcm16_bytes
-from tts_inference_tpu.utils.timing import PhaseTimer
-from tts_inference_tpu.utils.tokenizer import TokenizerProtocol
+from tts_inference_tpu_torch import protocol
+from tts_inference_tpu_torch.config import Config, SamplingConfig, StreamConfig
+from tts_inference_tpu_torch.utils.audio import pcm16_bytes
+from tts_inference_tpu_torch.utils.timing import PhaseTimer
+from tts_inference_tpu_torch.utils.tokenizer import TokenizerProtocol
 from tts_inference_tpu_torch.engine.engine import GenerationEngine
 from tts_inference_tpu_torch.models.snac import (SnacDecoder, decode_codes,
                                                  to_pcm16)

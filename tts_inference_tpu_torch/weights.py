@@ -26,7 +26,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from tts_inference_tpu.config import ModelConfig, SnacConfig
+from tts_inference_tpu_torch.config import ModelConfig, SnacConfig
+from tts_inference_tpu_torch.models.quant import (QuantEmbed, QuantLinear,
+                                                  QuantLinearI4)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -46,9 +48,27 @@ def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
 # -- llama ------------------------------------------------------------------
 
 
+def _leaf_from_jax(leaf, device):
+    """A plain array, or one of the JAX package's quantized leaves
+    (QuantLinear / QuantEmbed / QuantLinearI4, recognised by their field
+    names) carried across byte for byte."""
+    fields = getattr(leaf, "_fields", None)
+    if fields == ("w_p", "scale"):
+        return QuantLinearI4(tensor_from_numpy(leaf.w_p, device),
+                             tensor_from_numpy(leaf.scale, device))
+    if fields == ("w_i8", "scale"):
+        # the embedding's scale is per row, a linear's per column
+        cls = QuantEmbed if type(leaf).__name__ == "QuantEmbed" \
+            else QuantLinear
+        return cls(tensor_from_numpy(leaf.w_i8, device),
+                   tensor_from_numpy(leaf.scale, device))
+    return tensor_from_numpy(leaf, device)
+
+
 def llama_params_from_jax(tree: Dict, device="cpu") -> Dict:
-    """JAX llama pytree (numpy leaves) → the port's tensor tree."""
-    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    """JAX llama pytree (numpy leaves, quantized leaves included) → the
+    port's tensor tree."""
+    t = lambda a: _leaf_from_jax(a, device)  # noqa: E731
     out = {
         "embed": t(tree["embed"]),
         "final_norm": t(tree["final_norm"]),
