@@ -13,7 +13,14 @@ no result line is printed:
    paths' shapes: max |Δ| and its tolerance, device µs per call of both (a
    CUDA graph of the calls, replayed), the least time the card could take
    (bytes or operations), and the time of the one PyTorch call that
-   computes the same function where there is one;
+   computes the same function where there is one; K1, K3a and K6 also at
+   the edges of their tilings, correctness only, each case run twice for
+   bit-equal outputs (K1, and K3a over block sizes 16 to 128: G 1, 4, 8,
+   D 64, f32 at the tiny shapes, windows
+   that are no multiple of a chunk, every pos 0 and W - 1, pos at a chunk's
+   last and first key; K6: T that is no multiple of a tile, T below the
+   halo, valid 0 and T on different rows, channel-last input, channel
+   counts below the narrowest tile and no multiple of 4);
 4. serve phase: the full Orpheus-3B + SNAC 24 kHz geometry with seeded
    random weights behind the port's aiohttp server (``cli serve``
    defaults: 8 slots, max_seq 4608, dense bf16 KV); 8 concurrent
@@ -197,6 +204,149 @@ def _k1_case(w: int, gen: torch.Generator):
     return _report("K1 decode_attention", f"B8 Hkv8 G3 D128 bf16 W{w}", err,
                    K1_TOL, ms, plain,
                    _attention_bound(pos, hkv, g, d, 2 * d * 2, 2), lib)
+
+
+def _edge(name: str, what: str, fn, want, tol: float) -> float:
+    """One correctness-only case: the kernel twice (bit-equal outputs) and
+    its plain version once; no timing."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"{name} edge {what}: max|d|={err:.3e} (tol {tol:.1e})", flush=True)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} edge {what}: two runs differ")
+    if not err <= tol:
+        raise AssertionError(f"{name} edge {what}: max|d| {err} > {tol}")
+    return err
+
+
+def _k1_edges(gen: torch.Generator) -> float:
+    """The edges of K1's tilings: G 1, 4 and 8; D 64; f32 at the tiny
+    configuration's shapes; windows that are no multiple of a chunk; every
+    pos 0 and every pos W - 1; pos at a chunk's last and first key. K and V
+    are window slices of a longer cache (a free batch stride) throughout."""
+    from tts_inference_tpu_torch.ops.decode_attention import (
+        MMA_CHUNKS, decode_attention, decode_attention_reference)
+
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+    edges = [c + (k - 1) for c in MMA_CHUNKS for k in (0, 1)]
+    cases = [   # b, hkv, g, d, w, dtype, pos ("rand", "zero", "last", list)
+        (8, 8, 1, 128, 512, bf16, "rand"), (8, 8, 4, 128, 512, bf16, "rand"),
+        (8, 8, 8, 128, 512, bf16, "rand"), (8, 8, 3, 64, 512, bf16, "rand"),
+        (8, 8, 8, 64, 2048, bf16, "rand"),
+        (4, 2, 2, 16, 320, f32, "rand"), (4, 2, 2, 16, 64, f32, "rand"),
+        (8, 8, 3, 128, 300, bf16, "rand"), (8, 8, 3, 128, 4480, bf16, "rand"),
+        (8, 8, 3, 128, 512, bf16, "zero"), (8, 8, 3, 128, 512, bf16, "last"),
+        (8, 8, 3, 128, 4608, bf16, "zero"), (8, 8, 3, 128, 4608, bf16, "last"),
+        (4, 8, 3, 128, 512, bf16, edges), (4, 8, 3, 128, 4608, bf16, edges),
+        (1, 8, 3, 128, 64, bf16, "last"),
+    ]
+    worst = 0.0
+    for b, hkv, g, d, w, dtype, how in cases:
+        q = torch.randn(b, hkv, g, d, generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn(b, w + 96, hkv, d, generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        k, v = kc[:, :w], vc[:, :w]
+        if how == "rand":
+            pos = torch.randint(0, w, (b,), generator=gen, device=dev)
+        elif how == "zero":
+            pos = torch.zeros(b, device=dev)
+        elif how == "last":
+            pos = torch.full((b,), w - 1, device=dev)
+        else:
+            pos = torch.tensor(how, device=dev)
+        pos = pos.to(torch.int32)
+        what = (f"B{b} Hkv{hkv} G{g} D{d} W{w} "
+                f"{'bf16' if dtype == bf16 else 'f32'} pos "
+                f"{how if isinstance(how, str) else pos.tolist()}")
+        worst = max(worst, _edge(
+            "K1", what, lambda: decode_attention(q, k, v, pos),
+            decode_attention_reference(q, k, v, pos),
+            K1_TOL if dtype == bf16 else 1e-5))
+    return worst
+
+
+def _k3a_edges(gen: torch.Generator) -> float:
+    """K3a over bf16 pools runs K1's tensor-core body through the block
+    table: block sizes below and above a chunk, G 1 and 8, D 64, every pos
+    0 and every pos W - 1, pos at a chunk's last and first key; the f32
+    pools of the tiny configuration (the CUDA-core body). The table is a
+    column slice of a wider one, as the engine hands it."""
+    from tts_inference_tpu_torch.ops import paged_attention as pa
+    from tts_inference_tpu_torch.ops.decode_attention import MMA_CHUNKS
+
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+    edges = [c + (k - 1) for c in MMA_CHUNKS for k in (0, 1)]
+    cases = [   # b, hkv, g, d, bs, wb, dtype, pos
+        (8, 8, 3, 128, 16, 19, bf16, "rand"), (8, 8, 1, 128, 128, 4, bf16, "rand"),
+        (8, 8, 8, 128, 32, 16, bf16, "rand"), (8, 8, 3, 64, 64, 8, bf16, "rand"),
+        (8, 8, 3, 128, 128, 36, bf16, "zero"), (8, 8, 3, 128, 128, 36, bf16, "last"),
+        (4, 8, 3, 128, 16, 32, bf16, edges), (4, 8, 3, 128, 128, 36, bf16, edges),
+        (4, 2, 2, 16, 16, 20, f32, "rand"),
+    ]
+    worst = 0.0
+    for b, hkv, g, d, bs, wb, dtype, how in cases:
+        w, n = wb * bs, 1 + b * wb
+        q = torch.randn(b, hkv, g, d, generator=gen, device=dev).to(dtype)
+        pools = [torch.randn(n, hkv, bs, d, generator=gen,
+                             device=dev).to(dtype) for _ in range(2)]
+        wide = torch.zeros(b, wb + 3, dtype=torch.int32, device=dev)
+        wide[:, :wb] = (torch.randperm(n - 1, generator=gen, device=dev)
+                        .to(torch.int32) + 1).view(b, wb)
+        table = wide[:, :wb]
+        if how == "rand":
+            pos = torch.randint(0, w, (b,), generator=gen, device=dev)
+        elif how == "zero":
+            pos = torch.zeros(b, device=dev)
+        elif how == "last":
+            pos = torch.full((b,), w - 1, device=dev)
+        else:
+            pos = torch.tensor(how, device=dev)
+        pos = pos.to(torch.int32)
+        what = (f"B{b} Hkv{hkv} G{g} D{d} bs{bs} W{w} "
+                f"{'bf16' if dtype == bf16 else 'f32'} pos "
+                f"{how if isinstance(how, str) else pos.tolist()}")
+        worst = max(worst, _edge(
+            "K3a", what,
+            lambda: pa.paged_decode_attention(q, *pools, table, pos),
+            pa.paged_decode_attention_reference(q, *pools, table, pos),
+            K3_TOL if dtype == bf16 else 1e-5))
+    return worst
+
+
+def _k6_edges(gen: torch.Generator) -> float:
+    """The edges of K6's tilings: T that is no multiple of a tile, T shorter
+    than the halo at dilation 9, valid 0 and valid T on different rows,
+    channel-last input as well as the channel-first view, and channel counts
+    below the narrowest tile (the tiny configuration's widths, and one that
+    is no multiple of 4)."""
+    from tts_inference_tpu_torch.ops.vocoder import (
+        fused_residual_unit, fused_residual_unit_reference)
+
+    dev = "cuda"
+    cases = [   # c, t, dil, channel_first
+        (512, 37, 1, True), (512, 512 + 5, 9, True), (64, 37, 3, True),
+        (64, 512 + 5, 9, True), (256, 16, 9, True), (128, 133, 9, True),
+        (512, 96, 3, False), (64, 700, 9, False), (256, 100, 1, False),
+        (32, 512, 1, True), (16, 4096, 3, True), (8, 1000, 9, True),
+        (4, 300, 9, True), (6, 77, 3, True), (6, 77, 3, False),
+        (100, 260, 9, True), (300, 70, 3, True),
+    ]
+    worst = 0.0
+    for c, t, dil, channel_first in cases:
+        b = 3
+        p = _k6_unit(c, gen)
+        x = (torch.randn(b, c, t, generator=gen, device=dev).transpose(1, 2)
+             if channel_first
+             else torch.randn(b, t, c, generator=gen, device=dev))
+        valid = torch.tensor([t, 0, max(1, t // 3)], dtype=torch.int32,
+                             device=dev)
+        what = (f"B{b} C{c} T{t} dil{dil} "
+                f"{'channel-first' if channel_first else 'channel-last'}")
+        worst = max(worst, _edge(
+            "K6", what, lambda: fused_residual_unit(x, p, dil, valid),
+            fused_residual_unit_reference(x, p, dil, valid), K6_TOL))
+    return worst
 
 
 def _paged_case_inputs(b: int, w: int, gen: torch.Generator):
@@ -472,6 +622,11 @@ def kernel_phase() -> dict:
     k2 = {(8, k, n): _k2_case(8, k, n, gen, context=True) for k, n in linears}
     k2[(512, 3072, 3072)] = _k2_case(512, 3072, 3072, gen, context=True)
     k2["head"] = _k2_head_case(gen)
+    # last, so that the timed cases above draw the inputs they always drew
+    # and their times compare from run to run
+    k1_edge = _k1_edges(gen)
+    k3a_edge = _k3a_edges(gen)
+    k6_edge = _k6_edges(gen)
 
     def worst(cases):
         return max(c["max_abs_err"] for c in cases.values())
@@ -485,12 +640,12 @@ def kernel_phase() -> dict:
 
     return {
         # the window the serve phases' decode steps mostly read
-        "K1": {**k1[512], "max_abs_err": worst(k1)},
-        "K3a": {**k3a[(8, 512)], "max_abs_err": worst(k3a)},
+        "K1": {**k1[512], "max_abs_err": max(worst(k1), k1_edge)},
+        "K3a": {**k3a[(8, 512)], "max_abs_err": max(worst(k3a), k3a_edge)},
         "K3b": {**k3b[(8, 512)], "max_abs_err": worst(k3b)},
         "K5": {**k5[(8, 512)], "max_abs_err": worst(k5)},
         # all 12 units of one 8-row, 16-frame vocoder call
-        "K6": summed(k6),
+        "K6": {**summed(k6), "max_abs_err": max(worst(k6), k6_edge)},
         # the gate / up projection of a decode step, the largest linear
         "K4": {**k4[(8, 3072, 8192)], "max_abs_err": worst(k4)},
         "K2": {**k2[(8, 3072, 8192)], "max_abs_err": worst(k2)},

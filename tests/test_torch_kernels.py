@@ -4,9 +4,13 @@ card by chip_smoke.py) against the JAX package's Pallas kernels in
 interpret mode and their jnp twins. Inputs are numpy from a fixed seed;
 comparisons in f32."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as hst
 
 import jax.numpy as jnp
 
@@ -91,6 +95,102 @@ def test_decode_attention_rejects_what_the_kernel_cannot_take(bad):
         tda.decode_attention(q, k, v, pos)
 
 
+SERVE = dict(b=8, hkv=8, g=3, d=128)     # cli serve: 8 slots of Orpheus-3B
+
+
+@pytest.mark.parametrize("w", [256, 512, 1024, 2048, 4608])
+def test_chunk_keys_fills_the_card_at_the_serve_shapes(w):
+    """At every serve window the tensor-core body gets at least one block
+    per SM, and the longest chunk that still gives each SM two."""
+    chunk, nchunk, floats = tda.plan(w=w, dtype=torch.bfloat16, **SERVE)
+    blocks = SERVE["b"] * SERVE["hkv"] * nchunk
+    assert chunk in tda.MMA_CHUNKS and blocks >= tda.H100_SMS
+    longer = [c for c in tda.MMA_CHUNKS if c > chunk]
+    assert all(SERVE["b"] * SERVE["hkv"] * -(-w // c) < 2 * tda.H100_SMS
+               for c in longer)
+    assert floats == SERVE["b"] * SERVE["hkv"] * nchunk * SERVE["g"] * (
+        SERVE["d"] + 2)
+
+
+@settings(max_examples=200, deadline=None, derandomize=True, database=None)
+@given(b=hst.integers(1, 64), hkv=hst.integers(1, 16), g=hst.integers(1, 8),
+       d=hst.sampled_from([16, 64, 128, 256]), w=hst.integers(1, 20000),
+       bf16=hst.booleans(), scaled=hst.booleans(),
+       sms=hst.sampled_from([1, 16, 132, 144]))
+def test_plan_partitions_the_window(b, hkv, g, d, w, bf16, scaled, sms):
+    """Every key j < W lies in exactly one chunk, the chunk count is the one
+    the scratch is sized for, and only bf16 rows without scales at D 64 /
+    128 (K1, K3a) get the tensor-core body's chunk lengths."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    chunk, nchunk, floats = tda.plan(b, hkv, g, d, w, dtype, sms, scaled)
+    if bf16 and d in (64, 128) and not scaled:
+        assert chunk in tda.MMA_CHUNKS
+        assert chunk == tda.chunk_keys(b, hkv, w, sms)
+        assert chunk % 64 == 0     # four warps of whole 16-key steps
+    else:
+        assert chunk == tda.SIMPLE_CHUNK
+    assert (nchunk - 1) * chunk < w <= nchunk * chunk
+    assert floats == (b * hkv * nchunk * g * (d + 2) if nchunk > 1 else 0)
+
+
+def chunked_attention(q, k, v, pos, chunk):
+    """The arithmetic of the tensor-core body in plain f32 PyTorch: each of
+    a chunk's four warps takes a quarter of the chunk's keys and forms
+    (max, Σ exp, Σ exp·v) over its keys j <= pos; a block merges its warps;
+    the chunks that hold keys are combined in chunk order."""
+    b, hkv, g, d = q.shape
+    w = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        limit = min(int(pos[bi]) + 1, w)
+        for h in range(hkv):
+            parts = []
+            for j0 in range(0, limit, chunk):
+                j1 = min(j0 + chunk, limit)
+                warps = []
+                for wj0 in range(j0, j1, chunk // 4):
+                    wj1 = min(wj0 + chunk // 4, j1)
+                    s = q[bi, h] @ k[bi, wj0:wj1, h].T * scale     # (g, n)
+                    m = s.max(dim=-1).values
+                    p = torch.exp(s - m[:, None])
+                    warps.append((m, p.sum(-1), p @ v[bi, wj0:wj1, h]))
+                parts.append(_merge(warps))
+            m, l, o = _merge(parts)
+            out[bi, h] = o / l[:, None]
+    return out
+
+
+def _merge(parts):
+    """Combine (max, denominator, accumulator) triples in their order."""
+    m = torch.stack([p[0] for p in parts]).max(dim=0).values
+    l = sum(torch.exp(pm - m) * pl for pm, pl, _ in parts)
+    o = sum(torch.exp(pm - m)[:, None] * po for pm, _, po in parts)
+    return m, l, o
+
+
+@pytest.mark.parametrize("g,d,w,sms", [
+    (3, 128, 256, 132), (3, 128, 512, 132), (3, 128, 2048, 132),
+    (1, 128, 300, 132), (8, 64, 512, 132), (4, 64, 1000, 16),
+    (3, 128, 640, 1), (2, 64, 64, 132)])
+def test_chunked_online_softmax_equals_reference(g, d, w, sms):
+    """The chunked online softmax with its combine step, at chunk_keys'
+    chunk lengths, is the reference's attention (f32, within 1e-5): pos 0,
+    W - 1, a chunk's last and first key, and a random one."""
+    rng = np.random.default_rng(w + g)
+    b, hkv = 6, 2
+    chunk = tda.chunk_keys(8, 8, w, sms)
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, w, hkv, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, w, hkv, d), np.float32))
+    edge = min(chunk, w - 1)
+    pos = torch.tensor([0, w - 1, edge - 1, edge, int(rng.integers(0, w)),
+                        min(w - 1, chunk // 4)], dtype=torch.int32)
+    got = chunked_attention(q, k, v, pos, chunk)
+    want = tda.decode_attention_reference(q, k, v, pos)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
 def unit_params(c, seed):
     rng = np.random.default_rng(seed)
     return {
@@ -149,11 +249,61 @@ def test_fused_residual_unit_matches_jax(dil, with_valid):
         assert not got[1, 181:].any()
 
 
+def _fma32(a, b, c):
+    """float32 fused multiply-add: one rounding (the products of float32
+    values are exact in float64)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def sin_squared_fast(t):
+    """csrc/vocoder.cu::sin_squared_fast in numpy float32, operation for
+    operation: sin² has period π, so t is reduced to r = t - jπ (three-step
+    Cody-Waite) and sin r is the odd Taylor polynomial of degree 11."""
+    f = np.float32
+    t = t.astype(f)
+    j = np.rint(t * f(0.318309886)).astype(f)
+    r = _fma32(j, np.full_like(j, f(-3.140625)), t)
+    r = _fma32(j, np.full_like(j, f(-9.67502593994140625e-4)), r)
+    r = _fma32(j, np.full_like(j, f(-1.509957990978376e-7)), r)
+    z = r * r
+    p = np.full_like(z, f(-2.5052108e-8))
+    for coef in (2.7557319e-6, -1.9841270e-4, 8.3333333e-3, -1.6666667e-1):
+        p = _fma32(p, z, np.full_like(z, f(coef)))
+    sn = _fma32(r * z, p, r)
+    return sn * sn
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0, 1000.0, 8192.0])
+def test_sin_squared_reduction_matches_sin(scale):
+    """The branch-free sin² the K6 kernel uses up to |t| = 8192 (sinf takes
+    over beyond) stays within 5e-7 of sin² in f64 — far inside the unit's
+    1e-4 tolerance on the card."""
+    rng = np.random.default_rng(int(scale))
+    t = np.concatenate([
+        rng.uniform(-scale, scale, 200000),
+        (np.arange(-40, 41) * (np.pi / 2)) * (scale / 64.0),   # poly's ends
+        [0.0, scale, -scale]]).astype(np.float32)
+    want = np.sin(t.astype(np.float64)) ** 2
+    np.testing.assert_allclose(sin_squared_fast(t), want, atol=5e-7)
+
+
 def test_fused_residual_unit_rejects_non_depthwise():
     p = torch_unit(unit_params(8, 0))
     p["conv1"]["w"] = torch.zeros(8, 8, 7)
     with pytest.raises(ValueError):
         tvoc.fused_residual_unit(torch.zeros(1, 16, 8), p, 1)
+
+
+def test_fused_residual_unit_rejects_channels_beyond_the_widest_tile():
+    c = tvoc.MAX_CHANNELS + 8
+    p = {"alpha1": torch.ones(c),
+         "conv1": {"w": torch.zeros(c, 1, 7), "b": torch.zeros(c)},
+         "alpha2": torch.ones(c),
+         "conv2": {"w": torch.zeros(c, c, 1), "b": torch.zeros(c)}}
+    with pytest.raises(ValueError):
+        tvoc.fused_residual_unit(torch.zeros(1, 8, c), p, 1)
+    assert tvoc.MAX_CHANNELS == 512     # SNAC 24 kHz: 512, 256, 128, 64
 
 
 def test_wrappers_count_only_kernel_launches():

@@ -1,4 +1,4 @@
-// Shared body of the decode-attention kernels, for Hopper (sm_90a): K1
+// Shared bodies of the decode-attention kernels, for Hopper (sm_90a): K1
 // (decode_attention.cu, a dense KV window) and K3a/K3b/K5
 // (paged_attention.cu, a block pool driven by a block table: bf16/f32, int8
 // with scales, or int4 packed by head pair with scales).
@@ -6,7 +6,7 @@
 // One decode query per (slot, kv head) attends to the keys j <= pos[b] of
 // its window: q·kᵀ/√D → softmax → ·v, accumulated in f32, written in q's
 // dtype. The kernels differ only in where key j of a slot lives and whether
-// its row carries a scale, so the body is a template over a `Keys` type:
+// its row carries a scale, so each body is a template over a `Keys` type:
 //
 //   Keys::Elem            storage type of the K/V rows (bf16, f32 or int8:
 //                         one element per head-dim position)
@@ -17,13 +17,41 @@
 //                                 head's nibble of each byte here)
 //     .key_scale(j) / .value_scale(j)   (kScaled only) the row's scale
 //
-// Design (flash-decoding): the window is cut into chunks of kSplit keys;
-// one block per (slot, kv head, chunk) streams its chunk's K/V rows once
-// with an online softmax over tiles of kTile keys, and a second pass
-// combines the chunks' (acc, max, denominator). Scores: one thread per key,
-// 8 elements per load; p·v: one warp per key, each lane owns 4 head-dim
-// elements, so a V row is one coalesced read. Keys past pos[b] are never
-// read. The G query heads of a kv head share every K/V load.
+// Two bodies (flash-decoding both: the window is cut into chunks, one block
+// per (slot, kv head, chunk), the chunks' (acc, max, denominator) combined
+// afterwards; keys past pos[b] are never read; the G query heads of a kv
+// head share every K/V load):
+//
+// `attention_mma` — bf16 rows without scales, D 64 or 128 (K1 and K3a on the
+// serve paths). The bytes are few (4–70 MB at the serve shapes), so what bounds the
+// kernel on this card is the latency of its load chains and of its launch,
+// not the memory rate. What the design does about it:
+//  - the chunk length comes from the shape (the wrapper picks 64 or 128 keys
+//    so that every SM gets two to four blocks), and a block whose chunk
+//    starts past pos[b] returns before it touches q;
+//  - each of a block's four warps owns a quarter of the chunk and requests
+//    all of its K rows and then all of its V rows at once with cp.async
+//    (16 bytes per lane, neighbouring lanes on neighbouring addresses) into
+//    shared memory: tens of KB per SM are in flight, and the scores start
+//    when K has landed while V is still on its way. Rows are padded by 16
+//    bytes, so the ldmatrix reads that follow have no bank conflicts;
+//  - both products run on the tensor cores: mma.sync.m16n8k16 with the G
+//    query heads in the first rows of A (the other rows are zeros, which
+//    cost nothing where bytes and latency bound the kernel), K and V
+//    fragments by ldmatrix (V transposed), f32 sums, the softmax on the
+//    score fragments in registers with shuffles inside a quad. A warp never
+//    waits for another until the block merges its four partial results;
+//  - one launch: a block writes its chunk's partial result to scratch and
+//    counts itself on a per-(slot, head) counter; the block that arrives
+//    last combines the chunks in chunk order (no float atomics: runs repeat
+//    bit for bit) and sets the counter back to 0 for the next launch.
+//
+// `attention_chunk` + `attention_combine` — every other case: f32 rows (the
+// tiny configuration), other head dims, and K3b / K5, whose rows carry
+// scales or nibbles. CUDA cores, chunks of kSplit keys, the combine as
+// a second launch. Scores: one thread per key, 8 elements per load; p·v: one
+// warp per key, each lane owns 4 head-dim elements, so a V row is one
+// coalesced read.
 //
 // With scales (K3b), the k scale multiplies the score column after the
 // q·k dot and the v scale multiplies the probability row before p·v; the
@@ -334,6 +362,341 @@ int attention_launch(const void* q, const Keys& keys, const void* pos, void* out
                                                        static_cast<T*>(out), g, d, nsplit);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// The tensor-core body: bf16 rows without scales, D 64 or 128.
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+__device__ inline unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, asynchronously; zeros when !valid (src is not read)
+__device__ inline void cp_async16(unsigned dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8×8 b16 matrices; lane i gives the row address of matrix i / 8, row i % 8
+__device__ inline void ldmatrix_x4(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
+                                   unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ inline void ldmatrix_x4_trans(unsigned addr, unsigned& r0, unsigned& r1,
+                                         unsigned& r2, unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a · b, a (16 × 16) row-major with rows 8..15 zero, b (16 × 8), f32 sums
+__device__ inline void mma_top_rows(float c[4], unsigned a_lo, unsigned a_hi, unsigned b0,
+                                    unsigned b1) {
+  const unsigned zero = 0u;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a_lo), "r"(zero), "r"(a_hi), "r"(zero), "r"(b0), "r"(b1));
+}
+
+inline bool attention_mma_takes(int d, int chunk) {
+  return (d == 64 || d == 128) && (chunk == 64 || chunk == 128);
+}
+
+// One (slot, kv head, chunk of 4·KW keys). Warp w owns keys
+// [chunk start + w·KW, + KW). In the fragments, lane = 4·row + column pair:
+// row `gr` is the query head, `qc` the first of the lane's two columns.
+template <int HD, int KW, typename Keys>
+__global__ void __launch_bounds__(kMmaThreads)
+attention_mma(const __nv_bfloat16* __restrict__ q, const Keys keys,
+              const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ o_part, float* __restrict__ m_part,
+              float* __restrict__ l_part, int* __restrict__ counters, int hkv, int g, int w,
+              int nchunk, float scale) {
+  static_assert(!Keys::kScaled && sizeof(typename Keys::Elem) == 2, "bf16 rows only");
+  constexpr int kChunk = KW * kMmaWarps;
+  constexpr int kRowB = HD * 2 + 16;  // bytes of a padded row in shared memory
+  constexpr int kPieces = HD / 8;     // 16-byte pieces of a row
+  constexpr int kRed = 8 * HD + 16;   // floats of a warp's partial (acc, max, sum)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last_s;
+
+  const int bh = blockIdx.y;
+  const int b = bh / hkv;
+  const int h = bh % hkv;
+  const int chunk = blockIdx.x;
+  const int tid = threadIdx.x;
+  int limit = pos[b] + 1;
+  limit = limit > w ? w : (limit < 0 ? 0 : limit);
+  const int j0 = chunk * kChunk;
+  __nv_bfloat16* ob = out + static_cast<size_t>(bh) * g * HD;
+  if (j0 >= limit) {  // nothing to attend to: no load, no partial, no count
+    if (limit == 0 && chunk == 0)
+      for (int i = tid; i < g * HD; i += kMmaThreads) ob[i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int nact = (limit + kChunk - 1) / kChunk;  // chunks that hold keys
+  const int j1 = min(j0 + kChunk, limit);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gr = lane >> 2;
+  const int qc = (lane & 3) * 2;
+  const auto kv = keys.slot(b, h);
+  unsigned char* k_s = smem_raw + static_cast<size_t>(warp) * KW * kRowB;
+  unsigned char* v_s = k_s + static_cast<size_t>(kChunk) * kRowB;
+  const int wj0 = j0 + warp * KW;
+  const int nvalid = min(KW, j1 - wj0);
+  const int nsteps = nvalid > 0 ? (nvalid + 15) / 16 : 0;  // 16-key steps of this warp
+
+  // request the warp's K rows, then its V rows; rows past j1 become zeros
+  {
+    const int piece = lane % kPieces;
+    for (int r = lane / kPieces; r < nsteps * 16; r += 32 / kPieces) {
+      const bool ok = wj0 + r < j1;
+      cp_async16(smem_addr(k_s + r * kRowB + piece * 16),
+                 kv.key(ok ? wj0 + r : wj0) + piece * 8, ok);
+    }
+    cp_async_commit();
+    for (int r = lane / kPieces; r < nsteps * 16; r += 32 / kPieces) {
+      const bool ok = wj0 + r < j1;
+      cp_async16(smem_addr(v_s + r * kRowB + piece * 16),
+                 kv.value(ok ? wj0 + r : wj0) + piece * 8, ok);
+    }
+    cp_async_commit();
+  }
+
+  // q as A fragments: row gr, columns 16·ks + qc (+1) and + 8
+  unsigned qa[HD / 16][2];
+  {
+    const __nv_bfloat16* qb = q + (static_cast<size_t>(bh) * g + gr) * HD + qc;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      qa[ks][0] = gr < g ? *reinterpret_cast<const unsigned*>(qb + ks * 16) : 0u;
+      qa[ks][1] = gr < g ? *reinterpret_cast<const unsigned*>(qb + ks * 16 + 8) : 0u;
+    }
+  }
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  float mx = -INFINITY;
+  float sum = 0.f;
+
+  if (nsteps > 0) {
+    // scores of 8 keys per tile: s[nt][e] is row gr, key 8·nt + qc + e
+    float s[KW / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < KW / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+    cp_async_wait<1>();  // K has landed
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < KW / 8; ++nt) {
+      if (nt < 2 * nsteps) {
+#pragma unroll
+        for (int kp = 0; kp < HD / 32; ++kp) {
+          unsigned b0, b1, b2, b3;  // keys 8·nt.., dims 32·kp + 8·(lane / 8)..
+          ldmatrix_x4(smem_addr(k_s + (nt * 8 + (lane & 7)) * kRowB +
+                                (kp * 32 + (lane >> 3) * 8) * 2),
+                      b0, b1, b2, b3);
+          mma_top_rows(s[nt], qa[2 * kp][0], qa[2 * kp][1], b0, b1);
+          mma_top_rows(s[nt], qa[2 * kp + 1][0], qa[2 * kp + 1][1], b2, b3);
+        }
+      }
+    }
+    // softmax over the warp's keys, on the fragments
+#pragma unroll
+    for (int nt = 0; nt < KW / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = nt < 2 * nsteps && wj0 + nt * 8 + qc + e < j1;
+        s[nt][e] = ok ? s[nt][e] * scale : -INFINITY;
+        mx = fmaxf(mx, s[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));  // finite: key wj0 < j1
+    unsigned pa[KW / 8];  // probabilities as A fragments of p·v
+#pragma unroll
+    for (int nt = 0; nt < KW / 8; ++nt) {
+      const __nv_bfloat162 p =
+          __floats2bfloat162_rn(expf(s[nt][0] - mx), expf(s[nt][1] - mx));
+      // the denominator sums the rounded probabilities that p·v multiplies
+      sum += __low2float(p) + __high2float(p);
+      pa[nt] = *reinterpret_cast<const unsigned*>(&p);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+
+    cp_async_wait<0>();  // V has landed
+    __syncwarp();
+#pragma unroll
+    for (int ks = 0; ks < KW / 16; ++ks) {
+      if (ks < nsteps) {
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          unsigned b0, b1, b2, b3;  // keys 16·ks + 8·(lane / 8 % 2).., dims 16·np + 8·(lane / 16)..
+          ldmatrix_x4_trans(
+              smem_addr(v_s + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kRowB +
+                        (np * 16 + (lane >> 4) * 8) * 2),
+              b0, b1, b2, b3);
+          mma_top_rows(acc[2 * np], pa[2 * ks], pa[2 * ks + 1], b0, b1);
+          mma_top_rows(acc[2 * np + 1], pa[2 * ks], pa[2 * ks + 1], b2, b3);
+        }
+      }
+    }
+  } else {
+    cp_async_wait<0>();
+  }
+
+  // merge the four warps: their partials go where K and V were
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);  // (kMmaWarps, kRed)
+  {
+    float* rw = red + warp * kRed;
+    if (nsteps > 0 && gr < g) {
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) {
+        rw[gr * HD + nt * 8 + qc] = acc[nt][0];
+        rw[gr * HD + nt * 8 + qc + 1] = acc[nt][1];
+      }
+      if ((lane & 3) == 0) {
+        rw[8 * HD + gr] = mx;
+        rw[8 * HD + 8 + gr] = sum;
+      }
+    } else if (nsteps == 0 && lane < 8) {
+      rw[8 * HD + lane] = -INFINITY;
+    }
+  }
+  __syncthreads();
+  const size_t part = static_cast<size_t>(bh) * nchunk + chunk;
+  for (int i = tid; i < g * HD; i += kMmaThreads) {
+    const int gi = i / HD;
+    float m = -INFINITY;
+#pragma unroll
+    for (int wi = 0; wi < kMmaWarps; ++wi) m = fmaxf(m, red[wi * kRed + 8 * HD + gi]);
+    float o = 0.f, l = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kMmaWarps; ++wi) {
+      const float mw = red[wi * kRed + 8 * HD + gi];
+      if (mw == -INFINITY) continue;  // a warp past pos: no keys
+      const float e = expf(mw - m);
+      o += e * red[wi * kRed + i];
+      l += e * red[wi * kRed + 8 * HD + 8 + gi];
+    }
+    if (nact == 1) {
+      ob[i] = __float2bfloat16(o / l);
+    } else {
+      o_part[part * g * HD + i] = o;
+      if (i % HD == 0) {
+        m_part[part * g + gi] = m;
+        l_part[part * g + gi] = l;
+      }
+    }
+  }
+  if (nact == 1) return;
+
+  // count this chunk in; the block that arrives last combines, in chunk order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int before = atomicAdd(counters + bh, 1);
+    last_s = before == nact - 1;
+    if (last_s) counters[bh] = 0;  // every chunk has counted: ready for the next launch
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const size_t p0 = static_cast<size_t>(bh) * nchunk;
+  for (int i = tid; i < g * HD; i += kMmaThreads) {
+    const int gi = i / HD;
+    float m = -INFINITY;
+    for (int s = 0; s < nact; ++s) m = fmaxf(m, __ldcg(m_part + (p0 + s) * g + gi));
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < nact; ++s) {
+      const float e = expf(__ldcg(m_part + (p0 + s) * g + gi) - m);
+      num += e * __ldcg(o_part + (p0 + s) * g * HD + i);
+      den += e * __ldcg(l_part + (p0 + s) * g + gi);
+    }
+    ob[i] = __float2bfloat16(num / den);
+  }
+}
+
+template <int HD, int KW, typename Keys>
+int attention_mma_launch_as(const void* q, const Keys& keys, const void* pos, void* out,
+                            void* scratch, void* counters, int b, int hkv, int g, int w,
+                            float scale, cudaStream_t s) {
+  constexpr int kChunk = KW * kMmaWarps;
+  constexpr int kSmem = 2 * kChunk * (HD * 2 + 16);
+  static_assert(kSmem >= kMmaWarps * (8 * HD + 16) * 4, "the merge reuses the K/V rows");
+  const int nchunk = (w + kChunk - 1) / kChunk;
+  if (nchunk > 1 && (scratch == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = attention_mma<HD, KW, Keys>;
+  if (kSmem > 48 * 1024) {  // once per device and process
+    static bool allowed[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    if (!allowed[dev]) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      allowed[dev] = true;
+    }
+  }
+  const size_t parts = static_cast<size_t>(b) * hkv * nchunk * g;
+  float* o_part = static_cast<float*>(scratch);
+  float* m_part = o_part + parts * HD;
+  float* l_part = m_part + parts;
+  kernel<<<dim3(nchunk, b * hkv), kMmaThreads, kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), keys, static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), o_part, m_part, l_part, static_cast<int*>(counters),
+      hkv, g, w, nchunk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the tensor-core body with chunks of `chunk` keys (64 or 128) over
+// head dim d (64 or 128): see attention_mma_takes. Scratch for the partials:
+// f32 B·Hkv·S·G·(D + 2), S = ceil(w / chunk); counters: B·Hkv ints that are 0
+// before the launch and 0 again after it. Returns the launch's cudaError_t.
+template <typename Keys>
+int attention_mma_launch(const void* q, const Keys& keys, const void* pos, void* out,
+                         void* scratch, void* counters, int b, int hkv, int g, int d, int w,
+                         int chunk, float scale, cudaStream_t s) {
+  if (d == 128 && chunk == 64)
+    return attention_mma_launch_as<128, 16>(q, keys, pos, out, scratch, counters, b, hkv, g,
+                                            w, scale, s);
+  if (d == 128 && chunk == 128)
+    return attention_mma_launch_as<128, 32>(q, keys, pos, out, scratch, counters, b, hkv, g,
+                                            w, scale, s);
+  if (d == 64 && chunk == 64)
+    return attention_mma_launch_as<64, 16>(q, keys, pos, out, scratch, counters, b, hkv, g,
+                                           w, scale, s);
+  if (d == 64 && chunk == 128)
+    return attention_mma_launch_as<64, 32>(q, keys, pos, out, scratch, counters, b, hkv, g,
+                                           w, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

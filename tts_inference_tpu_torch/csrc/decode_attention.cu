@@ -5,26 +5,26 @@
 // query per slot attends to the cache prefix j <= pos[b]: q·kᵀ/√D → mask →
 // softmax → ·v, accumulated in f32, written in q's dtype.
 //
-// What bounds it on the H100: device-memory bytes and their latency. Each
-// decode step reads the slot's K and V rows once (2·W·Hkv·D·2 bytes at bf16)
-// and does ~4·G FLOPs per byte, far below the card's ~295 FLOP/byte ridge.
-// At the serve shapes (B·Hkv = 64 heads, W ≤ 4608) the bytes are few, so what
-// limits a simple kernel is how many loads it keeps in flight.
+// What bounds it on the H100: latency, then bytes. Each decode step reads the
+// slot's K and V rows once (2·W·Hkv·D·2 bytes at bf16) at ~4·G FLOPs per
+// byte, far below the card's ~295 FLOP/byte ridge; at the serve shapes
+// (B·Hkv = 64 heads, W ≤ 4608) that is 4–70 MB, 1.5–21 µs at the memory rate,
+// so a kernel is as fast as the loads it keeps in flight and as short as the
+// chain from its launch to its last store.
 //
-// What the design does about it (the body is shared with K3a/K3b, see
-// attention.cuh):
-//  - the window is split into chunks of kSplit keys; one block per (slot, kv
-//    head, chunk) streams that chunk's K/V rows exactly once with an online
-//    softmax over tiles of kTile keys, and a second pass combines the chunks
-//    (flash-decoding). 64 heads × up to 18 chunks fill the 132 SMs where 64
-//    blocks alone did not (a first version with one block per head measured
-//    slower than the plain PyTorch version from W = 2048 up);
-//  - scores: one thread per key reads its 256-byte K row as 16-byte vectors,
-//    all of them issued back to back; p·v: one warp per key, each lane owns
-//    4 head-dim elements, so a V row is one coalesced 256-byte read. No score
-//    or probability vector goes to device memory;
+// What the design does about it (bodies in attention.cuh):
+//  - bf16 with D 64 or 128 (the serve path) runs `attention_mma`: chunks of
+//    64 or 128 keys, picked by the wrapper from (B, Hkv, W) so that every SM
+//    gets two to four blocks; a chunk's K and V rows are requested up front
+//    with cp.async into padded shared-memory rows; q·kᵀ and p·v run on the
+//    tensor cores (mma.sync m16n8k16, G query heads in the first rows of A)
+//    with the softmax on the fragments in registers; the chunks are combined
+//    by the block that finishes last, so a call is one launch at every W;
+//  - f32 (the tiny configuration) and other head dims run the CUDA-core body
+//    `attention_chunk` in chunks of 256 keys, with `attention_combine` as a
+//    second launch from W 257 up;
 //  - the G query heads of a kv head share every K/V load (GQA); G is not
-//    padded to the TPU's 8-row sublane tile;
+//    padded to the TPU's 8-row sublane tile in memory;
 //  - keys past pos[b] are never read: each chunk stops at min(W, pos+1),
 //    where the TPU kernel read the whole window and masked it. Masked keys
 //    contribute exp(-1e30 - m) == 0 exactly in the reference, so the result
@@ -74,17 +74,27 @@ int launch_dense(const void* q, const void* k, const void* v, const void* pos, v
 
 }  // namespace
 
-// Chunks the window is split into; the caller sizes the scratch from it.
-extern "C" int tts_decode_attention_splits(int w) { return attention_splits(w); }
-
-// dtype: 0 = bfloat16, 1 = float32. Returns the launches' cudaError_t.
+// dtype: 0 = bfloat16, 1 = float32. `chunk` is the wrapper's choice of keys
+// per block: 64 or 128 selects the tensor-core body (bf16, D 64 or 128),
+// 256 the CUDA-core body. scratch: f32 B·Hkv·S·G·(D + 2) with
+// S = ceil(w / chunk), needed when S > 1; counters: B·Hkv ints, 0 before and
+// after every launch (tensor-core body only). Returns the launches'
+// cudaError_t.
 extern "C" int tts_decode_attention(const void* q, const void* k, const void* v,
-                                    const void* pos, void* out, void* scratch, int b,
-                                    int hkv, int g, int d, int w, long long k_bstride,
-                                    long long v_bstride, float scale, int dtype,
-                                    void* stream) {
+                                    const void* pos, void* out, void* scratch,
+                                    void* counters, int b, int hkv, int g, int d, int w,
+                                    int chunk, long long k_bstride, long long v_bstride,
+                                    float scale, int dtype, void* stream) {
   if (!attention_shape_ok(b, hkv, g, d, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && attention_mma_takes(d, chunk)) {
+    const DenseKeys<__nv_bfloat16> keys{static_cast<const __nv_bfloat16*>(k),
+                                        static_cast<const __nv_bfloat16*>(v), k_bstride,
+                                        v_bstride, hkv, d};
+    return attention_mma_launch(q, keys, pos, out, scratch, counters, b, hkv, g, d, w, chunk,
+                                scale, s);
+  }
+  if (chunk != kSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_dense<__nv_bfloat16>(q, k, v, pos, out, scratch, b, hkv, g, d, w,
                                        k_bstride, v_bstride, scale, s);

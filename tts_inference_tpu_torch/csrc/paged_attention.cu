@@ -17,7 +17,13 @@
 // kernel walked the window in order with a grid of (slot, super-block of m
 // pool blocks) and carried the running max / denominator in VMEM; here the
 // blocks of a slot run in parallel and in no order, so the window is cut
-// into chunks and a second pass combines them (the K1 design, attention.cuh).
+// into chunks whose partial results are combined afterwards. Both bodies of
+// attention.cuh are used: K3a over bf16 pools at D 64 or 128 runs the
+// tensor-core body `attention_mma` (as K1 does: it needs nothing of a key
+// but a pointer to its row, which here goes through the block table; one
+// launch); K3a over f32 pools, K3b and K5 run the CUDA-core body
+// `attention_chunk` + `attention_combine`, whose loads convert integers and
+// apply scales.
 //
 // What bounds it on the H100: at long windows, device-memory bytes — each
 // step reads the slot's K and V rows once (2·W·Hkv·D bytes at int8, twice
@@ -162,22 +168,37 @@ int launch_paged(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// Chunks a window of wb blocks of bs positions is split into; the caller
-// sizes the scratch from it.
-extern "C" int tts_paged_attention_splits(int wb, int bs) {
-  return attention_splits(wb * bs);
-}
+// All three entries: `chunk` is the wrapper's choice of keys per block
+// (256 = the CUDA-core body; 64 or 128 = the tensor-core body, which K3a
+// takes for bf16 pools at D 64 or 128); scratch: f32 B·Hkv·S·G·(D + 2) with
+// S = ceil(wb·bs / chunk), needed when S > 1; counters: B·Hkv ints, 0 before
+// and after every launch (tensor-core body only).
 
 // K3a. dtype of q, out and both pools: 0 = bfloat16, 1 = float32.
 // Returns the launches' cudaError_t.
 extern "C" int tts_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                    const void* table, long long table_stride,
-                                   const void* pos, void* out, void* scratch, int b,
-                                   int hkv, int g, int d, int bs, int wb, float scale,
-                                   int dtype, void* stream) {
+                                   const void* pos, void* out, void* scratch,
+                                   void* counters, int b, int hkv, int g, int d, int bs,
+                                   int wb, int chunk, float scale, int dtype,
+                                   void* stream) {
   if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && attention_mma_takes(d, chunk)) {
+    const PagedKeys<__nv_bfloat16, false> keys{static_cast<const __nv_bfloat16*>(k_pool),
+                                               static_cast<const __nv_bfloat16*>(v_pool),
+                                               nullptr,
+                                               nullptr,
+                                               static_cast<const int*>(table),
+                                               table_stride,
+                                               hkv,
+                                               bs,
+                                               d};
+    return attention_mma_launch(q, keys, pos, out, scratch, counters, b, hkv, g, d, wb * bs,
+                                chunk, scale, s);
+  }
+  if (chunk != kSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_paged<__nv_bfloat16, __nv_bfloat16, false>(
         q, k_pool, v_pool, nullptr, nullptr, table, table_stride, pos, out, scratch, b,
@@ -195,10 +216,11 @@ extern "C" int tts_paged_attention_int8(const void* q, const void* k_pool,
                                         const void* v_pool, const void* k_scale,
                                         const void* v_scale, const void* table,
                                         long long table_stride, const void* pos, void* out,
-                                        void* scratch, int b, int hkv, int g, int d, int bs,
-                                        int wb, float scale, int q_dtype, void* stream) {
-  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || k_scale == nullptr ||
-      v_scale == nullptr)
+                                        void* scratch, void* /*counters*/, int b, int hkv,
+                                        int g, int d, int bs, int wb, int chunk, float scale,
+                                        int q_dtype, void* stream) {
+  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || chunk != kSplit ||
+      k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
@@ -220,9 +242,10 @@ extern "C" int tts_paged_attention_int4(const void* q, const void* k_pool,
                                         const void* v_pool, const void* k_scale,
                                         const void* v_scale, const void* table,
                                         long long table_stride, const void* pos, void* out,
-                                        void* scratch, int b, int hkv, int g, int d, int bs,
-                                        int wb, float scale, int q_dtype, void* stream) {
-  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || hkv % 2 ||
+                                        void* scratch, void* /*counters*/, int b, int hkv,
+                                        int g, int d, int bs, int wb, int chunk, float scale,
+                                        int q_dtype, void* stream) {
+  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || hkv % 2 || chunk != kSplit ||
       k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -59,24 +59,25 @@ def library_path() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tts_decode_attention_splits.argtypes = [i]
-    lib.tts_decode_attention_splits.restype = i
     lib.tts_decode_attention.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, ll, ll, ctypes.c_float, i, p]
+        p, p, p, p, p, p, p, i, i, i, i, i, i, ll, ll, ctypes.c_float, i, p]
     lib.tts_decode_attention.restype = i
-    lib.tts_paged_attention_splits.argtypes = [i, i]
-    lib.tts_paged_attention_splits.restype = i
     lib.tts_paged_attention.argtypes = [
-        p, p, p, p, ll, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        p, p, p, p, ll, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
+        p]
     lib.tts_paged_attention.restype = i
     lib.tts_paged_attention_int8.argtypes = [
-        p, p, p, p, p, p, ll, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        p, p, p, p, p, p, ll, p, p, p, p, i, i, i, i, i, i, i,
+        ctypes.c_float, i, p]
     lib.tts_paged_attention_int8.restype = i
     lib.tts_fused_residual_unit.argtypes = [
         p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, p]
     lib.tts_fused_residual_unit.restype = i
+    lib.tts_fused_residual_unit_max_dilation.argtypes = [i]
+    lib.tts_fused_residual_unit_max_dilation.restype = i
     lib.tts_paged_attention_int4.argtypes = [
-        p, p, p, p, p, p, ll, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        p, p, p, p, p, p, ll, p, p, p, p, i, i, i, i, i, i, i,
+        ctypes.c_float, i, p]
     lib.tts_paged_attention_int4.restype = i
     lib.tts_quant_matmul_splits.argtypes = [p, i, i, i, i, ll, i, i, i]
     lib.tts_quant_matmul_splits.restype = i

@@ -16,6 +16,12 @@ D = head dim):
     out: (B, Hkv, G, D) in q's dtype
 Unlike the TPU kernel, every W is covered (no VMEM bound), and G is not
 padded.
+
+The window is cut into chunks, one thread block each. bf16 with D 64 or 128
+runs the tensor-core body, whose chunk length ``chunk_keys`` picks from the
+shape; everything else runs the CUDA-core body in chunks of ``SIMPLE_CHUNK``
+keys (``plan`` says which, and sizes the scratch for the chunks' partial
+results).
 """
 
 from __future__ import annotations
@@ -29,6 +35,69 @@ from tts_inference_tpu_torch.ops import _build
 launches = _build.LaunchCounter()
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+MMA_CHUNKS = (128, 64)   # keys per block of the tensor-core body, longest first
+SIMPLE_CHUNK = 256       # keys per block of the CUDA-core body
+H100_SMS = 132
+
+_workspaces = {}         # device → _Workspace
+
+
+def chunk_keys(b: int, hkv: int, w: int, sms: int = H100_SMS) -> int:
+    """Keys per block of the tensor-core body: the longest chunk that still
+    gives every SM two blocks (one block per slot, kv head and chunk), else
+    the shortest."""
+    for chunk in MMA_CHUNKS:
+        if b * hkv * -(-w // chunk) >= 2 * sms:
+            return chunk
+    return MMA_CHUNKS[-1]
+
+
+def plan(b, hkv, g, d, w, dtype, sms: int = H100_SMS, scaled: bool = False):
+    """(keys per chunk, chunks, f32 elements of scratch) of one call: each
+    chunk of each (slot, kv head) leaves G·D sums, G maxima and G
+    denominators when there is more than one chunk to combine. `scaled`:
+    the K/V rows are integers with scales (the paged int8 / int4 pools),
+    which only the CUDA-core body reads."""
+    if dtype == torch.bfloat16 and d in (64, 128) and not scaled:
+        chunk = chunk_keys(b, hkv, w, sms)
+    else:
+        chunk = SIMPLE_CHUNK
+    nchunk = -(-w // chunk)
+    return chunk, nchunk, (b * hkv * nchunk * g * (d + 2) if nchunk > 1 else 0)
+
+
+class _Workspace:
+    """What the attention kernels need of one device beside their
+    arguments: the SM count, a counter per (slot, kv head) that is zero
+    between launches (the kernel's last block sets its counter back), and
+    the scratch for the chunks' partial results, both grown as needed. The
+    dense and the paged wrappers share it: calls on one device follow each
+    other on its stream, as the engine's do."""
+
+    def __init__(self, device):
+        self.device = device
+        self.sms = torch.cuda.get_device_properties(
+            device).multi_processor_count
+        self.counters = torch.zeros(1024, dtype=torch.int32, device=device)
+        self.scratch = torch.empty(1 << 20, dtype=torch.float32,
+                                   device=device)
+
+    def reserve(self, heads: int, floats: int):
+        if self.counters.numel() < heads:
+            self.counters = torch.zeros(2 * heads, dtype=torch.int32,
+                                        device=self.device)
+        if self.scratch.numel() < floats:
+            self.scratch = torch.empty(2 * floats, dtype=torch.float32,
+                                       device=self.device)
+        return self.counters, self.scratch
+
+
+def workspace(device) -> _Workspace:
+    ws = _workspaces.get(device)
+    if ws is None:
+        ws = _workspaces[device] = _Workspace(device)
+    return ws
 
 
 def decode_attention_reference(q, k, v, pos):
@@ -71,6 +140,8 @@ def _check(q, k, v, pos):
     for name, t in (("q", q), ("pos", pos)):
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
+    if q.data_ptr() % 16:
+        raise ValueError("decode_attention: q not 16-byte aligned")
     devs = {t.device for t in (q, k, v, pos)}
     if len(devs) != 1:
         raise ValueError(f"decode_attention: tensors on {devs}")
@@ -86,16 +157,14 @@ def decode_attention(q, k, v, pos):
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     lib = _build.load()
     out = torch.empty_like(q)
-    # per-chunk partials (acc, max, denominator) for the combine pass
-    nsplit = lib.tts_decode_attention_splits(w)
-    scratch = (torch.empty(b * hkv * nsplit * g * (d + 2),
-                           dtype=torch.float32, device=q.device)
-               if nsplit > 1 else None)
+    ws = workspace(q.device)
+    chunk, _, floats = plan(b, hkv, g, d, w, q.dtype, ws.sms)
+    counters, scratch = ws.reserve(b * hkv, floats)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.tts_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        b, hkv, g, d, w, k.stride(0), v.stride(0), 1.0 / math.sqrt(d),
+        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+        b, hkv, g, d, w, chunk, k.stride(0), v.stride(0), 1.0 / math.sqrt(d),
         _DTYPES[q.dtype], stream)
     _build.check(err, "decode_attention")
     launches.add()

@@ -2,8 +2,9 @@
 pools, is ``ops/paged_attention_int4.py`` over the same launcher).
 
 Port of ``tts_inference_tpu/ops/pallas/paged_attention.py``. The kernels are
-hand-written CUDA C++ for Hopper (``csrc/paged_attention.cu``, sharing its
-body with K1 through ``csrc/attention.cuh``); beside them,
+hand-written CUDA C++ for Hopper (``csrc/paged_attention.cu``, sharing their
+bodies with K1 through ``csrc/attention.cuh``: bf16 pools at D 64 / 128 run
+the tensor-core body, f32 and int8 pools the CUDA-core body); beside them,
 ``paged_decode_attention_reference`` and
 ``paged_decode_attention_int8_reference`` are the plain PyTorch versions:
 gather the window's blocks (dequantized in f32 for int8), then dense masked
@@ -32,8 +33,8 @@ import math
 import torch
 
 from tts_inference_tpu_torch.ops import _build
-from tts_inference_tpu_torch.ops.decode_attention import \
-    decode_attention_reference
+from tts_inference_tpu_torch.ops.decode_attention import (
+    decode_attention_reference, plan, workspace)
 
 launches = _build.LaunchCounter()        # K3a
 launches_int8 = _build.LaunchCounter()   # K3b
@@ -136,18 +137,19 @@ def launch_paged(fn, counter, q, k_pool, v_pool, scales, table, pos,
         raise ValueError(f"{fn}: no kernel for {q.device}")
     lib = _build.load()
     out = torch.empty_like(q)
-    # per-chunk partials (acc, max, denominator) for the combine pass
-    nsplit = lib.tts_paged_attention_splits(wb, bs)
-    scratch = (torch.empty(b * hkv * nsplit * g * (d + 2),
-                           dtype=torch.float32, device=q.device)
-               if nsplit > 1 else None)
+    # keys per block (bf16 pools at D 64 / 128 run the tensor-core body, as
+    # the dense kernel does) and the chunks' partials for the combine
+    ws = workspace(q.device)
+    chunk, _, floats = plan(b, hkv, g, d, wb * bs, q.dtype, ws.sms,
+                            scaled=bool(scales))
+    counters, scratch = ws.reserve(b * hkv, floats)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *(s.data_ptr() for s in scales), table.data_ptr(), table.stride(0),
-        pos.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        b, hkv, g, d, bs, wb, 1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+        pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        counters.data_ptr(), b, hkv, g, d, bs, wb, chunk,
+        1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
     _build.check(err, fn)
     counter.add()
     return out

@@ -15,7 +15,9 @@ tensor may be channel-last contiguous or a transposed view of a channel-first
 (B, C, T) contiguous tensor (what the port's decoder keeps for cuDNN); the
 output has the input's memory layout. Parameters are the port's torch-layout
 unit dict: ``{"alpha1": (C,), "conv1": {"w": (C, 1, 7), "b"}, "alpha2",
-"conv2": {"w": (C, C, 1), "b"}}``.
+"conv2": {"w": (C, C, 1), "b"}}``. The kernel takes C up to
+``MAX_CHANNELS`` and the dilations whose halo fits a warp's staging buffer
+(up to 9; SNAC uses 1, 3 and 9).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from tts_inference_tpu_torch.ops import _build
 
 launches = _build.LaunchCounter()
 
-MAX_CHANNELS = 1024   # y2 tile (C × 32 f32) + weight slice in shared memory
+MAX_CHANNELS = 512    # the widest tile the kernel has: C × 32 time steps of y2
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -93,6 +95,9 @@ def fused_residual_unit(x, p, dilation, valid=None):
     if x.device.type != "cuda":
         raise ValueError(f"fused_residual_unit: no kernel for {x.device}")
     lib = _build.load()
+    if not 1 <= dilation <= lib.tts_fused_residual_unit_max_dilation(c):
+        raise ValueError(f"fused_residual_unit: dilation {dilation} at {c} "
+                         "channels: the tile's halo does not fit")
     out = torch.empty_like(x)
     if out.stride() != x.stride():
         raise ValueError("fused_residual_unit: output layout differs")
