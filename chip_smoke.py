@@ -13,9 +13,14 @@ no result line is printed:
    paths' shapes: max |Δ| and its tolerance, device µs per call of both (a
    CUDA graph of the calls, replayed), the least time the card could take
    (bytes or operations), and the time of the one PyTorch call that
-   computes the same function where there is one; K1, K3a and K6 also at
+   computes the same function where there is one (K2: the build is asked
+   whether it has ``aten::_weight_int8pack_mm`` on CUDA); the time of an
+   empty kernel; a ``torch.profiler`` count that every K4 / K2 call is one
+   kernel; K1, K3a, K6, K4 and K2 also at
    the edges of their tilings, correctness only, each case run twice for
-   bit-equal outputs (K1, and K3a over block sizes 16 to 128: G 1, 4, 8,
+   bit-equal outputs (K4 / K2: M 1 to 4096, N under a padded w_p, small
+   groups, column and row slices of a wider weight read in place, what the
+   tensor-core kernel refuses, f32 x; K1, and K3a over block sizes 16 to 128: G 1, 4, 8,
    D 64, f32 at the tiny shapes, windows
    that are no multiple of a chunk, every pos 0 and W - 1, pos at a chunk's
    last and first key; K6: T that is no multiple of a tile, T below the
@@ -49,8 +54,8 @@ no result line is printed:
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
-without a card. ``--only PHASES`` runs some phases during development and
-prints no result line.
+without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
+paged, quant) runs some phases during development and prints no result line.
 """
 
 from __future__ import annotations
@@ -487,11 +492,20 @@ def _qmm_weight(k: int, n: int, dtype, gen: torch.Generator):
     return w.to(dtype)
 
 
+def int8pack_mm_on_card() -> bool:
+    """Whether this build of PyTorch has a CUDA kernel for
+    ``aten::_weight_int8pack_mm`` (x (M, K) bf16, int8 (N, K), scales (N,)):
+    the one library call that computes K2's function."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+
+
 def _qmm_finish(name, shape, x, kern, plain, rotate, out_f32, wbytes, k, n,
-                ctx_weight=None):
+                ctx_weight=None, library=None):
     """Compare one quantized matmul with its plain version and time both
     over weights that rotate through more than the L2 holds. No PyTorch call
-    multiplies by these packed formats, so there is no library time; the
+    multiplies by the packed int4 format, so K4 has no library time; K2's is
+    `library` = (fn, rotating arguments) where the build has the call. The
     bf16 ``torch.matmul`` of the same (M, K, N) is printed as context."""
     m = x.numel() // k
     got = kern(*rotate[0])
@@ -515,7 +529,9 @@ def _qmm_finish(name, shape, x, kern, plain, rotate, out_f32, wbytes, k, n,
         ctx = time_ms(lambda w: xbf @ w, rotate=[(w,) for w in ws])
         extra = f"; bf16 torch.matmul of the same shape {ctx * 1e3:.1f} us"
         res_extra = {"bf16_matmul_ms": ctx}
-    res = _report(name, shape, err, tol, ms, plain_ms, bnd, None, extra)
+    lib_ms = None if library is None else time_ms(library[0],
+                                                  rotate=library[1])
+    res = _report(name, shape, err, tol, ms, plain_ms, bnd, lib_ms, extra)
     return {**res, **res_extra}
 
 
@@ -552,11 +568,19 @@ def _k2_case(m: int, k: int, n: int, gen: torch.Generator,
     x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
     qs = [quantize_linear(_qmm_weight(k, n, torch.bfloat16, gen))
           for _ in range(_copies(k * n))]
+    library = None
+    if context and int8pack_mm_on_card():
+        # the library call wants (N, K) weights and scales in x's type:
+        # transposed copies, made outside the timed region
+        library = (torch._weight_int8pack_mm,
+                   [(x, q.w_i8.t().contiguous(), q.scale.bfloat16())
+                    for q in qs])
     return _qmm_finish(
         "K2 w8_mm", f"M{m} K{k} N{n} (in, out) bf16", x, w8_mm,
         w8_mm_reference, [(x, q.w_i8, q.scale) for q in qs], False,
         k * n + 4 * n, k, n,
-        (lambda: _qmm_weight(k, n, torch.bfloat16, gen)) if context else None)
+        (lambda: _qmm_weight(k, n, torch.bfloat16, gen)) if context else None,
+        library)
 
 
 def _k2_head_case(gen: torch.Generator):
@@ -580,10 +604,191 @@ def _k2_head_case(gen: torch.Generator):
     def plain(x, w, s):
         return w8_mm_reference(x, w, s, rows=True, out_dtype=torch.float32)
 
+    library = None
+    if int8pack_mm_on_card():     # bf16 logits, the weights read in place
+        library = (torch._weight_int8pack_mm,
+                   [(x, emb.w_i8[base:], emb.scale[base:].bfloat16())])
     return _qmm_finish("K2 w8_mm", f"M{m} K{h} N{n} rows [{base}:] of "
                        f"({v}, {h}), f32 out", x, kern, plain,
                        [(x, emb.w_i8[base:], emb.scale[base:])], True,
-                       n * h + 4 * n, h, n)
+                       n * h + 4 * n, h, n, library=library)
+
+
+def _qmm_edges(gen: torch.Generator) -> dict:
+    """The edges of K4's and K2's plans and tilings, correctness only, each
+    case twice for bit-equal outputs: M 1 to 4096 (one tile of 16 rows,
+    tiles of 64 with a ragged last one); N that is no multiple of 128, and
+    none of 4 (scale rows off 16 bytes), under a padded w_p; G 128 and the
+    groups small K gives; a column slice and a
+    row slice of a wider int8 weight, read in place; a row stride and a
+    pointer the tensor-core kernel refuses (the CUDA-core kernels); f32 x."""
+    from tts_inference_tpu_torch.models.quant import (quantize_linear,
+                                                      quantize_linear_i4)
+    from tts_inference_tpu_torch.ops.int4_matmul import (
+        int4_mm, int4_mm_reference, w8_mm, w8_mm_reference)
+
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+
+    def tol_of(want, dtype):
+        top = want.float().abs().max().item()
+        return (QMM_TOL_F32 * max(1.0, top) if dtype == f32
+                else QMM_TOL_BF16 * top)
+
+    worst = {"K4": 0.0, "K2": 0.0}
+    k4_cases = [(m, 3072, 3072, 512, bf16)
+                for m in (1, 3, 9, 16, 17, 64, 200, 4096)]
+    k4_cases += [(8, 3072, 200, 512, bf16), (8, 3072, 202, 512, bf16),
+                 (8, 8192, 1000, 128, bf16),
+                 (70, 1024, 328, 128, bf16), (5, 64, 64, 512, bf16),
+                 (5, 128, 32, 512, bf16), (8, 1040, 256, 512, bf16),
+                 (8, 1028, 256, 512, bf16), (9, 3072, 1024, 512, f32),
+                 (3, 1000, 72, 512, f32)]
+    for m, k, n, group, dtype in k4_cases:
+        q = quantize_linear_i4(_qmm_weight(k, n, dtype, gen), group)
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        want = int4_mm_reference(x, q.w_p, q.scale)
+        what = (f"M{m} K{k} N{n} Np{q.w_p.shape[1]} G{k // q.scale.shape[0]} "
+                f"{'bf16' if dtype == bf16 else 'f32'}")
+        worst["K4"] = max(worst["K4"], _edge(
+            "K4", what, lambda: int4_mm(x, q.w_p, q.scale), want,
+            tol_of(want, dtype)))
+    for m in (1, 3, 9, 16, 17, 64, 200, 4096):
+        q = quantize_linear(_qmm_weight(3072, 1024, bf16, gen))
+        x = torch.randn(m, 3072, generator=gen, device=dev).bfloat16()
+        want = w8_mm_reference(x, q.w_i8, q.scale)
+        worst["K2"] = max(worst["K2"], _edge(
+            "K2", f"M{m} K3072 N1024 (in, out) bf16",
+            lambda: w8_mm(x, q.w_i8, q.scale), want, tol_of(want, bf16)))
+    # views of a wider weight, read in place: column slices (head_logits)
+    # at a 16-byte aligned and at an odd offset, row slices (tied_logits)
+    wide = torch.randint(-127, 128, (1000, 1200), generator=gen, device=dev,
+                         dtype=torch.int8)
+    sc = torch.rand(1200, generator=gen, device=dev) * 1e-2 + 1e-3
+    for what, x_k, w, s, rows, dtype in (
+            ("columns [176:] of (1000, 1200)", 1000, wide[:, 176:], sc[176:],
+             False, bf16),
+            ("columns [7:207] of (1000, 1200)", 1000, wide[:, 7:207],
+             sc[7:207].contiguous(), False, bf16),
+            ("rows [7:] of (1000, 1200)", 1200, wide[7:], sc[:993], True,
+             bf16),
+            ("rows [7:] of (1000, 1200) f32", 1200, wide[7:], sc[:993], True,
+             f32),
+            ("rows [64:320], K [:1000] of (1000, 1200)", 1000,
+             wide[64:320, :1000], sc[:256], True, bf16),
+            ("columns [176:] of (1000, 1200) f32", 1000, wide[:, 176:],
+             sc[176:], False, f32)):
+        for m in (8, 33):
+            x = torch.randn(m, x_k, generator=gen, device=dev).to(dtype)
+            want = w8_mm_reference(x, w, s, rows=rows, out_dtype=f32)
+            worst["K2"] = max(worst["K2"], _edge(
+                "K2", f"M{m} {what}",
+                lambda: w8_mm(x, w, s, rows=rows, out_dtype=f32), want,
+                tol_of(want, f32)))
+    return worst
+
+
+def _qmm_one_launch_check(gen: torch.Generator) -> dict:
+    """Every int4_mm / w8_mm call is exactly one kernel: torch.profiler
+    counts the kernels of one call of each path (tensor cores at M 8 and
+    M 512, the tied head, the CUDA cores for f32 x)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_inference_tpu_torch.models.quant import (quantize_linear,
+                                                      quantize_linear_i4)
+    from tts_inference_tpu_torch.ops.int4_matmul import int4_mm, w8_mm
+
+    dev, bf16 = "cuda", torch.bfloat16
+    w = _qmm_weight(3072, 1024, bf16, gen)
+    q4, q8 = quantize_linear_i4(w, 512), quantize_linear(w)
+    rows = q8.w_i8.t().contiguous()
+    calls = {}
+    for m, dtype in ((8, bf16), (512, bf16), (8, torch.float32)):
+        x = torch.randn(m, 3072, generator=gen, device=dev).to(dtype)
+        tag = f"M{m} {'bf16' if dtype == bf16 else 'f32'}"
+        calls[f"K4 {tag}"] = lambda x=x: int4_mm(x, q4.w_p, q4.scale)
+        calls[f"K2 {tag}"] = lambda x=x: w8_mm(x, q8.w_i8, q8.scale)
+        calls[f"K2 rows {tag}"] = lambda x=x: w8_mm(x, rows, q8.scale,
+                                                     rows=True)
+    counts = {}
+    for what, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts[what] = sum(
+            ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA)
+    print("K4/K2 kernels per call (torch.profiler):", json.dumps(counts),
+          flush=True)
+    if any(c != 1 for c in counts.values()):
+        raise AssertionError(f"a quantized matmul is not one launch: {counts}")
+    return counts
+
+
+def _empty_kernel_ms() -> float:
+    """The time of an empty kernel under time_ms: the floor under every
+    call, which the smallest linear (0.5 µs of bytes) cannot go below."""
+    from tts_inference_tpu_torch.ops import _build
+
+    lib = _build.load()
+
+    def launch():
+        _build.check(lib.tts_empty_kernel(
+            torch.cuda.current_stream().cuda_stream), "empty kernel")
+
+    ms = time_ms(launch)
+    print(f"empty kernel: {ms * 1e3:.2f} us per launch (CUDA-graph replay)",
+          flush=True)
+    return ms
+
+
+def _qmm_cases(gen: torch.Generator):
+    """K4 and K2 at the serve paths' shapes: the Orpheus-3B linears (q/o,
+    k/v, gate/up, down) at a decode step's M 8; a finer group; odd M;
+    prefill M (8 slots × the 16- and 64-token buckets, 512, 2048); the tiny
+    configuration's f32 linears (K 64 / 128, groups 32 / 64, N 64 padded to
+    128 columns); the tied head. Then their edge cases."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    _empty_kernel_ms()
+    linears = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
+    k4 = {(8, k, n): _k4_case(8, k, n, 512, bf16, gen, context=True)
+          for k, n in linears}
+    k4[(8, 3072, 8192, 128)] = _k4_case(8, 3072, 8192, 128, bf16, gen)
+    for m in (1, 3, 512):
+        k4[(m, 3072, 3072)] = _k4_case(m, 3072, 3072, 512, bf16, gen,
+                                       context=m == 512)
+    for k, n in ((64, 64), (64, 32), (64, 128), (128, 64)):
+        k4[(4, k, n)] = _k4_case(4, k, n, 512, f32, gen)
+    k2 = {(8, k, n): _k2_case(8, k, n, gen, context=True) for k, n in linears}
+    k2[(512, 3072, 3072)] = _k2_case(512, 3072, 3072, gen, context=True)
+    k2["head"] = _k2_head_case(gen)
+    # added after the cases above, which so keep drawing the inputs they
+    # always drew
+    for m in (128, 2048):
+        k4[(m, 3072, 3072)] = _k4_case(m, 3072, 3072, 512, bf16, gen,
+                                       context=True)
+        k2[(m, 3072, 3072)] = _k2_case(m, 3072, 3072, gen, context=True)
+    for name, cases in (("K4", k4), ("K2", k2)):
+        layer = [cases[(8, 3072, 3072)], cases[(8, 3072, 1024)],
+                 cases[(8, 3072, 8192)], cases[(8, 8192, 3072)]]
+        mult = (2, 2, 2, 1)     # q and o, k and v, gate and up, down
+        print(f"{name} M8, the seven linears of a layer: kernel "
+              f"{sum(c['ms'] * f for c, f in zip(layer, mult)) * 1e3:.1f} us"
+              f" bound "
+              f"{sum(c['bound_ms'] * f for c, f in zip(layer, mult)) * 1e3:.1f}"
+              " us", flush=True)
+    return k4, k2
+
+
+def qmm_phase() -> None:
+    """Development: K4's and K2's part of the kernel phase alone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _qmm_cases(gen)
+    _qmm_edges(gen)
+    _qmm_one_launch_check(gen)
 
 
 def kernel_phase() -> dict:
@@ -592,7 +797,6 @@ def kernel_phase() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf16, f32 = torch.bfloat16, torch.float32
     k1 = {w: _k1_case(w, gen) for w in (256, 512, 2048, 4608)}
     # SNAC 24 kHz: (C, T per frame) after each upsample stage, 16-frame bucket
     k6 = {}
@@ -607,26 +811,14 @@ def kernel_phase() -> dict:
            for b, w in ((8, 512), (8, 2048), (8, 4608), (64, 512))}
     k5 = {(b, w): _k3_case("K5", b, w, gen)
           for b, w in ((8, 512), (8, 2048), (8, 4608), (4, 12160), (64, 512))}
-    # the Orpheus-3B linears (q/o, k/v, gate/up, down) at a decode step's
-    # M 8; a finer group; odd M; a prefill M; the tiny configuration's f32
-    # linears (K 64 / 128, groups 32 / 64, N 64 padded to 128 columns)
-    linears = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
-    k4 = {(8, k, n): _k4_case(8, k, n, 512, bf16, gen, context=True)
-          for k, n in linears}
-    k4[(8, 3072, 8192, 128)] = _k4_case(8, 3072, 8192, 128, bf16, gen)
-    for m in (1, 3, 512):
-        k4[(m, 3072, 3072)] = _k4_case(m, 3072, 3072, 512, bf16, gen,
-                                       context=m == 512)
-    for k, n in ((64, 64), (64, 32), (64, 128), (128, 64)):
-        k4[(4, k, n)] = _k4_case(4, k, n, 512, f32, gen)
-    k2 = {(8, k, n): _k2_case(8, k, n, gen, context=True) for k, n in linears}
-    k2[(512, 3072, 3072)] = _k2_case(512, 3072, 3072, gen, context=True)
-    k2["head"] = _k2_head_case(gen)
+    k4, k2 = _qmm_cases(gen)
     # last, so that the timed cases above draw the inputs they always drew
     # and their times compare from run to run
     k1_edge = _k1_edges(gen)
     k3a_edge = _k3a_edges(gen)
     k6_edge = _k6_edges(gen)
+    qmm_edge = _qmm_edges(gen)
+    _qmm_one_launch_check(gen)
 
     def worst(cases):
         return max(c["max_abs_err"] for c in cases.values())
@@ -647,8 +839,10 @@ def kernel_phase() -> dict:
         # all 12 units of one 8-row, 16-frame vocoder call
         "K6": {**summed(k6), "max_abs_err": max(worst(k6), k6_edge)},
         # the gate / up projection of a decode step, the largest linear
-        "K4": {**k4[(8, 3072, 8192)], "max_abs_err": worst(k4)},
-        "K2": {**k2[(8, 3072, 8192)], "max_abs_err": worst(k2)},
+        "K4": {**k4[(8, 3072, 8192)],
+               "max_abs_err": max(worst(k4), qmm_edge["K4"])},
+        "K2": {**k2[(8, 3072, 8192)],
+               "max_abs_err": max(worst(k2), qmm_edge["K2"])},
     }
 
 
@@ -1222,7 +1416,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
-                         "kernels, dense, paged, quant) and print no result "
+                         "kernels, qmm, dense, paged, quant) and print no "
+                         "result "
                          "line; the full run takes no arguments")
     only = ap.parse_args(argv).only
     only = set(only.split(",")) if only else None
@@ -1241,6 +1436,8 @@ def main(argv=None) -> int:
         return only is None or phase in only
 
     kern = kernel_phase() if on("kernels") else None
+    if only is not None and "qmm" in only:
+        qmm_phase()
     phases = {}
     if on("dense"):
         dense = phases["dense"] = serve_phase("dense", ["serve"],

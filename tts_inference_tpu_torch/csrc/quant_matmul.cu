@@ -19,35 +19,89 @@
 //
 // What bounds it on the H100: at a decode step (M <= 16) the weight bytes,
 // read once (K·N/2 for K4, K·N for K2) at 2·M FLOPs per weight, far below
-// the ~295 FLOP/byte ridge — but 2·8 f32 FMAs per weight on the CUDA cores
-// already take longer than the bytes, so bf16 activations go through the
-// tensor cores; at prefill (M in the hundreds or thousands) the operations.
+// the ~295 FLOP/byte ridge; a call moves 1.5 to 25 MB, which the card streams
+// in 0.5 to 8 µs, so what decides is how many bytes are on their way from the
+// first cycle on and how few dependent trips a block makes: to memory, and to
+// the other blocks of its tile. At prefill (M in the hundreds or thousands)
+// the operations: a weight tile must be dequantized once for many rows of x.
 //
-// Design, (K rows, N columns) weights, bf16 x — `qmm_kn_mma`, mma.sync
-// m16n8k16 with f32 accumulators (integers up to 127 are exact in bf16):
-//  - x is the A operand (16 rows: a decode step's 8 slots fill half), the
-//    weights the B operand. An mma sums over k and nothing orders its k
-//    slots or its n slots, so both are permuted to fit coalesced loads of
-//    the format as it is stored: lane (g, t) reads, for each of four weight
-//    rows 4t..4t+3 of a 16-row k-tile, the 4-byte word at columns 4g..4g+3
-//    (the warp reads 16 rows × 32 columns, whole 32-byte sectors). Byte j of
-//    those words is the lane's B fragment of n-tile j: k slots 2t, 2t+1,
-//    2t+8, 2t+9 stand for rows 4t..4t+3 and n slot g for column 4g + j. x
-//    follows the same k permutation, which makes its fragment 4 consecutive
-//    bf16 of a row: one 8-byte load;
-//  - a nibble becomes bf16 without a convert: its 4 bits OR-ed into the
-//    mantissa of 128.0 (0x4300) give 128 + bits exactly, and one bf16x2
+// Every call is ONE launch. Design of `qmm_stream<F, MT>` — bf16 x, all three
+// weight formats (K4; K2 with (K, N) weights; K2 with (N, K) weights, the tied
+// head), mma.sync m16n8k16 with f32 accumulators (the integers are exact in
+// bf16):
+//  - work is cut into units: (tile of 16·MT rows of x × 128 out columns) ×
+//    (chunk of 64 weight rows — K4: 64 packed rows, i.e. 64 k of each half of
+//    K — that never crosses a scale group). Block b of B takes units [b·U/B,
+//    (b+1)·U/B) of the list ordered by tile, then chunk. The wrapper computes
+//    that plan (ops/int4_matmul.py::plan) and passes its numbers; the kernel
+//    repeats the two integer divisions. At a decode step B = tiles × c and the
+//    c blocks of a tile are one thread-block cluster (c = 8, 4 or 2: as many
+//    as the card holds at once); else B = SMs × resident blocks, persistent,
+//    and the runs cross tiles (stream-K: blocks differ by at most one unit);
+//  - a block is 8 consumer warps and a producer warp. The producer hands a
+//    unit to the copy engine (TMA, `cp.async.bulk.tensor`): one box of the
+//    weights' tensor map (64 rows × 128 bytes; (N, K): 128 channels × 64
+//    bytes), one box of x's per half of K (16·MT rows, or a decode step's 8,
+//    × 64 k) and, in the stage at which the consumers scale, K4's two scale
+//    rows of the unit's group (one box each of the scales' map), into a ring
+//    of 6 (MT 4: 4) shared-memory stages of 12 to 26 KB. The engine computes
+//    the addresses, fills what lies outside the arrays with zeros,
+//    XOR-swizzles the 16-byte units of each row so that the fragment loads
+//    below meet no (weights: at most 2-way) bank conflict, takes no place in
+//    the load/store queue that those loads go through, and counts the bytes
+//    in on the stage's `full` mbarrier. All boxes of a stage leave in ONE
+//    instruction of the warp, a lane per box, and lane 0's `expect_tx` is the
+//    barrier's only arrival: a box costs the issuing lane some 220 cycles,
+//    and 32 lanes arriving on one barrier several hundred, more than the
+//    memory takes to deliver the stage. Where a chunk is not whole (a scale
+//    group that is no multiple of 64 rows) or the scale rows do not start on
+//    16 bytes, x and the scales go by `cp.async` of all lanes, which arrive
+//    on the same barrier. Consumers wait on `full`, multiply, and arrive on
+//    `empty`; the producer refills a stage when all eight warps have left it.
+//    A tensor map costs microseconds to encode: they are kept per array;
+//  - an mma sums over k and nothing orders its k slots or its n slots, so
+//    both are permuted to fit the format as it is stored: lane (g, t) takes,
+//    for each of four weight rows 4t..4t+3 of a 16-row k-tile, the 4-byte
+//    word at columns 4g..4g+3. Byte j of those words is the lane's B fragment
+//    of n-tile j: k slots 2t, 2t+1, 2t+8, 2t+9 stand for rows 4t..4t+3 and n
+//    slot g for column 4g + j. x follows the same k permutation, which makes
+//    its fragment 4 consecutive bf16 of a row (each mma register by a 4-byte
+//    load of its own: a 64-bit load would need register moves after it);
+//  - (N, K) weights ARE the `col` B operand: lane (g, t) takes the word at
+//    k 4t..4t+3 of out channel g of an n-tile, two B registers;
+//  - a nibble becomes bf16 without a convert: its 4 bits in the mantissa of
+//    128.0 (0x4300) give 128 + bits exactly — a byte permute and ONE LOP3,
+//    (r & mask) | 0x4300 with both constants in registers — and one bf16x2
 //    subtract of 136 leaves q (the low nibble stores q + 8; the high one is
-//    two's complement, so bits ^ 8 = q + 8). int8 weights take the convert;
-//  - a warp walks chunks of 64 weight rows that never cross a scale group,
-//    scales the chunk's two accumulator sets (low and high half of K) once
-//    and adds them to its tile in shared memory; 4 column groups × 2 warps
-//    along K make a block of 128 columns; K splits, partial tiles and the
-//    second pass are those of the CUDA-core path below.
+//    two's complement, so bits ^ 8 = q + 8). An int8 byte, biased by 128,
+//    goes into the mantissa of 2^23 as f32, one subtract leaves the integer,
+//    and two of them are packed to bf16x2 by one convert;
+//  - 4 column groups × 2 warps along the stage's k-tiles make a block. K4 at
+//    MT 1 keeps the chunk sums of both halves of K in registers through a
+//    scale group and scales them once, when the run leaves the group; at MT 4
+//    (four tiles of rows, every dequantized B fragment used four times) one
+//    half after the other, scaled every stage;
+//  - where a block's run leaves a tile: in a cluster, every warp pushes its
+//    fragments from registers into the shared memory of the blocks that own
+//    them (`st.async`: block r owns the r-th slice of the tile's values; a
+//    slot per (rank, k warp)), the bytes count in on the owner's `mbarrier`,
+//    and the owner adds the slots in their order, scales (K2), rounds once and
+//    stores. No block reads another's memory, so none waits for another to
+//    finish: the cluster's one meeting (the barriers stand) is begun at entry
+//    and awaited only before the push. Meeting twice around a pull cost 1 to
+//    1.5 µs more a call. Without a cluster the two k warps meet in shared
+//    memory; a tile that one block walked alone is stored at once; otherwise
+//    the partial tile goes to a per-device scratch (two slots per block), the
+//    block counts itself on the tile's counter, and the block that arrives
+//    last adds the partial tiles in block order (four vectors of four values
+//    a thread in flight: value by value it was one trip to the L2 after the
+//    other, 9 µs for a tile of 64 rows), scales, rounds and stores, and sets
+//    the counter back to 0. No float atomics anywhere: two runs give the same
+//    bits.
 //
-// Design, (K rows, N columns) weights, f32 x or shapes the tensor-core path
-// refuses (a group or K that is no multiple of 4, unaligned weights) —
-// `qmm_kn`, f32 FMAs on the CUDA cores:
+// `qmm_kn` — f32 x, or shapes and alignments `qmm_stream` refuses (K or a
+// group that is no multiple of 8, a row stride or a pointer off 16 bytes):
+// f32 FMAs on the CUDA cores over (K, N) weights:
 //  - a block owns 128 output columns, 8 rows of x and a range of K; a warp
 //    walks that range in chunks of 32 weight rows; each lane owns 4 adjacent
 //    columns, so one weight row is one coalesced 128-byte read of the warp,
@@ -58,23 +112,25 @@
 //    accumulators; the integers enter exactly) are scaled once and added to
 //    the warp's accumulator tile in shared memory; the warps' tiles are
 //    summed at the end;
-//  - K is split over blocks until the grid fills the card; the splits'
-//    partial tiles go to an f32 scratch and a second pass sums them in a
-//    fixed order (no atomics: the result does not change from run to run).
-//    K2's scale is applied once per out channel, after that sum;
-//  - M > 8 adds grid rows of 8; the weights are then re-read from L2.
-// Design, (N rows, K columns) weights — the tied head over a row slice of the
-// (V, H) int8 embedding, read in place: a warp owns 8 out channels, its lanes
-// stride over K with 4-byte loads (a 128-byte read per channel), x comes from
-// L1, and the 64 sums are reduced over the lanes once at the end.
-// wgmma, TMA, larger M tiles for prefill and a fused reduce are later work.
+//  - K is split over blocks (the wrapper's plan) and the splits meet through
+//    the scratch and a counter per tile, as above.
+// `qmm_rows` — the same for (N, K) weights: a warp owns 8 out channels, its
+// lanes stride over K with 4-byte loads, the 64 sums are reduced over the
+// lanes once at the end.
 //
 // Layouts (elements): x (M, K) contiguous, bf16 or f32; out (M, N) contiguous,
-// bf16 or f32; weights int8 with row stride ldw; partial (nsplit, M, N) f32.
+// bf16 or f32; weights int8 with row stride ldw; scratch f32 and counters
+// int32 as the wrapper's plan sizes them (counters are 0 between launches).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
@@ -86,13 +142,9 @@ constexpr int kBN = 32 * kCols;   // out columns per block
 constexpr int kR = 32;            // weight rows per chunk: one x row per lane
 constexpr int kFlight = 16;       // weight rows requested before use
 constexpr int kRowsNK = 8;        // out channels per warp, (N, K) weights
-constexpr int kTargetBlocks = 2 * 132;
 // the tensor-core path
-constexpr int kMTm = 16;                  // rows of x per block: one mma M
-constexpr int kRm = 64;                   // weight rows per chunk: 4 k-tiles
-constexpr int kLanes = 2;                 // warps of a block along K
-constexpr int kGroups = kWarps / kLanes;  // column groups of 32 per block
-constexpr int kPad = 33;                  // row stride of a warp's tile
+constexpr int kStreamThreads = kThreads + 32;   // 8 consumer warps, then the producer
+constexpr int kSR = 64;           // weight rows (k) per unit and stage: 4 k-tiles
 
 enum Fmt { kI4 = 0, kI8 = 1, kI8Rows = 2 };
 
@@ -101,23 +153,21 @@ struct Args {
   const int8_t* w;
   const float* scale;
   void* out;
-  float* partial;
+  float* scratch;
+  int* counters;
   int m, k, n;
   long long ldw;   // bytes between weight rows
   int nw;          // weight columns that may be read (>= n)
   int group;       // K4: rows of K per scale group
   int x_f32, out_f32;
-  int nsplit, cpb; // K splits, chunks per split
+  int cpb;         // qmm_kn: chunks per K split
+  int nchunks;     // qmm_stream: chunks per tile
+  int nmt;         // qmm_stream: tiles along M
+  unsigned units;  // qmm_stream: tiles × chunks
+  int csize;       // qmm_stream: blocks of a cluster, which share one tile; or 1
+  int scale16;     // qmm_stream, K4: scale rows take 16-byte requests
+  int bulk;        // qmm_stream: every stage is fed by the copy engine alone
 };
-
-// Whether the tensor-core path takes the call: bf16 x, whole 4-byte weight
-// words, chunks and x fragments that start on multiples of 4.
-inline bool mma_ok(int fmt, int k, int group, long long ldw, int nw, const void* w,
-                   int x_dtype) {
-  if (x_dtype != 0 || (fmt != kI4 && fmt != kI8)) return false;
-  if (k % 4 || ldw % 4 || nw % 4 || reinterpret_cast<uintptr_t>(w) % 4) return false;
-  return fmt != kI4 || (group % 4 == 0 && (k / 2) % 4 == 0);
-}
 
 __device__ inline float load_x(const void* x, int f32, size_t i) {
   return f32 ? static_cast<const float*>(x)[i]
@@ -142,34 +192,77 @@ __device__ inline uint32_t load_w4(const int8_t* p, bool vec, int col0, int nw) 
   return r;
 }
 
-inline int chunks_of(int fmt, int k, int group, int chunk_rows) {
-  const int rows = fmt == kI4 ? k / 2 : k;
-  const int grows = fmt == kI4 ? group : rows;
-  return (rows / grows) * ((grows + chunk_rows - 1) / chunk_rows);
+// With -DQMM_TRACE (tools/qmm_probe.py builds such a copy) the first consumer
+// thread and the first producer thread of every block of `qmm_stream` stamp
+// the card's nanosecond timer at each phase: 0 entry, 1 everything requested
+// (producer), 2 first stage landed, 3 last product done, 4 partial tile
+// ready, 5 met the other blocks of the tile, 6 end.
+#ifdef QMM_TRACE
+constexpr int kTraceBlocks = 1024, kTraceStamps = 8;
+__device__ unsigned long long qmm_trace_buf[kTraceBlocks * kTraceStamps];
+__device__ inline void stamp(int i) {
+  if ((threadIdx.x == 0 || threadIdx.x == kThreads) && blockIdx.x < kTraceBlocks) {
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    qmm_trace_buf[blockIdx.x * kTraceStamps + i] = now;
+  }
 }
+// and, for the first 16 units of its run, the SM's cycle counter (cheap enough
+// to read inside the loop; one SM's threads read one counter): when the
+// producer had requested unit i (row 0), when the consumers saw it land (1)
+// and had multiplied it (2)
+constexpr int kTraceUnits = 16;
+__device__ unsigned long long qmm_trace_units[kTraceBlocks * 3 * kTraceUnits];
+__device__ inline void stamp_unit(int row, int i) {
+  if ((threadIdx.x == 0 || threadIdx.x == kThreads) && blockIdx.x < kTraceBlocks &&
+      i < kTraceUnits) {
+    qmm_trace_units[(blockIdx.x * 3 + row) * kTraceUnits + i] =
+        static_cast<unsigned long long>(clock64());
+  }
+}
+#else
+__device__ inline void stamp(int) {}
+__device__ inline void stamp_unit(int, int) {}
+#endif
 
-// The K splits of a launch, and through `cpb` the chunks each split's block
-// walks: enough splits to fill the card, and a multiple of the block's warps
-// along K, so that every warp of a block walks the same number of chunks.
-inline int pick_splits(int fmt, bool mma, int m, int k, int n, int group,
-                       int* cpb_out = nullptr) {
-  if (fmt == kI8Rows) return 1;
-  const int lanes = mma ? kLanes : kWarps;
-  const int mt = mma ? kMTm : kMT;
-  const int nchunks = chunks_of(fmt, k, group, mma ? kRm : kR);
-  const int tiles = ((n + kBN - 1) / kBN) * ((m + mt - 1) / mt);
-  int want = (kTargetBlocks + tiles - 1) / tiles;
-  const int most = (nchunks + lanes - 1) / lanes;
-  if (want > most) want = most;
-  if (want < 1) want = 1;
-  int cpb = (nchunks + want - 1) / want;
-  cpb = cpb < lanes ? lanes : cpb / lanes * lanes;
-  if (cpb_out != nullptr) *cpb_out = cpb;
-  return (nchunks + cpb - 1) / cpb;
+// the consumer warps of `qmm_stream` meet (named barrier 1)
+__device__ inline void consumer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// Count this block in on `counter`; true for the block that arrives last of
+// `parts` (it sets the counter back to 0 for the next launch). The caller's
+// partial results are visible to that block. kConsumersOnly: the 256
+// consumer threads of `qmm_stream` call it, not the whole block.
+template <bool kConsumersOnly>
+__device__ inline bool arrive_last(int* counter, int parts) {
+  __shared__ int last_s;
+  __threadfence();
+  if constexpr (kConsumersOnly)
+    consumer_sync();
+  else
+    __syncthreads();
+  if (threadIdx.x == 0) {
+    const int before = atomicAdd(counter, 1);
+    last_s = before == parts - 1;
+    if (last_s) *counter = 0;
+  }
+  if constexpr (kConsumersOnly)
+    consumer_sync();
+  else
+    __syncthreads();
+  const bool last = last_s != 0;
+  if (last) __threadfence();
+  return last;
 }
 
 __device__ inline void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                 uint32_t a3, uint32_t b0, uint32_t b1) {
+#ifdef QMM_NO_MMA   // probe build: the operands are used, the product is not made
+  c[0] += __uint_as_float((a0 ^ b0) & 1u);
+  c[1] += __uint_as_float((a1 ^ b1) & 1u);
+  c[2] += __uint_as_float(a2 & 1u);
+  c[3] += __uint_as_float(a3 & 1u);
+  return;
+#endif
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -177,175 +270,772 @@ __device__ inline void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Byte J of the weight words of two consecutive rows → one B register: the
-// two weights as bf16, row w0's in the low half. F == kI4 takes nibble H of
-// the bytes (0: low, offset-encoded; 1: high, two's complement).
-template <int F, int J, int H>
-__device__ inline uint32_t weights_bf16x2(uint32_t w0, uint32_t w1) {
-  if constexpr (F == kI4) {
-    // bytes (w0[J], w0[J], w1[J], w1[J]); bytes 1 and 3 are masked off
-    const uint32_t r = __byte_perm(w0, w1, J | (J << 4) | ((4 + J) << 8) | ((4 + J) << 12));
-    // 128 + (q + 8) as bf16: the nibble in the mantissa of 128.0
-    const uint32_t v = H == 0 ? (r & 0x000F000Fu) | 0x43004300u
-                              : ((r >> 4) & 0x000F000Fu) ^ 0x43084308u;
-    const uint32_t k136 = 0x43084308u;
-    const __nv_bfloat162 q = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-                                     *reinterpret_cast<const __nv_bfloat162*>(&k136));
-    return *reinterpret_cast<const uint32_t*>(&q);
-  } else {
-    const float lo = static_cast<float>(static_cast<int>(w0 << (24 - 8 * J)) >> 24);
-    const float hi = static_cast<float>(static_cast<int>(w1 << (24 - 8 * J)) >> 24);
-    const __nv_bfloat162 q = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&q);
-  }
+// d = (a & b) | c, or (a & b) ^ c, in one LOP3: the mask and the magic number
+// sit in registers (`I4Consts`), where two immediates would take two.
+__device__ inline uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-// The four n-tiles of one k-tile and one half of K: c[j] += x · weights.
-template <int F, int H>
-__device__ inline void mma_ktile(float c[4][4], const uint32_t wv[4], uint32_t a0,
-                                 uint32_t a1, uint32_t a2, uint32_t a3) {
-  mma_bf16(c[0], a0, a1, a2, a3, weights_bf16x2<F, 0, H>(wv[0], wv[1]),
-           weights_bf16x2<F, 0, H>(wv[2], wv[3]));
-  mma_bf16(c[1], a0, a1, a2, a3, weights_bf16x2<F, 1, H>(wv[0], wv[1]),
-           weights_bf16x2<F, 1, H>(wv[2], wv[3]));
-  mma_bf16(c[2], a0, a1, a2, a3, weights_bf16x2<F, 2, H>(wv[0], wv[1]),
-           weights_bf16x2<F, 2, H>(wv[2], wv[3]));
-  mma_bf16(c[3], a0, a1, a2, a3, weights_bf16x2<F, 3, H>(wv[0], wv[1]),
-           weights_bf16x2<F, 3, H>(wv[2], wv[3]));
+__device__ inline uint32_t and_xor(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-// Where chunk c of the tensor-core path lies: its scale group, first weight
-// row and row count (a multiple of 4).
-struct Chunk {
-  int gi, r0, nrows;
+struct I4Consts {
+  uint32_t mask, lo, hi;   // 0x000F000F; bf16x2 128.0; bf16x2 136.0
 };
 
-__device__ inline Chunk chunk_at(int c, int spg, int grows) {
-  const int gi = c / spg;
-  const int r0 = gi * grows + (c % spg) * kRm;
-  return {gi, r0, min(kRm, (gi + 1) * grows - r0)};
+__device__ inline I4Consts i4_consts() {
+  I4Consts k;
+  asm volatile("mov.b32 %0, 0x000F000F;\n" : "=r"(k.mask));
+  asm volatile("mov.b32 %0, 0x43004300;\n" : "=r"(k.lo));
+  asm volatile("mov.b32 %0, 0x43084308;\n" : "=r"(k.hi));
+  return k;
 }
 
-// Request every weight word of a chunk: lane (g, t) takes rows 4t..4t+3 of
-// each 16-row k-tile at its 4 columns. Rows past the chunk read as 0; x is 0
-// there.
-__device__ inline void load_chunk(const Args& a, const Chunk& ch, int t, int colw,
-                                  bool colok, uint32_t wv[kRm / 16][4]) {
-#pragma unroll
-  for (int kt = 0; kt < kRm / 16; ++kt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = kt * 16 + 4 * t + i;
-      wv[kt][i] = colok && r < ch.nrows
-                      ? *reinterpret_cast<const uint32_t*>(
-                            a.w + static_cast<size_t>(ch.r0 + r) * a.ldw + colw)
-                      : 0u;
-    }
+// Nibble H (0: low, offset-encoded; 1: high, two's complement) of byte J of
+// two weight words → one B register: the two weights as bf16, w0's in the low
+// half. For H == 1 the caller hands the words shifted right by 4.
+template <int J, int H>
+__device__ inline uint32_t i4_bf16x2(uint32_t w0, uint32_t w1, const I4Consts& k) {
+#ifdef QMM_NO_DEQUANT   // probe build: the words are used, nothing is unpacked
+  return (w0 >> (8 * J + H)) ^ w1;
+#endif
+  // bytes (w0[J], w0[J], w1[J], w1[J]); bytes 1 and 3 are masked off
+  const uint32_t r = __byte_perm(w0, w1, J | (J << 4) | ((4 + J) << 8) | ((4 + J) << 12));
+  // 128 + (q + 8) as bf16: the nibble in the mantissa of 128.0 (the high
+  // nibble is two's complement: bits ^ 8 = q + 8)
+  const uint32_t v = H == 0 ? and_or(r, k.mask, k.lo) : and_xor(r, k.mask, k.hi);
+  const __nv_bfloat162 q = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&k.hi));
+  return *reinterpret_cast<const uint32_t*>(&q);
 }
 
-// (K rows, N columns) weights, bf16 x, on the tensor cores.
+// Byte JA of wa and byte JB of wb, both int8 biased by 128 (the word XOR
+// 0x80808080) → one B register, wa's weight in the low half: the byte in the
+// mantissa of 2^23 is 2^23 + byte as f32; minus 2^23 + 128 leaves the integer.
+template <int JA, int JB>
+__device__ inline uint32_t i8_bf16x2(uint32_t wa, uint32_t wb) {
+#ifdef QMM_NO_DEQUANT
+  return (wa >> (8 * JA)) ^ (wb << JB);
+#endif
+  const float lo = __uint_as_float(__byte_perm(wa, 0x4B000000u, 0x7540 | JA)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(wb, 0x4B000000u, 0x7540 | JB)) - 8388736.f;
+  const __nv_bfloat162 q = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&q);
+}
+
+// Asynchronous copies of 16 or 4 bytes to shared memory; the bytes past
+// `bytes` are written as 0.
+__device__ inline void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ inline void cp_async4(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// mbarriers (shared-memory addresses): the producer's cp.async requests count
+// in on a stage's `full` barrier as they land; consumers wait on its parity.
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ inline void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive, and tell the barrier that `bytes` of the copy engine will complete on it
+__device__ inline void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One box of a 2-d tensor map (inner coordinate c0, outer c1) to shared memory
+// by the copy engine (TMA); its bytes complete on `bar`. What lies outside
+// the tensor arrives as 0.
+__device__ inline void tma_box(void* dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(d),
+      "l"(map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ inline void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Thread-block clusters: every thread of every block arrives once and waits
+// once; the address of a shared-memory word of block `rank` of the cluster;
+// 16 or 8 bytes from registers into another block's shared memory, counted in
+// on a barrier of that block when they have landed (`st.async`).
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ inline uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ inline uint32_t map_to_rank(uint32_t smem_addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr), "r"(rank));
+  return r;
+}
+
+__device__ inline void push4(uint32_t dst, uint32_t bar, float a, float b, float c, float d) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::
+          "r"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+__device__ inline void push2(uint32_t dst, uint32_t bar, float a, float b) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::
+          "r"(dst), "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+// The shared memory of `qmm_stream<F, MT>`: a ring of stages (a box of the
+// weights, a box of x for each half of K, K4's two scale rows) and the
+// block's f32 tile.
+template <int F, int MT>
+struct Ring {
+  static constexpr int kHalves = F == kI4 ? 2 : 1;
+  static constexpr int kW = kSR * kBN;   // a box of the weights, swizzled by the copy engine
+  static constexpr int kXHalf = MT * 16 * kSR * 2;   // 16·MT rows of 64 bf16, swizzled too
+  // every box starts on 1024 bytes: the swizzle goes by the address
+  static constexpr int kS = F == kI4 ? 2 * kBN * 4 : 0;   // after the boxes
+  static constexpr int kStage = kW + kHalves * kXHalf + kS;
+  static_assert(kW % 1024 == 0 && kXHalf % 1024 == 0 && kS % 1024 == 0,
+                "boxes start on 1024 bytes");
+#ifdef QMM_STAGES   // probe build: another depth of the ring at MT 1
+  static constexpr int kStages = MT == 1 ? QMM_STAGES : 4;
+#else
+  static constexpr int kStages = MT == 1 ? 6 : 4;
+#endif
+  static constexpr int kTileStride = kBN + 4;   // floats
+  // the block's tile; in a cluster, what the tile's blocks push to this one:
+  // 2 k warps x 16 rows x 128 columns
+  static constexpr int kTile = MT == 1 ? 2 * 16 * kBN * 4 : MT * 16 * kTileStride * 4;
+  static_assert(kTile >= MT * 16 * kTileStride * 4, "the tile fits");
+  static constexpr int kSmem = 1024 + kStages * kStage + kTile;   // 1024: to align the ring
+};
+
+// A block's place in the list of units: the tile, and the chunk as (scale
+// group, chunk of the group). Stepping it costs no division.
+struct Cursor {
+  int tile, gi, ci;
+  int ct, mt;   // the tile's column tile and M tile
+};
+
+// The geometry of the chunks: rows per group (all of K for int8), chunks per
+// group, groups per tile (per half of K for K4).
+struct Chunks {
+  int rows_total, grows, spg, ngroups;
+};
+
 template <int F>
-__global__ void __launch_bounds__(kThreads) qmm_kn_mma(const Args a) {
-  constexpr int kHalves = F == kI4 ? 2 : 1;
-  __shared__ float acc_all[kWarps][kMTm][kPad];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;          // mma row of A and C, n slot of B
-  const int t = lane & 3;           // mma k-slot pair
-  const int cg = warp % kGroups;    // column group of 32
-  const int kl = warp / kGroups;    // lane along K
-  const int col_g = blockIdx.x * kBN + cg * 32;  // the warp's first column
-  const int colw = col_g + 4 * g;                // this lane's weight word
-  const int m0 = blockIdx.z * kMTm;
+__device__ inline Chunks chunks_of(const Args& a) {
   const int rows_total = F == kI4 ? a.k / 2 : a.k;
   const int grows = F == kI4 ? a.group : rows_total;
-  const int spg = (grows + kRm - 1) / kRm;       // chunks per group
-  const int nchunks = (rows_total / grows) * spg;
-  const int c_begin = blockIdx.y * a.cpb;
-  const int c_end = min(c_begin + a.cpb, nchunks);
-  const bool colok = colw + 4 <= a.nw;           // nw % 4 == 0: wholly in or out
-  const bool row_lo = m0 + g < a.m;
-  const bool row_hi = m0 + g + 8 < a.m;
+  return {rows_total, grows, (grows + kSR - 1) / kSR, rows_total / grows};
+}
+
+__device__ inline Cursor cursor_at(unsigned u, const Args& a, const Chunks& ch) {
+  const int tile = static_cast<int>(u / a.nchunks);
+  const int c = static_cast<int>(u - static_cast<unsigned>(tile) * a.nchunks);
+  return {tile, c / ch.spg, c % ch.spg, tile / a.nmt, tile % a.nmt};
+}
+
+__device__ inline void advance(Cursor& cur, const Args& a, const Chunks& ch) {
+  if (++cur.ci < ch.spg) return;
+  cur.ci = 0;
+  if (++cur.gi < ch.ngroups) return;
+  cur.gi = 0;
+  ++cur.tile;
+  if (++cur.mt < a.nmt) return;
+  cur.mt = 0;
+  ++cur.ct;
+}
+
+// Where a unit lies: its column tile and M tile, and its chunk's scale group,
+// first weight row (k for int8) and row count (a multiple of 8).
+struct Unit {
+  int ct, mt, gi, r0, nrows;
+};
+
+__device__ inline Unit unit_at(const Cursor& cur, const Chunks& ch) {
+  const int r0 = cur.gi * ch.grows + cur.ci * kSR;
+  return {cur.ct, cur.mt, cur.gi, r0, min(kSR, ch.grows - cur.ci * kSR)};
+}
+
+// K4: the producer warp requests the scale rows of the unit's group, of the
+// low and the high half of K, at the tile's 128 columns (0 past N).
+template <int MT>
+__device__ inline void request_scales(const Args& a, const Unit& un, unsigned char* st, int lane) {
+  using R = Ring<kI4, MT>;
+  const int ngh = a.k / 2 / a.group;   // groups per half of K
+  const float* row_lo = a.scale + static_cast<size_t>(un.gi) * a.n;
+  const float* row_hi = a.scale + static_cast<size_t>(ngh + un.gi) * a.n;
+  unsigned char* dst = st + R::kW + R::kHalves * R::kXHalf;
+  if (a.scale16) {
+    const int col = un.ct * kBN + lane * 4;
+    const int bytes = min(16, max(0, (a.n - col) * 4));
+    cp_async16(dst + lane * 16, bytes > 0 ? row_lo + col : a.scale, bytes);
+    cp_async16(dst + kBN * 4 + lane * 16, bytes > 0 ? row_hi + col : a.scale, bytes);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int cidx = lane + 32 * i;
+      const int col = un.ct * kBN + cidx;
+      const bool ok = col < a.n;
+      cp_async4(dst + cidx * 4, ok ? row_lo + col : a.scale, ok ? 4 : 0);
+      cp_async4(dst + (kBN + cidx) * 4, ok ? row_hi + col : a.scale, ok ? 4 : 0);
+    }
+  }
+}
+
+// x of a unit that is not whole (a chunk of fewer than 64 rows at the end of a
+// small scale group: the weights' box then reaches into the next group, so x
+// must be 0 there), by cp.async with zero fill, into the layout the copy
+// engine would have written: 128-byte rows, their 16-byte units XOR-ed with
+// the row's low 3 bits. Rows of x past M are not requested: a row of x only
+// reaches its own row of the output, which is never stored.
+template <int F, int MT>
+__device__ inline void request_x(const Args& a, const Unit& un, int rows_total, unsigned char* st,
+                               int lane) {
+  using R = Ring<F, MT>;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const __nv_bfloat16* x_lo = x + static_cast<size_t>(m0 + g) * a.k;
-  const __nv_bfloat16* x_hi = x + static_cast<size_t>(m0 + g + 8) * a.k;
-  float(*acc)[kPad] = acc_all[warp];
-
-  for (int i = lane; i < kMTm * kPad; i += 32) (&acc[0][0])[i] = 0.f;
-  __syncwarp();
-
-  for (int c = c_begin + kl; c < c_end; c += kLanes) {
-    const Chunk ch = chunk_at(c, spg, grows);
-    const int gi = ch.gi, r0 = ch.r0, nrows = ch.nrows;
-    // every weight word of the chunk is requested before the first is used
-    // (requesting the next chunk's too was measured slower: the registers
-    // it takes cost more occupancy than the overlap gains)
-    uint32_t wv[kRm / 16][4];
-    load_chunk(a, ch, t, colw, colok, wv);
-    float clo[4][4], chi[4][4];
+  const int m0 = un.mt * MT * 16;
+  const int rows = min(MT * 16, a.m - m0);
+  const int unit = lane & 7, rsub = lane >> 3;   // rows rsub + 4 i
+  const int bytes = unit * 8 < un.nrows ? 16 : 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int h = 0; h < R::kHalves; ++h) {
+    const __nv_bfloat16* src =
+        x + static_cast<size_t>(m0 + rsub) * a.k + h * rows_total + un.r0 + unit * 8;
+    unsigned char* dst = st + R::kW + h * R::kXHalf;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) clo[j][i] = chi[j][i] = 0.f;
-
-#pragma unroll
-    for (int kt = 0; kt < kRm / 16; ++kt) {
-      const int kk = r0 + kt * 16 + 4 * t;     // this lane's 4 consecutive k
-      const bool kin = kt * 16 + 4 * t < nrows;
-#pragma unroll
-      for (int h = 0; h < kHalves; ++h) {
-        const size_t at = static_cast<size_t>(h) * rows_total + kk;
-        uint2 xa = make_uint2(0u, 0u), xb = make_uint2(0u, 0u);
-        if (kin && row_lo) xa = __ldg(reinterpret_cast<const uint2*>(x_lo + at));
-        if (kin && row_hi) xb = __ldg(reinterpret_cast<const uint2*>(x_hi + at));
-        if (h == 0)
-          mma_ktile<F, 0>(clo, wv[kt], xa.x, xb.x, xa.y, xb.y);
-        else
-          mma_ktile<F, 1>(chi, wv[kt], xa.x, xb.x, xa.y, xb.y);
-      }
+    for (int i = 0; i < MT * 4; ++i) {
+      const int row = rsub + 4 * i;
+      if (row < rows)
+        cp_async16(dst + row * kSR * 2 + ((unit ^ (row & 7)) * 16), bytes ? src : x, bytes);
+      src += 4 * static_cast<size_t>(a.k);
     }
-
-    // scale the chunk's partial sums (K4) and add them to the warp's tile:
-    // C register pair (0, 1) is row g, (2, 3) row g + 8; n slots 2t, 2t + 1
-    // of n-tile j are columns 8t + j and 8t + 4 + j of the warp's 32
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cc = 8 * t + 4 * e + j;
-        float slo = 1.f, shi = 0.f;
-        if constexpr (F == kI4) {
-          const int col = col_g + cc;
-          const int ngh = rows_total / grows;  // groups per half of K
-          slo = col < a.n ? a.scale[static_cast<size_t>(gi) * a.n + col] : 0.f;
-          shi = col < a.n ? a.scale[static_cast<size_t>(ngh + gi) * a.n + col] : 0.f;
-        }
-        acc[g][cc] += slo * clo[j][e] + shi * chi[j][e];
-        acc[g + 8][cc] += slo * clo[j][2 + e] + shi * chi[j][2 + e];
-      }
   }
-  __syncthreads();
+}
 
-  for (int i = threadIdx.x; i < kMTm * kBN; i += kThreads) {
-    const int row = i / kBN;
-    const int cb = i % kBN;
-    const int mrow = m0 + row;
-    const int col = blockIdx.x * kBN + cb;
-    if (mrow >= a.m || col >= a.n) continue;
-    float s = 0.f;
+__device__ inline uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// What a consumer lane keeps for the whole run.
+struct Lane {
+  int cg, kl, g, t;   // column group of 32; pair of k-tiles; mma row / n slot; k-slot pair
+  bool hi_rows;       // the block has rows of x past the first 8 of a tile
+  I4Consts k4;
+};
+
+// One k-tile of a stage for a warp's 32 columns: the B fragments of its four
+// n-tiles, dequantized once, times the A fragments of the block's MT tiles of
+// 16 rows. H: K4's half of K.
+template <int F, int MT, int H>
+__device__ inline void mma_ktile(const unsigned char* st, int kt, const Lane& ln,
+                                 float c[MT][4][4]) {
+  using R = Ring<F, MT>;
+  const int cg = ln.cg, g = ln.g, t = ln.t;
+  uint32_t b[4][2];
+  if constexpr (F == kI8Rows) {
 #pragma unroll
-    for (int l = 0; l < kLanes; ++l) s += acc_all[l * kGroups + cb / 32][row][cb % 32];
-    if (a.nsplit == 1) {
-      if constexpr (F == kI8) s *= a.scale[col];
-      store_out(a.out, a.out_f32, static_cast<size_t>(mrow) * a.n + col, s);
+    for (int j = 0; j < 4; ++j) {
+      // 64-byte rows, their 16-byte units XOR-ed with bits 1..2 of the row
+      const int row = cg * 32 + 8 * j + g;
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                             st + row * kSR + ((kt ^ ((row >> 1) & 3)) * 16) + 4 * t) ^
+                         0x80808080u;
+      b[j][0] = i8_bf16x2<0, 1>(w, w);
+      b[j][1] = i8_bf16x2<2, 3>(w, w);
+    }
+  } else {
+    uint32_t wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // 128-byte rows, their 16-byte units XOR-ed with the row's low 3 bits
+      const int row = kt * 16 + 4 * t + i;
+      wv[i] = *reinterpret_cast<const uint32_t*>(
+          st + row * kBN + (((cg * 2 + (g >> 2)) ^ (row & 7)) * 16) + (g & 3) * 4);
+      if constexpr (F == kI8) wv[i] ^= 0x80808080u;
+      if constexpr (F == kI4 && H == 1) wv[i] >>= 4;
+    }
+    if constexpr (F == kI4) {
+      b[0][0] = i4_bf16x2<0, H>(wv[0], wv[1], ln.k4); b[0][1] = i4_bf16x2<0, H>(wv[2], wv[3], ln.k4);
+      b[1][0] = i4_bf16x2<1, H>(wv[0], wv[1], ln.k4); b[1][1] = i4_bf16x2<1, H>(wv[2], wv[3], ln.k4);
+      b[2][0] = i4_bf16x2<2, H>(wv[0], wv[1], ln.k4); b[2][1] = i4_bf16x2<2, H>(wv[2], wv[3], ln.k4);
+      b[3][0] = i4_bf16x2<3, H>(wv[0], wv[1], ln.k4); b[3][1] = i4_bf16x2<3, H>(wv[2], wv[3], ln.k4);
     } else {
-      a.partial[(static_cast<size_t>(blockIdx.y) * a.m + mrow) * a.n + col] = s;
+      b[0][0] = i8_bf16x2<0, 0>(wv[0], wv[1]); b[0][1] = i8_bf16x2<0, 0>(wv[2], wv[3]);
+      b[1][0] = i8_bf16x2<1, 1>(wv[0], wv[1]); b[1][1] = i8_bf16x2<1, 1>(wv[2], wv[3]);
+      b[2][0] = i8_bf16x2<2, 2>(wv[0], wv[1]); b[2][1] = i8_bf16x2<2, 2>(wv[2], wv[3]);
+      b[3][0] = i8_bf16x2<3, 3>(wv[0], wv[1]); b[3][1] = i8_bf16x2<3, 3>(wv[2], wv[3]);
     }
   }
+  // this lane's 4 consecutive k of rows g and g + 8 of each tile, each mma
+  // register by a load of its own: a 64-bit load would put a row's two
+  // registers side by side, where the mma wants the other row's between them
+  // (x rows are 128 bytes, their 16-byte units XOR-ed with the row's low 3
+  // bits, which are g for rows g and g + 8 of every tile)
+  const uint32_t xs = static_cast<uint32_t>(__cvta_generic_to_shared(
+      st + R::kW + H * R::kXHalf + g * (kSR * 2) + (((2 * kt + (t >> 1)) ^ g) * 16) + (t & 1) * 8));
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    uint32_t af[4];
+    af[0] = lds32(xs + mi * 16 * kSR * 2);
+    af[2] = lds32(xs + mi * 16 * kSR * 2 + 4);
+    af[1] = af[3] = 0u;
+    if (MT > 1 || ln.hi_rows) {
+      af[1] = lds32(xs + (mi * 16 + 8) * kSR * 2);
+      af[3] = lds32(xs + (mi * 16 + 8) * kSR * 2 + 4);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma_bf16(c[mi][j], af[0], af[1], af[2], af[3], b[j][0], b[j][1]);
+  }
+}
+
+// K4: scale the chunk sums of one half of K by the stage's scale row and add
+// them to acc. C register pair (0, 1) is row g, (2, 3) row g + 8; n slots 2t,
+// 2t + 1 of n-tile j are columns 8t + j and 8t + 4 + j of the warp's 32.
+template <int MT, int H>
+__device__ inline void i4_fold(const unsigned char* st, const Lane& ln, float c[MT][4][4],
+                               float acc[MT][4][4]) {
+  using R = Ring<kI4, MT>;
+  const float* sc = reinterpret_cast<const float*>(st + R::kW + R::kHalves * R::kXHalf) +
+                    H * kBN + ln.cg * 32 + 8 * ln.t;
+  const float4 s0 = *reinterpret_cast<const float4*>(sc);       // e = 0, j = 0..3
+  const float4 s1 = *reinterpret_cast<const float4*>(sc + 4);   // e = 1
+  const float sv[2][4] = {{s0.x, s0.y, s0.z, s0.w}, {s1.x, s1.y, s1.z, s1.w}};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        acc[mi][j][e] += sv[e][j] * c[mi][j][e];
+        acc[mi][j][2 + e] += sv[e][j] * c[mi][j][2 + e];
+        c[mi][j][e] = c[mi][j][2 + e] = 0.f;
+      }
+}
+
+// K4, MT > 1: one half of K of a stage, scaled and added to acc at once (the
+// chunk sums of four tiles and two halves would not fit the registers).
+template <int MT, int H>
+__device__ inline void i4_half(const unsigned char* st, const Lane& ln, float acc[MT][4][4]) {
+  float c[MT][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[mi][j][i] = 0.f;
+  mma_ktile<kI4, MT, H>(st, 2 * ln.kl, ln, c);
+  mma_ktile<kI4, MT, H>(st, 2 * ln.kl + 1, ln, c);
+  i4_fold<MT, H>(st, ln, c, acc);
+}
+
+// bf16 x on the tensor cores, all three weight formats; MT tiles of 16 rows
+// of x per block. Warps 0..7 multiply; the warps after them are producers:
+// they alone request the stages, so that a full request queue holds up no
+// product.
+template <int F, int MT>
+__global__ void __launch_bounds__(kStreamThreads, MT == 1 ? 2 : 1)
+qmm_stream(const Args a, const __grid_constant__ CUtensorMap wmap,
+           const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap smap) {
+  using R = Ring<F, MT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t bars[2 * R::kStages + 1];   // full, empty; the cluster's pushes
+  unsigned char* ring = smem_raw + (1024 - (__cvta_generic_to_shared(smem_raw) & 1023)) % 1024;
+  float* tile_s = reinterpret_cast<float*>(ring + R::kStages * R::kStage);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const uint32_t full = static_cast<uint32_t>(__cvta_generic_to_shared(bars));
+  const uint32_t empty = full + 8 * R::kStages;
+  const uint32_t pushed = empty + 8 * R::kStages;
+  const unsigned grid = gridDim.x;
+  const unsigned u0 = blockIdx.x * a.units / grid;
+  const unsigned u1 = (blockIdx.x + 1) * a.units / grid;
+  const int n_it = static_cast<int>(u1 - u0);
+  const Chunks ch = chunks_of<F>(a);
+  Cursor cur = cursor_at(u0, a, ch);
+  stamp(0);
+
+  const bool ln_hi_rows = a.m > 8;   // rows of x past the first 8 of a tile
+  // The producer warp sets the barriers up and requests the first stage
+  // before the block meets: the consumers need the barriers only then.
+  if (tid == kThreads) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&wmap) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&xmap) : "memory");
+    if (F == kI4 && a.bulk) asm volatile("prefetch.tensormap [%0];\n" ::"l"(&smap) : "memory");
+    for (int s = 0; s < R::kStages; ++s) {
+      // one arrival for the boxes; where lanes request by cp.async, theirs too
+      // (32 arrivals on one barrier cost the warp hundreds of cycles a stage)
+      mbar_init(full + 8 * s, a.bulk ? 1 : 33);
+      mbar_init(empty + 8 * s, kWarps);   // one lane of every consumer warp
+    }
+    if (a.csize > 1) {
+      // what the cluster pushes to this block: the tile's values (its slice
+      // of them from every k warp of every block, its own too)
+      mbar_init(pushed, 1);
+      mbar_expect_tx(pushed, 2 * a.m * kBN * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the cluster's blocks tell each other that their barriers stand; they wait
+  // for that only when they have their sums
+  if (a.csize > 1) cluster_arrive();
+  if (warp < kWarps) __syncthreads();
+
+  if (warp == kWarps) {
+    int slot = 0, phase = 1;   // the stages start empty
+    __syncwarp();
+    for (int it = 0; it < n_it; ++it) {
+      if (it >= R::kStages) mbar_wait(empty + 8 * slot, phase);
+      const Unit un = unit_at(cur, ch);
+      unsigned char* st = ring + slot * R::kStage;
+      const uint32_t bar = full + 8 * slot;
+      // the unit's box of the weights: 64 rows × 128 columns, or for (N, K)
+      // weights 128 channels × 64 k; and of x: 16·MT rows × 64 k per half (a
+      // decode step's 8 rows: a box of 8)
+      const int xbytes = MT == 1 && !ln_hi_rows ? R::kXHalf / 2 : R::kXHalf;
+      unsigned char* sc = st + R::kW + R::kHalves * R::kXHalf;   // K4's scale rows
+      if (a.bulk) {
+        // Every box of the stage by ONE instruction of the warp, a lane per
+        // box (lane 0 alone, box after box, spent ~220 cycles on each: more
+        // than the memory takes to deliver a stage). K4's two scale rows (of
+        // the low and the high half of K, at the tile's 128 columns, 0 past N)
+        // come with the stage in which the consumers fold.
+        const bool folds = MT > 1 || cur.ci == ch.spg - 1 || it + 1 == n_it;
+        const int nbox = 1 + R::kHalves + (F == kI4 && folds ? 2 : 0);
+        if (lane == 0)
+          mbar_expect_tx(bar, R::kW + R::kHalves * xbytes + (nbox - 1 - R::kHalves) * kBN * 4);
+        __syncwarp();
+        if (lane < nbox) {
+          const int h = lane <= R::kHalves ? lane - 1 : lane - 1 - R::kHalves;   // half of K
+          const CUtensorMap* map = &wmap;
+          unsigned char* dst = st;
+          int c0 = F == kI8Rows ? un.r0 : un.ct * kBN;
+          int c1 = F == kI8Rows ? un.ct * kBN : un.r0;
+          if (lane > R::kHalves) {
+            map = &smap;
+            dst = sc + h * kBN * 4;
+            c0 = un.ct * kBN;
+            c1 = h * ch.ngroups + un.gi;
+          } else if (lane > 0) {
+            map = &xmap;
+            dst = st + R::kW + h * R::kXHalf;
+            c0 = h * ch.rows_total + un.r0;
+            c1 = un.mt * MT * 16;
+          }
+          tma_box(dst, map, c0, c1, bar);
+        }
+      } else {
+        const bool whole = un.nrows == kSR;   // x goes by the copy engine too
+        if (lane == 0) {
+          mbar_expect_tx(bar, R::kW + (whole ? R::kHalves * xbytes : 0));
+          if constexpr (F == kI8Rows)
+            tma_box(st, &wmap, un.r0, un.ct * kBN, bar);
+          else
+            tma_box(st, &wmap, un.ct * kBN, un.r0, bar);
+          if (whole) {
+#pragma unroll
+            for (int h = 0; h < R::kHalves; ++h)
+              tma_box(st + R::kW + h * R::kXHalf, &xmap, h * ch.rows_total + un.r0,
+                      un.mt * MT * 16, bar);
+          }
+        }
+        if (!whole) request_x<F, MT>(a, un, ch.rows_total, st, lane);
+        if constexpr (F == kI4) request_scales<MT>(a, un, st, lane);
+        if (whole && F != kI4)
+          mbar_arrive(bar);
+        else
+          cp_async_mbar_arrive(bar);   // when this lane's cp.async have landed
+      }
+      stamp_unit(0, it);
+      if (it == 0) __syncthreads();   // the consumers start
+      advance(cur, a, ch);
+      if (++slot == R::kStages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    stamp(1);
+    cp_async_wait_all();
+    if (a.csize > 1) cluster_wait();
+    return;
+  }
+
+  const Lane ln = {warp & 3, warp >> 2, lane >> 2, lane & 3, ln_hi_rows, i4_consts()};
+  const int g = ln.g, t = ln.t, cg = ln.cg, kl = ln.kl;
+  // K4 with one tile of rows keeps a group's chunk sums of both halves of K
+  // in registers and scales them once, when the run leaves the group
+  constexpr bool kGroupFold = F == kI4 && MT == 1;
+  constexpr int kSums = kGroupFold ? MT : 1;
+  float acc[MT][4][4], clo[kSums][4][4], chi[kSums][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < kSums; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) clo[mi][j][i] = chi[mi][j][i] = 0.f;
+
+  int slot = 0, phase = 0;
+  int c = cur.gi * ch.spg + cur.ci;   // chunk of the tile
+  int ci = cur.ci;                    // chunk of the group
+  int tile = cur.tile;
+  for (int it = 0; it < n_it; ++it) {
+    mbar_wait(full + 8 * slot, phase);
+    if (it == 0) stamp(2);
+    stamp_unit(1, it);
+    const unsigned char* st = ring + slot * R::kStage;
+    const bool leaves = ++c == a.nchunks || it + 1 == n_it;   // the tile
+#ifdef QMM_NO_CONSUME   // probe build: the stages are streamed and nothing is multiplied
+    if (false) {
+    } else
+#endif
+    if constexpr (kGroupFold) {
+      mma_ktile<F, kSums, 0>(st, 2 * kl, ln, clo);
+      mma_ktile<F, kSums, 1>(st, 2 * kl, ln, chi);
+      mma_ktile<F, kSums, 0>(st, 2 * kl + 1, ln, clo);
+      mma_ktile<F, kSums, 1>(st, 2 * kl + 1, ln, chi);
+      if (++ci == ch.spg || leaves) {
+        i4_fold<kSums, 0>(st, ln, clo, acc);
+        i4_fold<kSums, 1>(st, ln, chi, acc);
+        if (ci == ch.spg) ci = 0;
+      }
+    } else if constexpr (F == kI4) {
+      i4_half<MT, 0>(st, ln, acc);
+      i4_half<MT, 1>(st, ln, acc);
+    } else {
+      mma_ktile<F, MT, 0>(st, 2 * kl, ln, acc);
+      mma_ktile<F, MT, 0>(st, 2 * kl + 1, ln, acc);
+    }
+    stamp_unit(2, it);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+    if (++slot == R::kStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+    if (!leaves) continue;
+
+    // the block's run leaves this tile
+    stamp(3);
+    const int ct = a.nmt == 1 ? tile : tile / a.nmt;
+    const int m0 = a.nmt == 1 ? 0 : (tile % a.nmt) * MT * 16;
+    const int rows = min(MT * 16, a.m - m0);
+    if constexpr (MT == 1) {
+      if (a.csize > 1) {
+        // The blocks of a cluster hold the partial sums of one tile. Block r
+        // owns columns [r·wide, (r + 1)·wide) of its rows: every warp of
+        // every block pushes its fragments from registers into the owners'
+        // shared memory, slot (rank, k warp), and the bytes count in on the
+        // owner's barrier; the owner adds the slots up in their order,
+        // scales, rounds and stores. No block reads another's memory, so
+        // none has to wait for another to finish.
+        const int wshift = 7 - (31 - __clz(a.csize));   // wide = 128 / csize, a power of two
+        const int wide = 1 << wshift;
+        const int per = rows << wshift;   // values a block owns
+        const uint32_t me = cluster_rank();
+        const uint32_t red = static_cast<uint32_t>(__cvta_generic_to_shared(tile_s));
+        const uint32_t slot = (me * 2 + kl) * per;
+        // every block's barrier stands (waiting for that earlier, after the
+        // first stage, held the products up: 0.2 to 0.7 µs a call)
+        cluster_wait();
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {   // rows g and g + 8
+          const int row = g + 8 * hr;
+          if (row >= rows) continue;
+          if constexpr (F == kI8Rows) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int col = cg * 32 + 8 * j + 2 * t;
+              const uint32_t owner = col >> wshift;
+              push2(map_to_rank(red + (slot + row * wide + (col & (wide - 1))) * 4, owner),
+                    map_to_rank(pushed, owner), acc[0][j][2 * hr], acc[0][j][2 * hr + 1]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = cg * 32 + 8 * t + 4 * e;
+              const uint32_t owner = col >> wshift;
+              push4(map_to_rank(red + (slot + row * wide + (col & (wide - 1))) * 4, owner),
+                    map_to_rank(pushed, owner), acc[0][0][2 * hr + e], acc[0][1][2 * hr + e],
+                    acc[0][2][2 * hr + e], acc[0][3][2 * hr + e]);
+            }
+          }
+        }
+        stamp(4);
+        mbar_wait(pushed, 0);
+        stamp(5);
+        for (int i = tid; i < per; i += kThreads) {
+          const int row = i >> wshift, col = ct * kBN + me * wide + (i & (wide - 1));
+          if (col >= a.n) continue;
+          float s = tile_s[i];
+          for (int q = 1; q < 2 * a.csize; ++q) s += tile_s[q * per + i];
+          if constexpr (F != kI4) s *= a.scale[col];
+          store_out(a.out, a.out_f32, static_cast<size_t>(m0 + row) * a.n + col, s);
+        }
+        break;   // a cluster's block walks one tile
+      }
+    }
+    // the two k warps meet in tile_s
+#pragma unroll
+    for (int pass = 1; pass >= 0; --pass) {
+      if (kl == pass) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cc = cg * 32 + (F == kI8Rows ? 8 * j + 2 * t + e : 8 * t + 4 * e + j);
+              float* lo = tile_s + (mi * 16 + g) * R::kTileStride + cc;
+              float* hi = lo + 8 * R::kTileStride;
+              if (pass == 1) {
+                *lo = acc[mi][j][e];
+                *hi = acc[mi][j][2 + e];
+              } else {
+                *lo += acc[mi][j][e];
+                *hi += acc[mi][j][2 + e];
+              }
+              acc[mi][j][e] = acc[mi][j][2 + e] = 0.f;
+            }
+      }
+      consumer_sync();
+    }
+
+    // the blocks that walk this tile: first, last
+    const unsigned t0 = static_cast<unsigned>(tile) * a.nchunks;
+    const int bf = static_cast<int>(((t0 + 1) * grid - 1) / a.units);
+    const int bl = static_cast<int>(((t0 + a.nchunks) * grid - 1) / a.units);
+    const int parts = bl - bf + 1;
+    if (parts == 1) {
+      for (int i = tid; i < rows * kBN; i += kThreads) {
+        const int row = i / kBN, cb = i % kBN;
+        const int col = ct * kBN + cb;
+        if (col >= a.n) continue;
+        float s = tile_s[row * R::kTileStride + cb];
+        if constexpr (F != kI4) s *= a.scale[col];
+        store_out(a.out, a.out_f32, static_cast<size_t>(m0 + row) * a.n + col, s);
+      }
+    } else {
+      // slot 0: the partial tile of a run's start; slot 1: of a tile's start
+      constexpr size_t kSlot = static_cast<size_t>(MT) * 16 * kBN;
+      constexpr int kVecRow = kBN / 4;   // a thread moves four columns at a time
+      const int nvec = rows * kVecRow;
+      float4* mine = reinterpret_cast<float4*>(
+          a.scratch + (static_cast<size_t>(blockIdx.x) * 2 + (u0 >= t0 ? 0 : 1)) * kSlot);
+      for (int i = tid; i < nvec; i += kThreads)
+        mine[i] = *reinterpret_cast<const float4*>(tile_s + (i / kVecRow) * R::kTileStride +
+                                                   (i % kVecRow) * 4);
+      stamp(4);
+      const bool last = arrive_last<true>(a.counters + tile, parts);
+      stamp(5);
+      if (last) {
+        // only block bf can have started before the tile. A thread requests
+        // kUn vectors of a partial tile before it adds the first: one trip to
+        // the L2 per partial tile, where a loop value by value made one per
+        // value (32 in a row for a tile of 64 rows: 9 µs)
+        constexpr int kUn = MT == 1 ? 1 : 4;
+        const float4* first = reinterpret_cast<const float4*>(
+            a.scratch + (static_cast<size_t>(bf) * 2 + (bf * a.units / grid >= t0 ? 0 : 1)) * kSlot);
+        for (int i0 = tid; i0 < nvec; i0 += kThreads * kUn) {
+          float4 sum[kUn];
+#pragma unroll
+          for (int u = 0; u < kUn; ++u) {
+            const int i = i0 + u * kThreads;
+            sum[u] = i < nvec ? __ldcg(first + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          for (int b = bf + 1; b <= bl; ++b) {
+            const float4* part =
+                reinterpret_cast<const float4*>(a.scratch + static_cast<size_t>(b) * 2 * kSlot);
+            float4 v[kUn];
+#pragma unroll
+            for (int u = 0; u < kUn; ++u) {
+              const int i = i0 + u * kThreads;
+              v[u] = i < nvec ? __ldcg(part + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll
+            for (int u = 0; u < kUn; ++u) {
+              sum[u].x += v[u].x;
+              sum[u].y += v[u].y;
+              sum[u].z += v[u].z;
+              sum[u].w += v[u].w;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kUn; ++u) {
+            const int i = i0 + u * kThreads;
+            if (i >= nvec) continue;
+            const int row = i / kVecRow, col = ct * kBN + (i % kVecRow) * 4;
+            const float sv[4] = {sum[u].x, sum[u].y, sum[u].z, sum[u].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (col + e >= a.n) continue;
+              float r = sv[e];
+              if constexpr (F != kI4) r *= a.scale[col + e];
+              store_out(a.out, a.out_f32, static_cast<size_t>(m0 + row) * a.n + col + e, r);
+            }
+          }
+        }
+      }
+    }
+    consumer_sync();   // tile_s is free for the next tile
+    c = ci = 0;
+    ++tile;
+  }
+  stamp(6);
 }
 
 // (K rows, N columns) weights on the CUDA cores: K4 (F == kI4) and the
-// (in, out) K2 (F == kI8), for f32 x and what the tensor-core path refuses.
+// (in, out) K2 (F == kI8), for f32 x and what `qmm_stream` refuses. Grid:
+// (column tiles, K splits, tiles of 8 rows).
 template <int F>
 __global__ void __launch_bounds__(kThreads) qmm_kn(const Args a) {
   constexpr int kHalves = F == kI4 ? 2 : 1;
@@ -476,6 +1166,7 @@ __global__ void __launch_bounds__(kThreads) qmm_kn(const Args a) {
   }
   __syncthreads();
 
+  const int nsplit = gridDim.y;
   for (int i = threadIdx.x; i < kMT * kBN; i += kThreads) {
     const int mrow = m0 + i / kBN;
     const int col = blockIdx.x * kBN + i % kBN;
@@ -483,26 +1174,26 @@ __global__ void __launch_bounds__(kThreads) qmm_kn(const Args a) {
     float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kWarps; ++wi) s += acc_all[wi * kMT * kBN + i];
-    if (a.nsplit == 1) {
+    if (nsplit == 1) {
       if constexpr (F == kI8) s *= a.scale[col];
       store_out(a.out, a.out_f32, static_cast<size_t>(mrow) * a.n + col, s);
     } else {
-      a.partial[(static_cast<size_t>(blockIdx.y) * a.m + mrow) * a.n + col] = s;
+      a.scratch[(static_cast<size_t>(blockIdx.y) * a.m + mrow) * a.n + col] = s;
     }
   }
-}
-
-// Sum the K splits' partial tiles in order; K2 applies its scale here.
-__global__ void __launch_bounds__(kThreads)
-qmm_reduce(const float* __restrict__ partial, const float* __restrict__ scale, void* out,
-           int out_f32, int m, int n, int nsplit) {
-  const size_t total = static_cast<size_t>(m) * n;
-  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) s += partial[sp * total + i];
-  if (scale != nullptr) s *= scale[i % n];
-  store_out(out, out_f32, i, s);
+  if (nsplit == 1) return;
+  // the K splits of this tile meet: the last block to arrive sums them in order
+  if (!arrive_last<false>(a.counters + blockIdx.z * gridDim.x + blockIdx.x, nsplit)) return;
+  for (int i = threadIdx.x; i < kMT * kBN; i += kThreads) {
+    const int mrow = m0 + i / kBN;
+    const int col = blockIdx.x * kBN + i % kBN;
+    if (mrow >= a.m || col >= a.n) continue;
+    float s = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp)
+      s += __ldcg(a.scratch + (static_cast<size_t>(sp) * a.m + mrow) * a.n + col);
+    if constexpr (F == kI8) s *= a.scale[col];
+    store_out(a.out, a.out_f32, static_cast<size_t>(mrow) * a.n + col, s);
+  }
 }
 
 __device__ inline float warp_sum(float x) {
@@ -511,7 +1202,8 @@ __device__ inline float warp_sum(float x) {
   return x;
 }
 
-// (N rows, K columns) int8 weights (the tied head); K % 4 == 0.
+// (N rows, K columns) int8 weights on the CUDA cores, for f32 x and what
+// `qmm_stream` refuses; K % 4 == 0.
 __global__ void __launch_bounds__(kThreads) qmm_rows(const Args a) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -569,74 +1261,212 @@ __global__ void __launch_bounds__(kThreads) qmm_rows(const Args a) {
     }
 }
 
+// Nothing: the time of a launch by itself, the floor under every call.
+__global__ void empty_kernel() {}
+
+// The tensor map of a 2-d array for the copy engine (TMA): inner length d0
+// elements, d1 rows `pitch` bytes apart, cut into boxes of b0 × b1 elements
+// whose inner side is 128 or 64 bytes; the engine XOR-swizzles the 16-byte
+// units of a box's rows in shared memory. A map is made once per array and
+// kept (encoding one costs microseconds); weights stay where they
+// are, and the allocator hands activations the same few addresses again.
+bool tensor_map(const void* base, CUtensorMapDataType type, long long d0, long long d1,
+                long long pitch, int b0, int b1, CUtensorMap* out) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  using Key = std::tuple<const void*, int, long long, long long, long long, int, int>;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> maps;
+  static Encode encode = nullptr;
+  std::lock_guard<std::mutex> lock(mu);
+  if (encode == nullptr) {
+    // the encoder lives in libcuda, which the CUDA runtime has loaded already
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    void* fn = lib == nullptr ? nullptr : dlsym(lib, "cuTensorMapEncodeTiled");
+    if (fn == nullptr) return false;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const Key key{base, static_cast<int>(type), d0, d1, pitch, b0, b1};
+  auto it = maps.find(key);
+  if (it != maps.end()) {
+    *out = it->second;
+    return true;
+  }
+  if (maps.size() >= 1 << 16) maps.clear();
+  const int elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32    ? 4
+                   : type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                                                              : 1;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      &map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      b0 * elem == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : b0 * elem == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return false;
+  maps.emplace(key, map);
+  *out = map;
+  return true;
+}
+
+template <int F, int MT>
+int launch_stream(const Args& a, int blocks, cudaStream_t s) {
+  using R = Ring<F, MT>;
+  const int rows_total = F == kI4 ? a.k / 2 : a.k;
+  CUtensorMap wmap, xmap, smap;
+  bool made =
+      (F == kI8Rows
+           ? tensor_map(a.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.k, a.n, a.ldw, kSR, kBN, &wmap)
+           : tensor_map(a.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.nw, rows_total, a.ldw, kBN, kSR,
+                        &wmap)) &&
+      // x (M, K) bf16 in boxes of 16·MT rows × 64 k (a decode step's 8 rows: 8)
+      tensor_map(a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.k, a.m, 2ll * a.k, kSR,
+                 MT == 1 && a.m <= 8 ? 8 : MT * 16, &xmap);
+  smap = wmap;
+  if (made && F == kI4 && a.bulk)   // K4's scales (K/G, N) f32 in boxes of one row × 128 columns
+    made = tensor_map(a.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.n, a.k / a.group, 4ll * a.n, kBN,
+                      1, &smap);
+  if (!made) return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;   // once per process
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_stream<F, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  if (a.csize == 1) {
+    qmm_stream<F, MT><<<blocks, kStreamThreads, R::kSmem, s>>>(a, wmap, xmap, smap);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kStreamThreads);
+  cfg.dynamicSmemBytes = R::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, qmm_stream<F, MT>, a, wmap, xmap, smap));
+}
+
 template <int F>
-int launch_kn(const Args& a, bool mma, cudaStream_t s) {
-  if (mma) {
-    const dim3 grid((a.n + kBN - 1) / kBN, a.nsplit, (a.m + kMTm - 1) / kMTm);
-    qmm_kn_mma<F><<<grid, kThreads, 0, s>>>(a);
-  } else {
-    constexpr int kHalves = F == kI4 ? 2 : 1;
-    const size_t smem =
-        static_cast<size_t>(kWarps) * (kHalves * kR * kMT + kMT * kBN) * sizeof(float);
-    static bool configured = false;
-    if (!configured) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          qmm_kn<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-      configured = true;
-    }
-    const dim3 grid((a.n + kBN - 1) / kBN, a.nsplit, (a.m + kMT - 1) / kMT);
-    qmm_kn<F><<<grid, kThreads, smem, s>>>(a);
+int launch_kn(const Args& a, int nsplit, cudaStream_t s) {
+  constexpr int kHalves = F == kI4 ? 2 : 1;
+  const size_t smem =
+      static_cast<size_t>(kWarps) * (kHalves * kR * kMT + kMT * kBN) * sizeof(float);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_kn<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
   }
-  if (a.nsplit > 1) {
-    const size_t total = static_cast<size_t>(a.m) * a.n;
-    qmm_reduce<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-        a.partial, F == kI8 ? a.scale : nullptr, a.out, a.out_f32, a.m, a.n, a.nsplit);
-  }
+  const dim3 grid((a.n + kBN - 1) / kBN, nsplit, (a.m + kMT - 1) / kMT);
+  qmm_kn<F><<<grid, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned(const void* p, uintptr_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to == 0;
 }
 
 }  // namespace
 
-// K splits the launch with these arguments will use; the caller sizes
-// `partial` (nsplit, M, N) f32 from it (none for 1). fmt: 0 = K4, 1 = K2
-// (in, out), 2 = K2 (out, in) rows. 0 for shapes the kernels do not take.
-extern "C" int tts_quant_matmul_splits(const void* w, int fmt, int m, int k, int n,
-                                       long long ldw, int nw, int group, int x_dtype) {
-  if (m < 1 || k < 2 || n < 1 || (fmt == kI4 && (group < 1 || (k / 2) % group))) return 0;
-  return pick_splits(fmt, mma_ok(fmt, k, group, ldw, nw, w, x_dtype), m, k, n, group);
+#ifdef QMM_TRACE
+// Copy the stamps of the last `qmm_stream` launch to `host` (1024 × 8 u64).
+extern "C" int tts_qmm_trace(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, qmm_trace_buf, sizeof(qmm_trace_buf)));
 }
 
-// x (M, K) · weights → out (M, N). fmt as above; ldw = bytes between weight
-// rows; nw = weight columns that may be read (K4: Np; K2: n); group = K4's
-// scale group; x_dtype / out_dtype: 0 = bfloat16, 1 = float32. Returns the
-// launches' cudaError_t.
+// The same for the stamps by unit (1024 × 3 × 16 u64).
+extern "C" int tts_qmm_trace_units(unsigned long long* host) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, qmm_trace_units, sizeof(qmm_trace_units)));
+}
+#endif
+
+// One launch of an empty kernel on `stream`.
+extern "C" int tts_empty_kernel(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (M, K) · weights → out (M, N), one launch. fmt: 0 = K4, 1 = K2 (in, out),
+// 2 = K2 (out, in) rows; ldw = bytes between weight rows; nw = weight columns
+// that may be read (K4: Np; K2: n); group = K4's scale group; x_dtype /
+// out_dtype: 0 = bfloat16, 1 = float32. The plan is the wrapper's
+// (ops/int4_matmul.py::plan): path 1 = `qmm_stream` with p0 rows of x per
+// block (16 or 64) on p1 blocks in clusters of p2 (1: none); path 0 = the CUDA
+// cores with p0 K splits of p1 chunks ((N, K) weights: one split). scratch
+// (f32) and counters (int32, all 0) as the plan sizes them; they may be null
+// where it asks for none. Returns the launch's cudaError_t.
 extern "C" int tts_quant_matmul(const void* x, const void* w, const void* scale, void* out,
-                                void* partial, int fmt, int m, int k, int n, long long ldw,
-                                int nw, int group, int x_dtype, int out_dtype,
-                                void* stream) {
+                                void* scratch, void* counters, int fmt, int m, int k, int n,
+                                long long ldw, int nw, int group, int x_dtype, int out_dtype,
+                                int path, int p0, int p1, int p2, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (m < 1 || k < 2 || n < 1 || nw < n || x_dtype < 0 || x_dtype > 1 || out_dtype < 0 ||
-      out_dtype > 1)
+      out_dtype > 1 || fmt < kI4 || fmt > kI8Rows || p0 < 1 || p1 < 1)
     return bad;
+  if (fmt == kI4 && (k % 2 || group < 1 || (k / 2) % group)) return bad;
   Args a{x, static_cast<const int8_t*>(w), static_cast<const float*>(scale), out,
-         static_cast<float*>(partial), m, k, n, ldw, nw, group, x_dtype, out_dtype, 1, 0};
+         static_cast<float*>(scratch), static_cast<int*>(counters), m, k, n, ldw, nw, group,
+         x_dtype, out_dtype, 0, 0, 0, 0, 1, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fmt == kI8Rows) {
-    if (k % 4 || ldw % 4 || reinterpret_cast<uintptr_t>(w) % 4 ||
-        reinterpret_cast<uintptr_t>(x) % 16)
+  if (path == 1) {
+    // 16-byte requests for the weights and x; chunks that start on 8 k
+    if (x_dtype != 0 || !aligned(w, 16) || !aligned(x, 16) || ldw % 16 || k % 8) return bad;
+    if (fmt == kI4 && (group % 8 || (k / 2) % 8)) return bad;
+    if (fmt != kI8Rows && nw % 16) return bad;
+    if (p0 != 16 && p0 != 64) return bad;
+    const int rows_total = fmt == kI4 ? k / 2 : k;
+    const int grows = fmt == kI4 ? group : rows_total;
+    a.nchunks = (rows_total / grows) * ((grows + kSR - 1) / kSR);
+    a.nmt = (m + p0 - 1) / p0;
+    const long long units = static_cast<long long>((n + kBN - 1) / kBN) * a.nmt * a.nchunks;
+    // the blocks' runs are cut in 32-bit arithmetic
+    if (p1 > units || (units + 1) * p1 >= (1ll << 32)) return bad;
+    a.units = static_cast<unsigned>(units);
+    // a cluster's blocks share one tile: p1 = tiles × p2, p2 | 128 columns
+    a.csize = p2;
+    a.scale16 = fmt == kI4 && n % 4 == 0 && aligned(scale, 16);
+    // every chunk whole (x by the copy engine) and K4's scale rows on 16 bytes
+#ifndef QMM_NO_BULK   // probe build without: x and the scales by cp.async of all lanes
+    a.bulk = grows % kSR == 0 && (fmt != kI4 || a.scale16);
+#endif
+    if (p2 < 1 || p2 > 8 || kBN % p2 || p2 > a.nchunks || (p2 > 1 && (m > 16 || p0 != 16)))
       return bad;
+    if (p2 > 1 && static_cast<long long>(p1) * a.nchunks != units * p2) return bad;
+    if (p2 == 1 && p1 > 1 && (scratch == nullptr || counters == nullptr)) return bad;
+    if (p0 == 16) {
+      if (fmt == kI4) return launch_stream<kI4, 1>(a, p1, s);
+      if (fmt == kI8) return launch_stream<kI8, 1>(a, p1, s);
+      return launch_stream<kI8Rows, 1>(a, p1, s);
+    }
+    if (fmt == kI4) return launch_stream<kI4, 4>(a, p1, s);
+    if (fmt == kI8) return launch_stream<kI8, 4>(a, p1, s);
+    return launch_stream<kI8Rows, 4>(a, p1, s);
+  }
+  if (path != 0) return bad;
+  if (fmt == kI8Rows) {
+    if (k % 4 || ldw % 4 || !aligned(w, 4) || !aligned(x, 16) || p0 != 1) return bad;
     const dim3 grid((n + kWarps * kRowsNK - 1) / (kWarps * kRowsNK), (m + kMT - 1) / kMT);
     qmm_rows<<<grid, kThreads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (fmt == kI4) {
-    if (k % 2 || group < 1 || (k / 2) % group) return bad;
-  } else if (fmt != kI8) {
-    return bad;
-  }
-  const bool mma = mma_ok(fmt, k, group, ldw, nw, w, x_dtype);
-  a.nsplit = pick_splits(fmt, mma, m, k, n, group, &a.cpb);
-  if (a.nsplit > 1 && partial == nullptr) return bad;
-  return fmt == kI4 ? launch_kn<kI4>(a, mma, s) : launch_kn<kI8>(a, mma, s);
+  if (p0 > 1 && (scratch == nullptr || counters == nullptr)) return bad;
+  a.cpb = p1;
+  return fmt == kI4 ? launch_kn<kI4>(a, p0, s) : launch_kn<kI8>(a, p0, s);
 }

@@ -79,11 +79,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, ll, p, p, p, p, i, i, i, i, i, i, i,
         ctypes.c_float, i, p]
     lib.tts_paged_attention_int4.restype = i
-    lib.tts_quant_matmul_splits.argtypes = [p, i, i, i, i, ll, i, i, i]
-    lib.tts_quant_matmul_splits.restype = i
     lib.tts_quant_matmul.argtypes = [
-        p, p, p, p, p, i, i, i, i, ll, i, i, i, i, p]
+        p, p, p, p, p, p, i, i, i, i, ll, i, i, i, i, i, i, i, i, p]
     lib.tts_quant_matmul.restype = i
+    lib.tts_empty_kernel.argtypes = [p]
+    lib.tts_empty_kernel.restype = i
 
 
 def _run(cmd) -> str:

@@ -12,9 +12,23 @@ convert to its compiler); it is K4's body with another unpack::
                                         head over a row slice of the (V, H)
                                         int8 embedding, read in place
 
-Both kernels are hand-written CUDA C++ for Hopper (``csrc/quant_matmul.cu``):
-bf16 activations go through the tensor cores (``mma.sync`` on the weights as
-they are stored), f32 activations through f32 FMAs on the CUDA cores.
+Both kernels are hand-written CUDA C++ for Hopper (``csrc/quant_matmul.cu``)
+and every call is ONE launch. bf16 activations go through the tensor cores
+(``qmm_stream``: ``mma.sync`` on the weights as they are stored; a producer
+warp hands boxes of the weights and of x to the copy engine (TMA), which
+fills a ring of shared-memory stages that eight consumer warps multiply),
+f32 activations and what that path refuses (K or a group no multiple of 8, a
+row stride or a pointer off 16 bytes) through f32 FMAs on the CUDA cores.
+``plan`` below is the work list of a call, a pure function of the shapes and
+the SM count: the kernels get its numbers as arguments and repeat its
+integer arithmetic, and the CPU tests check it (every unit once, equal runs,
+a fixed order of summation). Where several blocks share an output tile, they
+are one thread-block cluster whose warps push their partial sums into the
+shared memory of the block that owns a slice of the tile, which adds them in
+rank order (a decode step), or each leaves its partial tile in a per-device
+scratch and the block that arrives last adds them in plan order (prefill,
+the tied head): no float atomics, two runs give the same bits.
+
 Beside them ``int4_mm_reference`` and ``w8_mm_reference`` are the plain
 PyTorch versions (unpack, dequantize, f32 product). The wrappers take the
 plain versions only for tensors on the CPU; a CUDA tensor launches the
@@ -38,11 +52,13 @@ Shapes:
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 
 from tts_inference_tpu_torch.ops import _build
+from tts_inference_tpu_torch.ops.decode_attention import H100_SMS, workspace
 
 launches = _build.LaunchCounter()      # K4
 launches_w8 = _build.LaunchCounter()   # K2
@@ -50,8 +66,15 @@ launches_w8 = _build.LaunchCounter()   # K2
 GROUP = 512          # quantization group along K (G | K/2)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_FMT_I4, _FMT_I8, _FMT_I8_ROWS = 0, 1, 2
-_splits: dict = {}   # launch arguments → K splits the library will use
+FMT_I4, FMT_I8, FMT_I8_ROWS = 0, 1, 2
+
+TILE_COLS = 128      # out columns of a tile
+STAGE_ROWS = 64      # weight rows (k) of a unit on the tensor cores
+CORE_ROWS = 32       # weight rows of a chunk on the CUDA cores
+CORE_M = 8           # rows of x per block on the CUDA cores
+CORE_WARPS = 8       # warps of a block, each walking its own chunks
+
+_plans: dict = {}    # launch arguments → Plan
 
 
 def pick_group(k: int, group: int = GROUP) -> int:
@@ -61,6 +84,140 @@ def pick_group(k: int, group: int = GROUP) -> int:
     while k // 2 % g:
         g //= 2
     return g
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The work list of one call. A tile is `rows` rows of x by TILE_COLS out
+    columns; a chunk is `chunk_rows` weight rows (K4: packed rows, i.e. that
+    many k of each half of K) inside one scale group; a unit is one chunk of
+    one tile. Units are ordered by tile, then chunk; tile = column tile ·
+    m_tiles + m tile.
+
+    mma (tensor cores): `blocks` blocks, block b walks units [b·U/B,
+    (b+1)·U/B). With `cluster` > 1 that is `cluster` blocks per tile (a
+    thread-block cluster, which adds its partial sums up through
+    distributed shared memory); with 1 the blocks are persistent, their
+    runs cross tiles, and partial tiles meet in a scratch. Otherwise (CUDA
+    cores): every tile is cut into `blocks` K splits of `cpb` chunks each,
+    one block per split."""
+    mma: bool
+    rows: int
+    chunk_rows: int
+    nchunks: int       # chunks per tile
+    col_tiles: int
+    m_tiles: int
+    blocks: int
+    cpb: int = 0
+    cluster: int = 1
+
+    @property
+    def tiles(self) -> int:
+        return self.col_tiles * self.m_tiles
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.nchunks
+
+    def block_units(self, b: int) -> range:
+        """mma: the units block b walks, in order."""
+        return range(b * self.units // self.blocks,
+                     (b + 1) * self.units // self.blocks)
+
+    def tile_blocks(self, tile: int) -> range:
+        """mma: the blocks that walk a part of `tile`, in the order their
+        partial tiles are added."""
+        first, last = tile * self.nchunks, (tile + 1) * self.nchunks - 1
+        return range(((first + 1) * self.blocks - 1) // self.units,
+                     ((last + 1) * self.blocks - 1) // self.units + 1)
+
+    def tile_parts(self, tile: int) -> List[range]:
+        """The chunks of `tile` by the block that sums them, in the order
+        the parts are added up."""
+        if not self.mma:
+            return [range(s * self.cpb, min((s + 1) * self.cpb, self.nchunks))
+                    for s in range(self.blocks)]
+        base = tile * self.nchunks
+        parts = []
+        for b in self.tile_blocks(tile):
+            r = self.block_units(b)
+            parts.append(range(max(r.start, base) - base,
+                               min(r.stop, base + self.nchunks) - base))
+        return parts
+
+    def scratch_floats(self, m: int, n: int) -> int:
+        """f32 elements of scratch for the partial tiles: two slots per
+        persistent block (the tile its run starts in, the tile it ends in),
+        or one (m, n) partial per K split."""
+        if self.blocks == 1 or self.cluster > 1:
+            return 0
+        return (self.blocks * 2 * self.rows * TILE_COLS if self.mma
+                else self.blocks * m * n)
+
+    @property
+    def counters(self) -> int:
+        return self.tiles if self.blocks > 1 and self.cluster == 1 else 0
+
+
+def chunk_at(fmt: int, k: int, group: int, chunk_rows: int,
+             c: int) -> Tuple[int, int, int]:
+    """(scale group, first weight row, rows) of chunk c of a tile: chunks
+    tile each group of the K4 half (or all of K for int8) and never cross
+    one."""
+    rows_total = k // 2 if fmt == FMT_I4 else k
+    grows = group if fmt == FMT_I4 else rows_total
+    spg = -(-grows // chunk_rows)
+    gi = c // spg
+    r0 = gi * grows + (c % spg) * chunk_rows
+    return gi, r0, min(chunk_rows, (gi + 1) * grows - r0)
+
+
+def mma_takes(fmt: int, k: int, group: int, ldw: int, nw: int, x_dtype,
+              w_ptr: int = 0) -> bool:
+    """Whether the tensor-core kernel takes the call: bf16 x, 16-byte
+    requests for weights and x, chunks that start on a multiple of 8 k."""
+    if x_dtype != torch.bfloat16 or w_ptr % 16 or ldw % 16 or k % 8:
+        return False
+    if fmt == FMT_I4 and (group % 8 or (k // 2) % 8):
+        return False
+    return fmt == FMT_I8_ROWS or nw % 16 == 0
+
+
+def plan(fmt: int, m: int, k: int, n: int, group: int, sms: int = H100_SMS,
+         mma: bool = True) -> Plan:
+    """The work list of x (m, k) times weights of format `fmt` to (m, n) on
+    a card of `sms` SMs; `mma` as `mma_takes` says."""
+    rows_total = k // 2 if fmt == FMT_I4 else k
+    grows = group if fmt == FMT_I4 else rows_total
+    col_tiles = -(-n // TILE_COLS)
+    if mma:
+        # up to 16 rows: two blocks share an SM; above: one block of 64 rows
+        rows, resident = (16, 2) if m <= 16 else (64, 1)
+        nchunks = (rows_total // grows) * -(-grows // STAGE_ROWS)
+        m_tiles = -(-m // rows)
+        tiles = col_tiles * m_tiles
+        # a decode step's few tiles: the largest cluster per tile that the
+        # card holds at once (clusters do not pack the SMs to the last
+        # block: three quarters of the places is what was seen to fit)
+        for cluster in (8, 4, 2):
+            if m <= 16 and cluster <= nchunks \
+                    and tiles * cluster <= sms * resident * 3 // 4:
+                return Plan(True, rows, STAGE_ROWS, nchunks, col_tiles,
+                            m_tiles, tiles * cluster, cluster=cluster)
+        return Plan(True, rows, STAGE_ROWS, nchunks, col_tiles, m_tiles,
+                    min(tiles * nchunks, sms * resident))
+    m_tiles = -(-m // CORE_M)
+    if fmt == FMT_I8_ROWS:     # a warp owns 8 out channels and all of K
+        return Plan(False, CORE_M, k, 1, col_tiles, m_tiles, 1, 1)
+    # enough K splits to fill the card, and a multiple of the block's warps
+    # in chunks, so that every warp of a block walks the same number
+    nchunks = (rows_total // grows) * -(-grows // CORE_ROWS)
+    want = -(-2 * sms // (col_tiles * m_tiles))
+    want = max(1, min(want, -(-nchunks // CORE_WARPS)))
+    cpb = -(-nchunks // want)
+    cpb = CORE_WARPS if cpb < CORE_WARPS else cpb // CORE_WARPS * CORE_WARPS
+    return Plan(False, CORE_M, CORE_ROWS, nchunks, col_tiles, m_tiles,
+                -(-nchunks // cpb), cpb)
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -137,24 +294,24 @@ def _launch(name, counter, fmt, x, w, scale, n, nw, ldw, group, out_dtype):
         raise ValueError(f"{name}: no kernel for tensors on {x.device}, "
                          f"{w.device}, {scale.device}")
     lib = _build.load()
-    # the splits depend on the shape, the types and the weights' alignment
-    key = (w.data_ptr() % 4, fmt, m, k, n, ldw, nw, group, _DTYPES[x.dtype])
-    nsplit = _splits.get(key)
-    if nsplit is None:
-        nsplit = _splits[key] = lib.tts_quant_matmul_splits(w.data_ptr(),
-                                                            *key[1:])
-    if nsplit < 1:
-        raise ValueError(f"{name}: the kernel does not take M {m}, K {k}, "
-                         f"N {n}, group {group}")
+    ws = workspace(x.device)
+    # the plan depends on the shape, the types and the weights' alignment
+    key = (w.data_ptr() % 16, fmt, m, k, n, ldw, nw, group, x.dtype)
+    p = _plans.get(key)
+    if p is None:
+        p = _plans[key] = plan(
+            fmt, m, k, n, group, ws.sms,
+            mma_takes(fmt, k, group, ldw, nw, x.dtype, w.data_ptr()))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    # the K splits' partial tiles, summed by the second pass
-    partial = (torch.empty((nsplit, m, n), dtype=torch.float32,
-                           device=x.device) if nsplit > 1 else None)
+    # where blocks share a tile: their partial tiles and the tile's counter
+    counters, scratch = ws.reserve(p.counters, p.scratch_floats(m, n))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.tts_quant_matmul(
         x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), fmt, m, k, n, ldw,
-        nw, group, _DTYPES[x.dtype], _DTYPES[out_dtype], stream)
+        scratch.data_ptr(), counters.data_ptr(), fmt, m, k, n, ldw, nw,
+        group, _DTYPES[x.dtype], _DTYPES[out_dtype], int(p.mma),
+        p.rows if p.mma else p.blocks, p.blocks if p.mma else p.cpb,
+        p.cluster, stream)
     _build.check(err, name)
     counter.add()
     return out.reshape(*x.shape[:-1], n)
@@ -187,7 +344,7 @@ def int4_mm(x: torch.Tensor, w_p: torch.Tensor,
         raise ValueError("int4_mm: w_p and scales must be contiguous")
     if x.device.type == "cpu":
         return int4_mm_reference(x, w_p, scales)
-    return _launch("int4_mm", launches, _FMT_I4, x, w_p, scales, n,
+    return _launch("int4_mm", launches, FMT_I4, x, w_p, scales, n,
                    w_p.shape[1], w_p.shape[1], group, x.dtype)
 
 
@@ -219,5 +376,5 @@ def w8_mm(x: torch.Tensor, w_i8: torch.Tensor, scale: torch.Tensor, *,
                                out_dtype=out_dtype)
     if rows and w_i8.data_ptr() % 4:
         raise ValueError("w8_mm: rows=True needs 4-byte aligned weights")
-    return _launch("w8_mm", launches_w8, _FMT_I8_ROWS if rows else _FMT_I8,
+    return _launch("w8_mm", launches_w8, FMT_I8_ROWS if rows else FMT_I8,
                    x, w_i8, scale, n, n, w_i8.stride(0), 0, out_dtype)

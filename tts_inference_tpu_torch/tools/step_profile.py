@@ -34,7 +34,6 @@ import torch
 
 FAMILIES = (      # kernel-name fragment → family, first match wins
     ("qmm_rows", "K2 w8_mm rows (head)"),
-    ("qmm_reduce", "K4/K2 split reduce"),
     ("attention_mma", "attention (K1/K3a)"),
     ("attention_chunk", "attention (f32, K3b, K5)"),
     ("attention_combine", "attention combine"),
@@ -122,9 +121,12 @@ def vocoder_call(rt, args, flags) -> dict:
 
 
 def _family(name: str) -> str:
-    if "qmm_kn" in name:     # template argument 0 = int4, 1 = int8
-        return "K4 int4_mm" if re.search(r"<(\(int\))?0>", name) \
-            else "K2 w8_mm"
+    # first template argument of the matmul kernels: 0 = int4, 1 = int8
+    # (in, out), 2 = int8 (out, in) rows, the tied head
+    fmt = re.search(r"qmm_(?:kn|stream)<(?:\(int\))?(\d)", name)
+    if fmt:
+        return ("K4 int4_mm", "K2 w8_mm",
+                "K2 w8_mm rows (head)")[int(fmt.group(1))]
     for frag, fam in FAMILIES:
         if frag in name:
             return fam
