@@ -15,15 +15,16 @@ no result line is printed:
    (bytes or operations), and the time of the one PyTorch call that
    computes the same function where there is one (K2: the build is asked
    whether it has ``aten::_weight_int8pack_mm`` on CUDA); the time of an
-   empty kernel; a ``torch.profiler`` count that every K4 / K2 call is one
-   kernel; K1, K3a, K6, K4 and K2 also at
-   the edges of their tilings, correctness only, each case run twice for
+   empty kernel; a ``torch.profiler`` count that every K4 / K2 call, and
+   every K3b / K5 call with bf16 queries, is one kernel; every kernel also
+   at the edges of its tilings, correctness only, each case run twice for
    bit-equal outputs (K4 / K2: M 1 to 4096, N under a padded w_p, small
    groups, column and row slices of a wider weight read in place, what the
-   tensor-core kernel refuses, f32 x; K1, and K3a over block sizes 16 to 128: G 1, 4, 8,
-   D 64, f32 at the tiny shapes, windows
-   that are no multiple of a chunk, every pos 0 and W - 1, pos at a chunk's
-   last and first key; K6: T that is no multiple of a tile, T below the
+   tensor-core kernel refuses, f32 x; K1, and K3a / K3b / K5 over block
+   sizes 16 to 128: G 1, 3, 4, 8, D 64, f32 at the tiny shapes (the
+   CUDA-core body), windows that are no multiple of a chunk, every pos 0
+   and W - 1, pos at a chunk's last and first key, a column slice of a
+   wider block table; K6: T that is no multiple of a tile, T below the
    halo, valid 0 and T on different rows, channel-last input, channel
    counts below the narrowest tile and no multiple of 4);
 4. serve phase: the full Orpheus-3B + SNAC 24 kHz geometry with seeded
@@ -317,6 +318,134 @@ def _k3a_edges(gen: torch.Generator) -> float:
             pa.paged_decode_attention_reference(q, *pools, table, pos),
             K3_TOL if dtype == bf16 else 1e-5))
     return worst
+
+
+def _quant_pools(kind: str, n: int, hkv: int, bs: int, d: int,
+                 gen: torch.Generator):
+    """K and V pools of `n` blocks, quantized by the port from random f32
+    rows: K3b int8 (N, Hkv, bs, D) + scales (N, Hkv, bs); K5 int4 packed by
+    head pair (N, Hkv/2, bs, D) + nibble-plane scales (N, 2, Hkv/2, bs)."""
+    from tts_inference_tpu_torch.models.llama import _quantize_kv
+    from tts_inference_tpu_torch.ops import paged_attention_int4 as pa4
+
+    pools, scales = [], []
+    for _ in range(2):
+        x = torch.randn(n, bs, hkv, d, generator=gen, device="cuda")
+        if kind == "K5":
+            xq, xs = pa4.quantize_kv_int4(x)
+            pools.append(xq.permute(0, 2, 1, 3).contiguous())
+            scales.append(pa4.scales_to_planes(xs).permute(0, 2, 3, 1)
+                          .contiguous())
+        else:
+            xq, xs = _quantize_kv(x)
+            pools.append(xq.permute(0, 2, 1, 3).contiguous())
+            scales.append(xs.permute(0, 2, 1).contiguous())
+    return pools, scales
+
+
+def _paged_quant_edges(kind: str, gen: torch.Generator) -> float:
+    """K3b (int8 pools) or K5 (int4 pools packed by head pair) at the edges
+    of the tensor-core body's tilings: block sizes 16 to 128, G 1, 3 and 8,
+    D 64 and 128, one head pair, every pos 0 and every pos W - 1, pos at a
+    chunk's last and first key; and f32 queries at the tiny configuration's
+    shapes (the CUDA-core body). The table is a column slice of a wider one,
+    as the engine hands it."""
+    from tts_inference_tpu_torch.ops import paged_attention as pa
+    from tts_inference_tpu_torch.ops import paged_attention_int4 as pa4
+    from tts_inference_tpu_torch.ops.decode_attention import MMA_CHUNKS
+
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+    if kind == "K5":
+        kern = pa4.paged_decode_attention_int4
+        plain = pa4.paged_decode_attention_int4_reference
+    else:
+        kern = pa.paged_decode_attention_int8
+        plain = pa.paged_decode_attention_int8_reference
+    edges = [c + (k - 1) for c in MMA_CHUNKS for k in (0, 1)]
+    cases = [   # b, hkv, g, d, bs, wb, dtype, pos
+        (8, 8, 3, 128, 16, 19, bf16, "rand"), (8, 8, 1, 128, 128, 4, bf16, "rand"),
+        (8, 8, 8, 128, 32, 16, bf16, "rand"), (8, 8, 3, 64, 64, 8, bf16, "rand"),
+        (8, 8, 8, 64, 32, 40, bf16, "rand"), (4, 2, 3, 64, 16, 10, bf16, "rand"),
+        (8, 8, 3, 128, 128, 36, bf16, "zero"), (8, 8, 3, 128, 128, 36, bf16, "last"),
+        (4, 8, 3, 128, 16, 32, bf16, edges), (4, 8, 3, 128, 128, 36, bf16, edges),
+        (2, 8, 3, 128, 128, 95, bf16, "last"), (4, 2, 2, 16, 16, 20, f32, "rand"),
+    ]
+    worst = 0.0
+    for b, hkv, g, d, bs, wb, dtype, how in cases:
+        w, n = wb * bs, 1 + b * wb
+        q = torch.randn(b, hkv, g, d, generator=gen, device=dev).to(dtype)
+        pools, scales = _quant_pools(kind, n, hkv, bs, d, gen)
+        wide = torch.zeros(b, wb + 3, dtype=torch.int32, device=dev)
+        wide[:, :wb] = (torch.randperm(n - 1, generator=gen, device=dev)
+                        .to(torch.int32) + 1).view(b, wb)
+        table = wide[:, :wb]
+        if how == "rand":
+            pos = torch.randint(0, w, (b,), generator=gen, device=dev)
+        elif how == "zero":
+            pos = torch.zeros(b, device=dev)
+        elif how == "last":
+            pos = torch.full((b,), w - 1, device=dev)
+        else:
+            pos = torch.tensor(how, device=dev)
+        pos = pos.to(torch.int32)
+        args = (q, *pools, *scales, table, pos)
+        what = (f"B{b} Hkv{hkv} G{g} D{d} bs{bs} W{w} "
+                f"{'bf16' if dtype == bf16 else 'f32'} pos "
+                f"{how if isinstance(how, str) else pos.tolist()}")
+        worst = max(worst, _edge(kind, what, lambda: kern(*args),
+                                 plain(*args),
+                                 K3_TOL if dtype == bf16 else 1e-5))
+    return worst
+
+
+def _k3b_edges(gen: torch.Generator) -> float:
+    return _paged_quant_edges("K3b", gen)
+
+
+def _k5_edges(gen: torch.Generator) -> float:
+    return _paged_quant_edges("K5", gen)
+
+
+def _attention_one_launch_check(gen: torch.Generator) -> dict:
+    """Every K3b / K5 call with bf16 queries is exactly one kernel (the
+    tensor-core body, its chunks combined by the last block): torch.profiler
+    counts the kernels of one call at the serve shapes, B 8 and W 512 /
+    2048 / 4608."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tts_inference_tpu_torch.ops import paged_attention as pa
+    from tts_inference_tpu_torch.ops import paged_attention_int4 as pa4
+
+    b, hkv, g, d, bs, dev = 8, 8, 3, 128, 128, "cuda"
+    counts = {}
+    for kind, fn in (("K3b", pa.paged_decode_attention_int8),
+                     ("K5", pa4.paged_decode_attention_int4)):
+        for w in (512, 2048, 4608):
+            wb = w // bs
+            n = 1 + b * wb
+            pools, scales = _quant_pools(kind, n, hkv, bs, d, gen)
+            q = torch.randn(b, hkv, g, d, generator=gen,
+                            device=dev).bfloat16()
+            table = (torch.randperm(n - 1, generator=gen, device=dev)
+                     .to(torch.int32) + 1).view(b, wb)
+            pos = torch.randint(0, w, (b,), generator=gen, device=dev)
+            pos[0] = w - 1
+            args = (q, *pools, *scales, table, pos.to(torch.int32))
+            fn(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(*args)
+                torch.cuda.synchronize()
+            counts[f"{kind} W{w}"] = sum(
+                ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    print("K3b/K5 kernels per call (torch.profiler):", json.dumps(counts),
+          flush=True)
+    if any(c != 1 for c in counts.values()):
+        raise AssertionError(f"a paged attention call is not one launch: "
+                             f"{counts}")
+    return counts
 
 
 def _k6_edges(gen: torch.Generator) -> float:
@@ -819,6 +948,9 @@ def kernel_phase() -> dict:
     k6_edge = _k6_edges(gen)
     qmm_edge = _qmm_edges(gen)
     _qmm_one_launch_check(gen)
+    k3b_edge = _k3b_edges(gen)
+    k5_edge = _k5_edges(gen)
+    _attention_one_launch_check(gen)
 
     def worst(cases):
         return max(c["max_abs_err"] for c in cases.values())
@@ -834,8 +966,8 @@ def kernel_phase() -> dict:
         # the window the serve phases' decode steps mostly read
         "K1": {**k1[512], "max_abs_err": max(worst(k1), k1_edge)},
         "K3a": {**k3a[(8, 512)], "max_abs_err": max(worst(k3a), k3a_edge)},
-        "K3b": {**k3b[(8, 512)], "max_abs_err": worst(k3b)},
-        "K5": {**k5[(8, 512)], "max_abs_err": worst(k5)},
+        "K3b": {**k3b[(8, 512)], "max_abs_err": max(worst(k3b), k3b_edge)},
+        "K5": {**k5[(8, 512)], "max_abs_err": max(worst(k5), k5_edge)},
         # all 12 units of one 8-row, 16-frame vocoder call
         "K6": {**summed(k6), "max_abs_err": max(worst(k6), k6_edge)},
         # the gate / up projection of a decode step, the largest linear

@@ -25,9 +25,12 @@ from tts_inference_tpu_torch import weights as W
 from tts_inference_tpu_torch.engine.engine import EngineCore as TCore
 from tts_inference_tpu_torch.models import llama as tl
 from tts_inference_tpu_torch.ops import paged_attention_int4 as tp4
+from tts_inference_tpu_torch.ops.paged_attention import gather_window
 from tts_inference_tpu_torch.ops import sampling as tS
 from tts_inference_tpu_torch.utils import to_numpy
 
+from tests.test_torch_kernels import (bf16_round, chunked_scaled_attention,
+                                      scaled_attention_case)
 from tests.torch_port_helpers import numpy_llama_tree, port_config, to_jax
 
 TINY_LM = ModelConfig.tiny(vocab_size=512)
@@ -126,6 +129,49 @@ def test_int4_attention_matches_jax_kernel_and_twin(dtype):
     ktol = (dict(atol=2e-2, rtol=0) if dtype == "bfloat16"
             else dict(atol=2e-4, rtol=2e-4))
     np.testing.assert_allclose(got.float().numpy(), kern, **ktol)
+
+
+def nibble_planes(packed):
+    """(..., P2, D) packed bytes → (..., 2·P2, D) integers, as the
+    tensor-core body reads a byte: the low nibble minus 8, the high nibble
+    XOR 8 minus 8, both heads of a pair from one byte."""
+    u = packed.to(torch.int32) & 0xFF
+    both = torch.stack([(u & 15) - 8, ((u >> 4) & 15 ^ 8) - 8], dim=-2)
+    return both.reshape(*packed.shape[:-2], 2 * packed.shape[-2],
+                        packed.shape[-1])
+
+
+@pytest.mark.parametrize("bs,wb,g,d,chunk", [
+    (16, 24, 3, 128, 64), (128, 3, 3, 128, 128), (16, 9, 8, 64, 64),
+    (128, 2, 1, 64, 128)])
+def test_chunked_scaled_attention_matches_jax_int4_reference(bs, wb, g, d,
+                                                             chunk):
+    """K5's tensor-core arithmetic: one block per head pair takes both
+    nibble planes of each packed byte (nibble_planes equals unpack_kv_int4),
+    then each head runs the scaled chain of chunked_scaled_attention;
+    against the JAX package's paged_decode_attention_int4_reference within
+    K3_TOL (2e-2) on bf16 outputs, at both chunk lengths, pos 0, W - 1 and
+    a chunk's last and first key."""
+    b, hkv = 6, 4
+    rng, q, table, pos, n = scaled_attention_case(bs + wb + g, b, hkv, g, d,
+                                                  bs, wb, chunk)
+    kp, vp, ks, vs = _pools(rng, n, bs, hkv, d)
+    want = np.asarray(jp4.paged_decode_attention_int4_reference(
+        jnp.asarray(q, jnp.bfloat16), kp, vp, ks, vs, jnp.asarray(table),
+        jnp.asarray(pos)), np.float32)
+    ttable = torch.from_numpy(table)
+    ints = []
+    for pool in (kp, vp):
+        packed = gather_window(W.tensor_from_numpy(np.asarray(pool)), ttable)
+        ints.append(nibble_planes(packed))
+        assert torch.equal(ints[-1], tp4.unpack_kv_int4(packed))
+    sc = [tp4.planes_to_scales(
+        W.tensor_from_numpy(np.asarray(planes))[ttable.long()].movedim(4, 2)
+    ).reshape(b, wb * bs, hkv) for planes in (ks, vs)]
+    got = chunked_scaled_attention(torch.from_numpy(q), *ints, *sc,
+                                   torch.from_numpy(pos), chunk)
+    np.testing.assert_allclose(bf16_round(got).numpy(), want, atol=2e-2,
+                               rtol=0)
 
 
 def test_int4_attention_multi_block_tail(monkeypatch):

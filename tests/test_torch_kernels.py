@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from tts_inference_tpu.models import snac as jsnac
 from tts_inference_tpu.ops.pallas import decode_attention as jda
+from tts_inference_tpu.ops.pallas import paged_attention as jpa
 from tts_inference_tpu.ops.pallas.vocoder import (
     fused_residual_unit as j_fused_unit)
 from tts_inference_tpu_torch.ops import decode_attention as tda
@@ -113,19 +114,24 @@ def test_chunk_keys_fills_the_card_at_the_serve_shapes(w):
 
 
 @settings(max_examples=200, deadline=None, derandomize=True, database=None)
-@given(b=hst.integers(1, 64), hkv=hst.integers(1, 16), g=hst.integers(1, 8),
+@given(b=hst.integers(1, 64), units=hst.integers(1, 16), g=hst.integers(1, 8),
        d=hst.sampled_from([16, 64, 128, 256]), w=hst.integers(1, 20000),
-       bf16=hst.booleans(), scaled=hst.booleans(),
+       bf16=hst.booleans(), heads_per_block=hst.sampled_from([1, 2]),
        sms=hst.sampled_from([1, 16, 132, 144]))
-def test_plan_partitions_the_window(b, hkv, g, d, w, bf16, scaled, sms):
+def test_plan_partitions_the_window(b, units, g, d, w, bf16, heads_per_block,
+                                    sms):
     """Every key j < W lies in exactly one chunk, the chunk count is the one
-    the scratch is sized for, and only bf16 rows without scales at D 64 /
-    128 (K1, K3a) get the tensor-core body's chunk lengths."""
+    the scratch is sized for (B·Hkv·S·G·(D + 2), whatever shares a block),
+    and a bf16 query at D 64 / 128 gets the tensor-core body's chunk
+    lengths, over bf16, int8 or int4 rows alike (K1, K3a, K3b; K5 counts
+    its head pairs, one block each, when it fills the card)."""
     dtype = torch.bfloat16 if bf16 else torch.float32
-    chunk, nchunk, floats = tda.plan(b, hkv, g, d, w, dtype, sms, scaled)
-    if bf16 and d in (64, 128) and not scaled:
+    hkv = units * heads_per_block
+    chunk, nchunk, floats = tda.plan(b, hkv, g, d, w, dtype, sms,
+                                     heads_per_block=heads_per_block)
+    if bf16 and d in (64, 128):
         assert chunk in tda.MMA_CHUNKS
-        assert chunk == tda.chunk_keys(b, hkv, w, sms)
+        assert chunk == tda.chunk_keys(b, units, w, sms)
         assert chunk % 64 == 0     # four warps of whole 16-key steps
     else:
         assert chunk == tda.SIMPLE_CHUNK
@@ -189,6 +195,101 @@ def test_chunked_online_softmax_equals_reference(g, d, w, sms):
     got = chunked_attention(q, k, v, pos, chunk)
     want = tda.decode_attention_reference(q, k, v, pos)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def bf16_round(x):
+    return x.to(torch.bfloat16).float()
+
+
+def chunked_scaled_attention(q, k_int, v_int, ks, vs, pos, chunk):
+    """The arithmetic of the tensor-core body over integer rows with scales,
+    in plain f32 PyTorch: the integers cast exactly; per warp (a quarter of a
+    chunk) the scores q·k times 1/√D and the key's k scale, masked at pos;
+    p = exp(s - max); the denominator sums the unscaled p; p·v multiplies
+    x = p·vs as bf16(x) plus the bf16 remainder bf16(x - bf16(x)); warps
+    merged per block, chunks in chunk order. q (B, H, G, D) bf16 values in
+    f32; k_int, v_int (B, W, H, D) integers; ks, vs (B, W, H). Each head is
+    its own chain (K5's pair: one warp per head on the same bytes), so the
+    heads of one block give what they give alone."""
+    b, hkv, g, d = q.shape
+    w = k_int.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        limit = min(int(pos[bi]) + 1, w)
+        for h in range(hkv):
+            parts = []
+            for j0 in range(0, limit, chunk):
+                j1 = min(j0 + chunk, limit)
+                warps = []
+                for wj0 in range(j0, j1, chunk // 4):
+                    sl = slice(wj0, min(wj0 + chunk // 4, j1))
+                    s = (q[bi, h] @ k_int[bi, sl, h].float().T) * (
+                        scale * ks[bi, sl, h])                     # (g, n)
+                    m = s.max(dim=-1).values
+                    p = torch.exp(s - m[:, None])
+                    x = p * vs[bi, sl, h]
+                    hi = bf16_round(x)
+                    pv = (hi + bf16_round(x - hi)) @ v_int[bi, sl, h].float()
+                    warps.append((m, p.sum(-1), pv))
+                parts.append(_merge(warps))
+            m, l, o = _merge(parts)
+            out[bi, h] = o / l[:, None]
+    return out
+
+
+def scaled_attention_case(seed, b, hkv, g, d, bs, wb, chunk):
+    """Inputs of a paged call with bf16 queries from a numpy seed, pos at
+    0, W - 1, a chunk's last and first key and at random."""
+    rng = np.random.default_rng(seed)
+    w = wb * bs
+    n = 1 + b * wb
+    q = rng.standard_normal((b, hkv, g, d)).astype(np.float32)
+    q = np.asarray(jnp.asarray(q, jnp.bfloat16), np.float32)
+    table = (rng.permutation(n - 1)[:b * wb] + 1).reshape(b, wb).astype(
+        np.int32)
+    base = [0, w - 1, chunk - 1, chunk, int(rng.integers(0, w)),
+            min(w - 1, 2 * chunk + chunk // 4)]
+    pos = np.array((base * b)[:b], np.int32)
+    return rng, q, table, pos, n
+
+
+@pytest.mark.parametrize("bs,wb,g,d,chunk", [
+    (16, 24, 3, 128, 64), (128, 3, 3, 128, 128), (16, 9, 8, 64, 64),
+    (128, 2, 1, 64, 128)])
+def test_chunked_scaled_attention_matches_jax_int8_reference(bs, wb, g, d,
+                                                             chunk):
+    """K3b's tensor-core arithmetic (chunked_scaled_attention, at both chunk
+    lengths) against the JAX package's paged_decode_attention_int8_reference
+    on int8 pools quantized from random rows: within K3_TOL (2e-2) on bf16
+    outputs, as on the card."""
+    b, hkv = 6, 2
+    rng, q, table, pos, n = scaled_attention_case(bs + wb + g, b, hkv, g, d,
+                                                  bs, wb, chunk)
+    pools, scales = [], []
+    for _ in range(2):
+        x = rng.standard_normal((n, hkv, bs, d)).astype(np.float32)
+        sc = np.maximum(np.abs(x).max(-1) / 127.0, 1e-8).astype(np.float32)
+        pools.append(np.clip(np.round(x / sc[..., None]), -127, 127)
+                     .astype(np.int8))
+        scales.append(sc)
+    want = np.asarray(jpa.paged_decode_attention_int8_reference(
+        jnp.asarray(q, jnp.bfloat16), *map(jnp.asarray, pools),
+        *map(jnp.asarray, scales), jnp.asarray(table), jnp.asarray(pos)),
+        np.float32)
+    k_int, v_int, ks, vs = (
+        gather(torch.from_numpy(a), torch.from_numpy(table))
+        for a in (*pools, *scales))
+    got = chunked_scaled_attention(torch.from_numpy(q), k_int, v_int, ks,
+                                   vs, torch.from_numpy(pos), chunk)
+    np.testing.assert_allclose(bf16_round(got).numpy(), want, atol=2e-2,
+                               rtol=0)
+
+
+def gather(pool, table):
+    """(N, H, bs, ...) pool, (B, WB) table → (B, WB·bs, H, ...)."""
+    from tts_inference_tpu_torch.ops.paged_attention import gather_window
+    return gather_window(pool, table)
 
 
 def unit_params(c, seed):

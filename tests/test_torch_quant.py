@@ -263,6 +263,29 @@ def test_quantize_llama_params_tree(trees, bits):
         tq.quantize_llama_params(tp, bits=2)
 
 
+@pytest.mark.parametrize("env", [None, "128", "16"])
+def test_quantize_llama_params_reads_int4_group_env(trees, env, monkeypatch):
+    """With no explicit group both sides take TTS_INT4_GROUP at call time
+    (default 512): the same scale shapes and packed bytes. At the tiny
+    widths (K 64 / 128) 512 and 128 both shrink to the K-half; 16 does not,
+    so it shows that the variable is read."""
+    if env is None:
+        monkeypatch.delenv("TTS_INT4_GROUP", raising=False)
+    else:
+        monkeypatch.setenv("TTS_INT4_GROUP", env)
+    got = tq.quantize_llama_params(W.llama_params_from_jax(trees[0]), bits=4)
+    want = jq.quantize_llama_params(to_jax(trees[0]), bits=4)
+    for glp, wlp in zip(got["layers"], want["layers"]):
+        for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            assert tuple(glp[k].scale.shape) == wlp[k].scale.shape
+            np.testing.assert_array_equal(glp[k].scale.numpy(),
+                                          np.asarray(wlp[k].scale))
+            np.testing.assert_array_equal(glp[k].w_p.numpy(),
+                                          np.asarray(wlp[k].w_p))
+    wq = got["layers"][0]["wq"]                 # K 64
+    assert wq.scale.shape == ((4, 64) if env == "16" else (2, 64))
+
+
 def test_quantize_llama_params_frees_its_source(trees):
     tp = W.llama_params_from_jax(trees[0])
     got = tq.quantize_llama_params(tp, bits=4, free_source=True)

@@ -248,13 +248,40 @@ def test_server_ws_tts_tiny_cpu():
     assert metrics["mode"] == "scheduler"
 
 
-def test_cli_generate_tiny_cpu(tmp_path):
+def _reference_generate_keys(tmp_path, monkeypatch, capsys):
+    """The keys of the JAX package's `cli generate` JSON line, from its own
+    command over a stub runtime (one synthesized frame, finalized metrics):
+    what it prints, without building a model."""
+    from types import SimpleNamespace
+
+    from tts_inference_tpu import cli as jcli
+    from tts_inference_tpu.streaming.pipeline import StreamMetrics
+
+    metrics = StreamMetrics(tokens=7, frames=1, generation_time_ms=50.0,
+                            audio_duration_ms=85.3).finalize()
+    pcm = np.zeros(P.SAMPLES_PER_FRAME, np.int16)
+    stub = SimpleNamespace(pipeline=SimpleNamespace(
+        synthesize=lambda *a, **k: (pcm, metrics)))
+    monkeypatch.setattr(jcli, "_build_runtime", lambda args, *a: stub)
+    assert jcli.main(["generate", "--text", "hi",
+                      "--output", str(tmp_path / "ref.wav")]) == 0
+    return set(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+
+
+def test_cli_generate_tiny_cpu(tmp_path, monkeypatch, capsys):
     out = tmp_path / "out.wav"
     assert cli.main(["generate", "--tiny", "--device", "cpu", "--text", "hi",
                      "--force-speech", "--audio-only", "--max-tokens", "35",
                      "--output", str(out), "--no-warmup"]) == 0
     # 44-byte WAV header + 5 frames of PCM16
     assert out.stat().st_size == 44 + 5 * P.SAMPLES_PER_FRAME * 2
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    # the reference's keys, tokens_per_sec among them, plus the device
+    assert set(line) == _reference_generate_keys(
+        tmp_path, monkeypatch, capsys) | {"device"}
+    assert line["device"] == "cpu" and line["tokens"] == 35
+    assert line["tokens_per_sec"] > 0
+    assert line["tokens_per_sec"] == round(line["tokens_per_sec"], 1)
 
 
 @pytest.mark.parametrize("flag", ["--kv-int4", "--prefix-cache",

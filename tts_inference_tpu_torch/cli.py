@@ -164,6 +164,7 @@ def cmd_generate(args) -> int:
         "ttfa_ms": round(metrics.ttfa_ms, 1),
         "ttft_ms": round(metrics.ttft_ms, 1),
         "tokens": metrics.tokens,
+        "tokens_per_sec": round(metrics.tokens_per_sec, 1),
         "rtf": round(metrics.rtf, 3),
         "chunks": metrics.chunks,
     }))

@@ -43,6 +43,7 @@ template <typename T>
 struct DenseKeys {
   using Elem = T;
   static constexpr bool kScaled = false;
+  static constexpr int kPlanes = 1;
   struct Slot {
     const T* kb;
     const T* vb;

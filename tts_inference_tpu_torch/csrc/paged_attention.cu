@@ -18,44 +18,45 @@
 // pool blocks) and carried the running max / denominator in VMEM; here the
 // blocks of a slot run in parallel and in no order, so the window is cut
 // into chunks whose partial results are combined afterwards. Both bodies of
-// attention.cuh are used: K3a over bf16 pools at D 64 or 128 runs the
-// tensor-core body `attention_mma` (as K1 does: it needs nothing of a key
-// but a pointer to its row, which here goes through the block table; one
-// launch); K3a over f32 pools, K3b and K5 run the CUDA-core body
-// `attention_chunk` + `attention_combine`, whose loads convert integers and
-// apply scales.
+// attention.cuh are used: bf16 queries at D 64 or 128 run the tensor-core
+// body `attention_mma` over all three pool kinds (as K1 does: it needs
+// nothing of a key but a pointer to its row, which here goes through the
+// block table, and, for integer rows, the row's scales; one launch); f32
+// queries (the tiny configuration) and other head dims run the CUDA-core
+// body `attention_chunk` + `attention_combine`, whose loads convert
+// integers and apply scales.
 //
 // What bounds it on the H100: at long windows, device-memory bytes — each
-// step reads the slot's K and V rows once (2·W·Hkv·D bytes at int8, twice
-// that at bf16) at ~4·G FLOPs per byte, far below the ~295 FLOP/byte ridge;
-// at short windows (W ≤ 512 at the serve shapes) the latency of those few
-// loads and of the launch.
+// step reads the slot's K and V rows once (2·W·Hkv·D bytes at int8, half
+// that at int4, twice that at bf16) at ~4·G FLOPs per byte, far below the
+// ~295 FLOP/byte ridge; at short windows (W ≤ 512 at the serve shapes) the
+// latency of those few loads and of the launch.
 //
 // What the design does about it:
-//  - one block per (slot, kv head, chunk of kSplit positions) fills the SMs
-//    at the long-audio shape (B 4 × Hkv 8 × 48 chunks at W 12,160) and at
-//    the 64-slot shape (64 × 8 blocks at W 512);
+//  - blocks of 64 or 128 positions, picked by the wrapper so that every SM
+//    gets two to four (one block per slot, kv head or K5 head pair, and
+//    chunk);
 //  - each block reads its own table entries (the engine hands in
 //    table[:, :WB], so the row stride is an argument); per block and head a
 //    pool block `pool[row, h]` is one contiguous bs×D slab, so consecutive
-//    keys are consecutive D-element rows and every load is 16 bytes (bf16:
-//    8 elements; int8: 8 bytes) per thread, coalesced across the tile;
+//    keys are consecutive rows and every request is 16 bytes of a row;
 //  - positions past pos[b] are never read, so chunks and pool blocks wholly
 //    past pos cost nothing but an empty block. Unallocated table entries are
 //    0 (the trash block) and lie past pos: masking is by position only;
-//  - K3b converts int8 to f32 in registers and applies the k scale to the
-//    score column after the q·k dot and the v scale to the probability row
-//    before p·v, as the TPU kernel does — the int8 bytes are what move;
+//  - K3b's int8 rows go to the tensor cores as bf16, converted exactly in
+//    the fragments; the k scale multiplies the score column after the q·k
+//    dot and the v scale the probability row before p·v, as the TPU kernel
+//    does — the int8 bytes are what move;
 //  - K5 is a third key addressing: kv heads 2p and 2p+1 share pair slab p of
 //    the (N, Hkv/2, bs, D) pools, head 2p in the low nibble (offset-encoded,
 //    bits = q + 8), head 2p+1 in the high nibble (two's complement); their
 //    scales lie in plane h % 2 of the (N, 2, Hkv/2, bs) scale pools. The
 //    TPU kernel never extracted the low nibble and corrected its dots
-//    afterwards; here a head's block takes its nibble of each byte in a
-//    register ((byte >> shift & 15 ^ flip) − 8, without a branch). A block
-//    per head reads each packed byte twice (once per head of the pair, the
-//    second time mostly from L2); a block per head pair is later work.
-// TMA, wgmma, split heuristics and fusing the table walk are later work.
+//    afterwards; here one block per head pair reads each packed byte once
+//    and takes both nibbles of it in registers, one chain of products per
+//    head (the CUDA-core body takes a block per head and its nibble of each
+//    byte).
+// TMA, wgmma and fusing the table walk are later work.
 //
 // Layouts (elements): q, out (B, Hkv, G, D) contiguous; k, v pools
 // (N, Hkv, bs, D) contiguous, K5 (N, Hkv/2, bs, D) int8; k, v scale pools
@@ -70,6 +71,7 @@ template <typename E, bool Scaled>
 struct PagedKeys {
   using Elem = E;
   static constexpr bool kScaled = Scaled;
+  static constexpr int kPlanes = 1;
   struct Slot {
     const E* k;
     const E* v;
@@ -85,8 +87,10 @@ struct PagedKeys {
     __device__ const E* value(int j) const { return v + at(j) * d; }
     __device__ void read8(const E* p, float o[8]) const { load8(p, o); }
     __device__ void read4(const E* p, float o[4]) const { load4(p, o); }
-    __device__ float key_scale(int j) const { return ks[at(j)]; }
-    __device__ float value_scale(int j) const { return vs[at(j)]; }
+    __device__ const float* ks_at(int j) const { return ks + at(j); }
+    __device__ const float* vs_at(int j) const { return vs + at(j); }
+    __device__ float key_scale(int j) const { return *ks_at(j); }
+    __device__ float value_scale(int j) const { return *vs_at(j); }
   };
   const E* k;
   const E* v;
@@ -105,6 +109,7 @@ struct PagedKeys {
 struct PagedKeysInt4 {
   using Elem = int8_t;
   static constexpr bool kScaled = true;
+  static constexpr int kPlanes = 2;  // the tensor-core body: one block per pair
   struct Slot {
     const int8_t* k;
     const int8_t* v;
@@ -137,8 +142,10 @@ struct PagedKeysInt4 {
     __device__ void read4(const int8_t* p, float o[4]) const {
       nibbles(*reinterpret_cast<const unsigned int*>(p), o);
     }
-    __device__ float key_scale(int j) const { return ks[scale_at(j)]; }
-    __device__ float value_scale(int j) const { return vs[scale_at(j)]; }
+    __device__ const float* ks_at(int j) const { return ks + scale_at(j); }
+    __device__ const float* vs_at(int j) const { return vs + scale_at(j); }
+    __device__ float key_scale(int j) const { return *ks_at(j); }
+    __device__ float value_scale(int j) const { return *vs_at(j); }
   };
   const int8_t* k;
   const int8_t* v;
@@ -169,10 +176,10 @@ int launch_paged(const void* q, const void* k, const void* v, const void* ks,
 }  // namespace
 
 // All three entries: `chunk` is the wrapper's choice of keys per block
-// (256 = the CUDA-core body; 64 or 128 = the tensor-core body, which K3a
-// takes for bf16 pools at D 64 or 128); scratch: f32 B·Hkv·S·G·(D + 2) with
-// S = ceil(wb·bs / chunk), needed when S > 1; counters: B·Hkv ints, 0 before
-// and after every launch (tensor-core body only).
+// (256 = the CUDA-core body; 64 or 128 = the tensor-core body, which all
+// three take for bf16 queries at D 64 or 128); scratch: f32 B·Hkv·S·G·(D + 2)
+// with S = ceil(wb·bs / chunk), needed when S > 1; counters: B·Hkv ints, 0
+// before and after every launch (tensor-core body only).
 
 // K3a. dtype of q, out and both pools: 0 = bfloat16, 1 = float32.
 // Returns the launches' cudaError_t.
@@ -216,13 +223,27 @@ extern "C" int tts_paged_attention_int8(const void* q, const void* k_pool,
                                         const void* v_pool, const void* k_scale,
                                         const void* v_scale, const void* table,
                                         long long table_stride, const void* pos, void* out,
-                                        void* scratch, void* /*counters*/, int b, int hkv,
-                                        int g, int d, int bs, int wb, int chunk, float scale,
+                                        void* scratch, void* counters, int b, int hkv, int g,
+                                        int d, int bs, int wb, int chunk, float scale,
                                         int q_dtype, void* stream) {
-  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || chunk != kSplit ||
-      k_scale == nullptr || v_scale == nullptr)
+  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || k_scale == nullptr ||
+      v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0 && attention_mma_takes(d, chunk)) {
+    const PagedKeys<int8_t, true> keys{static_cast<const int8_t*>(k_pool),
+                                       static_cast<const int8_t*>(v_pool),
+                                       static_cast<const float*>(k_scale),
+                                       static_cast<const float*>(v_scale),
+                                       static_cast<const int*>(table),
+                                       table_stride,
+                                       hkv,
+                                       bs,
+                                       d};
+    return attention_mma_launch(q, keys, pos, out, scratch, counters, b, hkv, g, d, wb * bs,
+                                chunk, scale, s);
+  }
+  if (chunk != kSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == 0)
     return launch_paged<__nv_bfloat16, int8_t, true>(q, k_pool, v_pool, k_scale, v_scale,
                                                      table, table_stride, pos, out,
@@ -236,16 +257,17 @@ extern "C" int tts_paged_attention_int8(const void* q, const void* k_pool,
 }
 
 // K5: int4 pools (N, Hkv/2, bs, D) int8 with f32 scale pools (N, 2, Hkv/2, bs).
-// q_dtype of q and out: 0 = bfloat16, 1 = float32. Returns the launches'
-// cudaError_t.
+// q_dtype of q and out: 0 = bfloat16, 1 = float32. The tensor-core body runs
+// one block per head pair; the CUDA-core body one per head. Returns the
+// launches' cudaError_t.
 extern "C" int tts_paged_attention_int4(const void* q, const void* k_pool,
                                         const void* v_pool, const void* k_scale,
                                         const void* v_scale, const void* table,
                                         long long table_stride, const void* pos, void* out,
-                                        void* scratch, void* /*counters*/, int b, int hkv,
-                                        int g, int d, int bs, int wb, int chunk, float scale,
+                                        void* scratch, void* counters, int b, int hkv, int g,
+                                        int d, int bs, int wb, int chunk, float scale,
                                         int q_dtype, void* stream) {
-  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || hkv % 2 || chunk != kSplit ||
+  if (!attention_shape_ok(b, hkv, g, d, wb * bs) || bs < 1 || hkv % 2 ||
       k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -254,6 +276,10 @@ extern "C" int tts_paged_attention_int4(const void* q, const void* k_pool,
                            static_cast<const float*>(k_scale),
                            static_cast<const float*>(v_scale),
                            static_cast<const int*>(table), table_stride, hkv, bs, d};
+  if (q_dtype == 0 && attention_mma_takes(d, chunk))
+    return attention_mma_launch(q, keys, pos, out, scratch, counters, b, hkv, g, d, wb * bs,
+                                chunk, scale, s);
+  if (chunk != kSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == 0)
     return attention_launch<__nv_bfloat16>(q, keys, pos, out, scratch, b, hkv, g, d,
                                            wb * bs, scale, s);

@@ -14,6 +14,7 @@ weight is ever written.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -68,6 +69,12 @@ def quantize_embed(w: torch.Tensor) -> QuantEmbed:
     return QuantEmbed(q, scale)
 
 
+def _i4_group() -> int:
+    """The int4 group size: ``TTS_INT4_GROUP`` read at call time, as the JAX
+    package reads it, else 512."""
+    return int(os.environ.get("TTS_INT4_GROUP", str(I4_GROUP)))
+
+
 def quantize_linear_i4(w: torch.Tensor,
                        group: int = I4_GROUP) -> QuantLinearI4:
     """Per-group symmetric int4: scale = group absmax / 7, q in [-7, 7].
@@ -114,7 +121,7 @@ def quantize_llama_params(params: Dict, *, quantize_embed_table: bool = True,
 
     def qlin(w):
         if bits == 4:
-            return quantize_linear_i4(w, group or I4_GROUP)
+            return quantize_linear_i4(w, group or _i4_group())
         return quantize_linear(w)
 
     layers = []

@@ -20,8 +20,8 @@ padded.
 The window is cut into chunks, one thread block each. bf16 with D 64 or 128
 runs the tensor-core body, whose chunk length ``chunk_keys`` picks from the
 shape; everything else runs the CUDA-core body in chunks of ``SIMPLE_CHUNK``
-keys (``plan`` says which, and sizes the scratch for the chunks' partial
-results).
+keys (``plan`` says which, for this kernel and the paged ones, and sizes the
+scratch for the chunks' partial results).
 """
 
 from __future__ import annotations
@@ -43,24 +43,26 @@ H100_SMS = 132
 _workspaces = {}         # device → _Workspace
 
 
-def chunk_keys(b: int, hkv: int, w: int, sms: int = H100_SMS) -> int:
+def chunk_keys(b: int, units: int, w: int, sms: int = H100_SMS) -> int:
     """Keys per block of the tensor-core body: the longest chunk that still
-    gives every SM two blocks (one block per slot, kv head and chunk), else
-    the shortest."""
+    gives every SM two blocks (one block per slot, chunk and unit of kv
+    heads: a kv head, or K5's head pair), else the shortest."""
     for chunk in MMA_CHUNKS:
-        if b * hkv * -(-w // chunk) >= 2 * sms:
+        if b * units * -(-w // chunk) >= 2 * sms:
             return chunk
     return MMA_CHUNKS[-1]
 
 
-def plan(b, hkv, g, d, w, dtype, sms: int = H100_SMS, scaled: bool = False):
+def plan(b, hkv, g, d, w, dtype, sms: int = H100_SMS,
+         heads_per_block: int = 1):
     """(keys per chunk, chunks, f32 elements of scratch) of one call: each
     chunk of each (slot, kv head) leaves G·D sums, G maxima and G
-    denominators when there is more than one chunk to combine. `scaled`:
-    the K/V rows are integers with scales (the paged int8 / int4 pools),
-    which only the CUDA-core body reads."""
-    if dtype == torch.bfloat16 and d in (64, 128) and not scaled:
-        chunk = chunk_keys(b, hkv, w, sms)
+    denominators when there is more than one chunk to combine. A bf16 query
+    at D 64 / 128 takes the tensor-core body, over bf16, int8 or int4 rows
+    alike; `heads_per_block` kv heads share one of its blocks (2 for K5's
+    head pairs, which share their packed rows)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        chunk = chunk_keys(b, hkv // heads_per_block, w, sms)
     else:
         chunk = SIMPLE_CHUNK
     nchunk = -(-w // chunk)

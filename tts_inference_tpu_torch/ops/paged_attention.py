@@ -3,8 +3,9 @@ pools, is ``ops/paged_attention_int4.py`` over the same launcher).
 
 Port of ``tts_inference_tpu/ops/pallas/paged_attention.py``. The kernels are
 hand-written CUDA C++ for Hopper (``csrc/paged_attention.cu``, sharing their
-bodies with K1 through ``csrc/attention.cuh``: bf16 pools at D 64 / 128 run
-the tensor-core body, f32 and int8 pools the CUDA-core body); beside them,
+bodies with K1 through ``csrc/attention.cuh``: bf16 queries at D 64 / 128
+run the tensor-core body over bf16 and int8 pools alike, f32 queries the
+CUDA-core body); beside them,
 ``paged_decode_attention_reference`` and
 ``paged_decode_attention_int8_reference`` are the plain PyTorch versions:
 gather the window's blocks (dequantized in f32 for int8), then dense masked
@@ -137,11 +138,12 @@ def launch_paged(fn, counter, q, k_pool, v_pool, scales, table, pos,
         raise ValueError(f"{fn}: no kernel for {q.device}")
     lib = _build.load()
     out = torch.empty_like(q)
-    # keys per block (bf16 pools at D 64 / 128 run the tensor-core body, as
-    # the dense kernel does) and the chunks' partials for the combine
+    # keys per block (bf16 queries at D 64 / 128 run the tensor-core body,
+    # as the dense kernel does; K5 one block per head pair) and the chunks'
+    # partials for the combine
     ws = workspace(q.device)
     chunk, _, floats = plan(b, hkv, g, d, wb * bs, q.dtype, ws.sms,
-                            scaled=bool(scales))
+                            heads_per_block=heads_per_row)
     counters, scratch = ws.reserve(b * hkv, floats)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, fn)(

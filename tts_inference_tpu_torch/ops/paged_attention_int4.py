@@ -2,7 +2,9 @@
 
 Port of ``tts_inference_tpu/ops/pallas/paged_attention_int4.py``. The kernel
 is hand-written CUDA C++ for Hopper (``csrc/paged_attention.cu``: a third
-key addressing of the body in ``csrc/attention.cuh``); beside it,
+key addressing of the bodies in ``csrc/attention.cuh``; a bf16 query at D
+64 / 128 runs the tensor-core body with one block per head pair, which
+reads each packed byte once); beside it,
 ``paged_decode_attention_int4_reference`` is the plain PyTorch version:
 gather the window's blocks, unpack the nibbles, dequantize in f32 with the
 nibble-plane scales, then dense masked attention. The wrapper takes the

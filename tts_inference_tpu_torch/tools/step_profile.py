@@ -34,8 +34,8 @@ import torch
 
 FAMILIES = (      # kernel-name fragment → family, first match wins
     ("qmm_rows", "K2 w8_mm rows (head)"),
-    ("attention_mma", "attention (K1/K3a)"),
-    ("attention_chunk", "attention (f32, K3b, K5)"),
+    ("attention_mma", "attention (K1/K3a/K3b/K5)"),
+    ("attention_chunk", "attention (f32 queries)"),
     ("attention_combine", "attention combine"),
     ("gemm", "library matmul"), ("gemv", "library matmul"),
     ("cutlass", "library matmul"), ("nvjet", "library matmul"),
