@@ -31,7 +31,14 @@ no result line is printed:
    random weights behind the port's aiohttp server (``cli serve``
    defaults: 8 slots, max_seq 4608, dense bf16 KV); 8 concurrent
    ``/ws/tts`` requests and one ``/generate``; launch counts prove K1 and
-   K6 carried the path;
+   K6 carried the path. Every serve phase prints the CUDA-graph census of
+   its two engine cores (graphs captured at warmup, capture seconds), and
+   fails unless every decode and admission launch of the run was a graph
+   replay with no capture while serving; after it, a graph phase runs the
+   same eight requests (greedy and seeded) through a scheduler over an
+   eager core (``EngineCore(..., graphs=False)``) and over a replayed one
+   on the phase's weights: tokens equal, or a greedy flip at an eager top-2
+   logit gap <= 1e-3;
 5. streaming exactness: windowed lookahead decode vs one batch decode;
 6. reference: the slice at ``tiny_config()`` on the card against the same
    weights on the CPU (plain versions), and finite full-geometry logits;
@@ -43,7 +50,8 @@ no result line is printed:
    8 streams and one ``/generate``; K3a carries every decode step;
 9. paged reference: the tiny slice paged (K3a), dense int8 and paged int8
    (K3b) on the card against the CPU, and a preempt → resume on the card
-   against the same requests served without preemption;
+   against the same requests served without preemption, every launch of
+   both a graph replay (the scheduler's warmup captures them);
 10. int4 serve phase: ``serve --quantize --weight-bits 4 --paged-kv
     --kv-int4``; K4 carries every layer linear of every forward pass, K5
     every decode step, K2 the head; K1, K3a, K3b none;
@@ -1077,21 +1085,33 @@ LINEARS_AND_HEAD = lambda layers, steps, passes: (               # noqa: E731
 
 
 def serve_phase(name: str, argv, expect: dict, generate: bool = True,
-                min_preemptions: int = 0) -> dict:
+                min_preemptions: int = 0, eager: bool = False) -> dict:
     """Build `cli serve` (runtime + scheduler) from `argv`, put the port's
     aiohttp app on a localhost port and drive it: 8 concurrent /ws/tts
     streams, then (with `generate`) one /generate, then /metrics. `expect`
     maps each kernel of the phase's path to its launch count as a function
     of (layers, decode steps, forward passes); every kernel it does not name
-    must not run, except K6, which must."""
+    must not run, except K6, which must. With `eager` both engine cores are
+    replaced by eager ones (``EngineCore(..., graphs=False)``, warmed by one
+    eager pass): the path as it ran before CUDA graphs, for comparison."""
     from aiohttp import web
 
     from tts_inference_tpu_torch import cli
+    from tts_inference_tpu_torch.engine.engine import EngineCore
     from tts_inference_tpu_torch.serving.app import create_app
 
-    args = cli.build_parser().parse_args(argv)
+    args = cli.build_parser().parse_args(
+        list(argv) + (["--no-warmup"] if eager else []))
     t0 = time.perf_counter()
     rt, scheduler = cli.build_serving(args)
+    if eager:
+        for holder in (scheduler, rt.engine):
+            c = holder.core
+            holder.core = EngineCore(c.params, c.model_cfg, c.engine_cfg,
+                                     batch_size=c.batch, eos_id=c.eos_id,
+                                     device=c.device, graphs=False)
+        rt.engine.warmup()
+        scheduler.warmup()
     core = scheduler.core
     kv = (" int4" if getattr(core.cache, "int4", False)
           else " int8" if core.cache.quantized else "")
@@ -1105,6 +1125,18 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     port = _free_port()
     cores = (core, rt.engine.core)
     counters = _launch_counters()
+    graphs = {tag: {"graphs_captured": len(c.graph_census_ms),
+                    "capture_s": sum(c.graph_census_ms.values()) / 1e3,
+                    "prepare_s": c.prepare_ms / 1e3,
+                    "late_captures": c.late_captures}
+              for tag, c in (("scheduler", core),
+                             ("single_stream", rt.engine.core))}
+    print(f"serve[{name}] graph census:", json.dumps(graphs), flush=True)
+    print(f"serve[{name}] census ms (scheduler):",
+          json.dumps({k: round(v, 1) for k, v in core.graph_census_ms.items()}),
+          flush=True)
+    late0 = [c.late_captures for c in cores]
+    uses0 = [(c.launches.copy(), c.replays.copy()) for c in cores]
 
     async def run() -> dict:
         runner = web.AppRunner(create_app(rt, scheduler))
@@ -1131,12 +1163,27 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         launches = {k: c.count for k, c in counters.items()}
     finally:
         scheduler.stop()
+    # every decode and admission launch of the run was a graph replay, and
+    # no graph was captured while serving
+    uses = [{"launches": dict(c.launches - u[0]),
+             "replays": dict(c.replays - u[1])}
+            for c, u in zip(cores, uses0)]
+    late = [c.late_captures - n for c, n in zip(cores, late0)]
+    print(f"serve[{name}] launches and replays (scheduler, single stream):",
+          json.dumps(uses), "late captures", late, flush=True)
+    if rt.device.type == "cuda" and not eager and (
+            any(late) or any(u["launches"] != u["replays"] for u in uses)
+            or not uses[0]["replays"].get("decode")
+            or not uses[0]["replays"].get("admission")):
+        raise AssertionError(f"serve[{name}]: launches vs replays {uses}, "
+                             f"late captures {late}")
 
     layers = rt.config.model.num_hidden_layers
-    for i, s in enumerate(res["streams"]):
-        if s["bytes"] != PCM_BYTES:
-            raise AssertionError(f"stream {i}: {s['bytes']} PCM bytes, "
-                                 f"expected {PCM_BYTES}")
+    short = [(i, s["bytes"], s["done"]) for i, s in enumerate(res["streams"])
+             if s["bytes"] != PCM_BYTES]
+    if short:
+        raise AssertionError(f"streams (index, PCM bytes, done) {short}: "
+                             f"expected {PCM_BYTES} bytes each")
     if generate and res["generate_samples"] != PCM_BYTES // 2:
         raise AssertionError(f"/generate: {res['generate_samples']} samples")
     on_cuda = rt.device.type == "cuda"
@@ -1168,6 +1215,7 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         "scheduler_metrics": sched_metrics,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if on_cuda else None),
+        "graphs": graphs, "graph_uses": uses,
     }
     print(f"serve[{name}] TTFA ms p50 {out['ttfa_ms_p50']:.1f} p95 "
           f"{out['ttfa_ms_p95']:.1f}", flush=True)
@@ -1274,37 +1322,40 @@ def _tiny_sampling():
                      protocol.TOKEN_AUDIO_BASE + protocol.AUDIO_VOCAB))
 
 
-def _cpu_top2_gap(rt, prompt, toks, i, sampling) -> float:
-    """The CPU's logit gap between the best and the second-best allowed
-    token at greedy step i: prompt + toks[:i] prefilled into a cache of the
+def _top2_gap(rt, prompt, toks, i, sampling) -> float:
+    """The logit gap between the best and the second-best allowed token at
+    greedy step i, on the runtime's device (the CPU's in the reference
+    phases): prompt + toks[:i] prefilled into a one-slot cache of the
     runtime's kind, then the repetition penalty and the token range applied
     as the sampler applies them."""
     from tts_inference_tpu_torch.models import llama
     from tts_inference_tpu_torch.ops import sampling as S
 
     core, cfg = rt.engine.core, rt.config.model
-    ecfg = rt.config.engine
+    ecfg, dev = rt.config.engine, core.device
     if ecfg.paged_kv:
         bs = ecfg.kv_block_size
         nblk = core.max_seq // bs
         cache = llama.init_paged_kv_cache(
             cfg, 1, core.max_seq, num_blocks=1 + nblk, block_size=bs,
-            int8=ecfg.kv_cache_int8, int4=ecfg.kv_cache_int4)
+            int8=ecfg.kv_cache_int8, int4=ecfg.kv_cache_int4, device=dev)
         cache.block_table[0] = torch.arange(1, 1 + nblk, dtype=torch.int32)
     else:
-        cache = llama.init_kv_cache(cfg, 1, core.max_seq,
+        cache = llama.init_kv_cache(cfg, 1, core.max_seq, device=dev,
                                     int8=ecfg.kv_cache_int8)
-    ids = torch.tensor([list(prompt) + list(toks[:i])], dtype=torch.int32)
-    n = torch.tensor([ids.shape[1]], dtype=torch.int32)
+    ids = torch.tensor([list(prompt) + list(toks[:i])], dtype=torch.int32,
+                       device=dev)
+    n = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
     logits, _ = llama.prefill(core.params, cfg, ids, n, cache,
                               logits_base=core.logits_base)
-    presence = S.mark_prompt(S.init_sampling_state(1, cfg.vocab_size), ids,
+    presence = S.mark_prompt(S.init_sampling_state(1, cfg.vocab_size,
+                                                   device=dev), ids,
                              n).presence
     pen = S.apply_repetition_penalty(
         logits, presence[:, core.logits_base:],
-        torch.tensor([sampling.repetition_penalty]))
+        torch.tensor([sampling.repetition_penalty], device=dev))
     lo, hi = sampling.token_range
-    col = core.logits_base + torch.arange(pen.shape[-1])
+    col = core.logits_base + torch.arange(pen.shape[-1], device=dev)
     pen = pen.masked_fill(~((col >= lo) & (col < hi)), float("-inf"))
     top = pen[0].topk(2).values
     return float(top[0] - top[1])
@@ -1330,7 +1381,7 @@ def _tiny_check(name: str, device, flip_gap=None, quantize=False,
     res = {"tokens": len(toks[0])}
     if toks[0] != toks[1]:
         i = next(k for k, (a, b) in enumerate(zip(*toks)) if a != b)
-        gap = None if flip_gap is None else _cpu_top2_gap(cpu, prompt,
+        gap = None if flip_gap is None else _top2_gap(cpu, prompt,
                                                           toks[0], i, sampling)
         print(f"reference[{name}]: first token difference at step {i}: card "
               f"{toks[1][i]} CPU {toks[0][i]}; CPU top-2 logit gap {gap}",
@@ -1353,6 +1404,136 @@ def _tiny_check(name: str, device, flip_gap=None, quantize=False,
                samples=int(diff.size))
     if res["max_pcm16_diff"] > PCM16_TOL:
         raise AssertionError(f"tiny {name} PCM off by {diff.max()} LSB")
+    return res
+
+
+def _recording_scheduler(rt, config, finished: dict):
+    """A scheduler of `config` over the runtime's weights that keeps each
+    finished request's raw token stream in `finished` (text → tokens)."""
+    from tts_inference_tpu_torch.engine import scheduler as TS
+
+    class Recording(TS.Scheduler):
+        def _release(self, slot):
+            st = self.slots[slot]
+            if st is not None:
+                finished[st.req.text] = list(st.token_ids)
+            super()._release(slot)
+
+    return Recording(rt.engine.core.params, config, rt.vocoder, rt.tokenizer,
+                     device=rt.device)
+
+
+GRAPH_FLIP_GAP = 1e-3   # eager top-2 logit gap below which a greedy flip passes
+
+
+def _graph_run(rt, graphs: bool) -> dict:
+    """Eight requests through a scheduler over the runtime's weights,
+    stepped by hand so that both runs admit and preempt alike: six at once
+    (three greedy, three seeded), two more after eight steps, beside live
+    streams. graphs=False puts an eager core (``EngineCore(...,
+    graphs=False)``) under the scheduler. Returns each request's raw token
+    stream and the core's launch counts."""
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.engine import scheduler as TS
+    from tts_inference_tpu_torch.engine.engine import EngineCore
+
+    finished = {}
+    sched = _recording_scheduler(rt, rt.config, finished)
+    if not graphs:
+        sched.core = EngineCore(rt.engine.core.params, rt.config.model,
+                                rt.config.engine, device=rt.device,
+                                graphs=False)
+    audio = (protocol.TOKEN_AUDIO_BASE,
+             protocol.TOKEN_AUDIO_BASE + protocol.AUDIO_VOCAB)
+    reqs = [TS.TTSRequest(
+        text=f"Graph probe {i}: the quick brown fox jumps over the dog.",
+        force_speech=True,
+        sampling=(SamplingConfig(greedy=True, max_tokens=MAX_TOKENS,
+                                 token_range=audio) if i % 2 == 0 else
+                  SamplingConfig(max_tokens=MAX_TOKENS, seed=500 + i,
+                                 token_range=audio)))
+        for i in range(N_STREAMS)]
+    t0 = time.perf_counter()
+    for r in reqs[:6]:
+        sched.submit(r)
+    for k in range(20000):
+        if k == 8:
+            for r in reqs[6:]:
+                sched.submit(r)
+        if not sched.step() and k > 8 and sched.n_queued == 0 \
+                and not sched.n_active:
+            break
+    else:
+        raise AssertionError("graph run did not drain")
+    wall = time.perf_counter() - t0
+    sched.drain_vocoder()
+    sched.stop()
+    for r in reqs:
+        while True:
+            kind, payload = r.events.get(timeout=60)
+            if kind == "done":
+                break
+            if kind == "error":
+                raise AssertionError(f"{r.text}: {payload}")
+    core = sched.core
+    return {"tokens": finished, "reqs": reqs, "wall_s": wall,
+            "preemptions": sched.preemptions,
+            "launches": dict(core.launches), "replays": dict(core.replays),
+            "late_captures": core.late_captures}
+
+
+def graph_phase(name: str, rt) -> dict:
+    """The replayed path against the eager one at full geometry, on the same
+    card and weights: the same eight requests (greedy and seeded) through a
+    scheduler over an eager core and over a replayed core. Every request's
+    tokens must be equal; a greedy request may differ only where the eager
+    model's top-2 logit gap is at most GRAPH_FLIP_GAP (the phase prints the
+    step and the gap)."""
+    with torch.no_grad():
+        eager = _graph_run(rt, graphs=False)
+        replayed = _graph_run(rt, graphs=True)
+    on_cuda = rt.device.type == "cuda"
+    if replayed["preemptions"] != eager["preemptions"]:
+        raise AssertionError(f"graph[{name}]: preemptions eager "
+                             f"{eager['preemptions']} vs replayed "
+                             f"{replayed['preemptions']}")
+    if on_cuda and (replayed["launches"] != replayed["replays"]
+                    or eager["replays"]):
+        raise AssertionError(f"graph[{name}]: replayed core launches "
+                             f"{replayed['launches']} replays "
+                             f"{replayed['replays']}; eager replays "
+                             f"{eager['replays']}")
+    flips = []
+    for r in eager["reqs"]:
+        a, b = eager["tokens"][r.text], replayed["tokens"][r.text]
+        if len(a) != MAX_TOKENS:
+            raise AssertionError(f"graph[{name}] {r.text}: {len(a)} tokens")
+        if a == b:
+            continue
+        i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = None
+        if r.sampling.greedy:
+            prompt = rt.pipeline.build_prompt(r.text, force_speech=True)
+            gap = _top2_gap(rt, prompt, a, i, r.sampling)
+        print(f"graph[{name}]: {r.text!r} first token difference at step "
+              f"{i}: eager {a[i] if i < len(a) else None} replayed "
+              f"{b[i] if i < len(b) else None}; eager top-2 logit gap {gap}",
+              flush=True)
+        if gap is None or gap > GRAPH_FLIP_GAP:
+            raise AssertionError(f"graph[{name}] {r.text}: replayed tokens "
+                                 f"differ from eager at step {i}")
+        flips.append({"request": r.text, "step": i, "gap": gap})
+    res = {"requests": len(eager["reqs"]),
+           "tokens_equal": not flips, "flips": flips,
+           "preemptions": eager["preemptions"],
+           "decode_launches": replayed["launches"].get("decode", 0),
+           "admission_launches": replayed["launches"].get("admission", 0),
+           "late_captures": replayed["late_captures"],
+           "eager_wall_s": eager["wall_s"],
+           "replayed_wall_s": replayed["wall_s"]}
+    print(f"graph[{name}]: replayed vs eager", json.dumps(res), flush=True)
     return res
 
 
@@ -1400,21 +1581,12 @@ def _preempt_run(rt, pool_tokens: int) -> dict:
     from tts_inference_tpu_torch.config import SamplingConfig, StreamConfig
     from tts_inference_tpu_torch.engine import scheduler as TS
 
-    class Recording(TS.Scheduler):
-        """Keeps each finished request's raw token stream."""
-
-        def _release(self, slot):
-            st = self.slots[slot]
-            if st is not None:
-                finished[st.req.text] = list(st.token_ids)
-            super()._release(slot)
-
     finished = {}
     cfg = dataclasses.replace(rt.config, engine=dataclasses.replace(
         rt.config.engine, paged_kv=True, kv_on_demand=True, kv_block_size=32,
         kv_pool_tokens=pool_tokens, resume_buckets=(128, 256)))
-    sched = Recording(rt.engine.core.params, cfg, rt.vocoder, rt.tokenizer,
-                      device=rt.device)
+    sched = _recording_scheduler(rt, cfg, finished)
+    sched.warmup()    # on the card: every launch below is a graph replay
     scfg = StreamConfig(frames_per_chunk=2, lookahead_frames=3,
                         left_context_frames=4)
     reqs = [TS.TTSRequest(text=text, stream_cfg=scfg, force_speech=True,
@@ -1447,8 +1619,15 @@ def _preempt_run(rt, pool_tokens: int) -> dict:
                 raise AssertionError(f"{r.text}: {payload}")
         pcm[r.text] = b"".join(chunks)
     sched.stop()
+    core = sched.core
+    if core.use_graphs and (core.late_captures
+                            or core.launches != core.replays):
+        raise AssertionError(f"preempt run: launches {core.launches}, "
+                             f"replays {core.replays}, late captures "
+                             f"{core.late_captures}")
     return {"tokens": finished, "pcm": pcm,
-            "preemptions": sched.preemptions}
+            "preemptions": sched.preemptions,
+            "replays": dict(core.replays)}
 
 
 def paged_reference_phase(device="cuda") -> dict:
@@ -1492,7 +1671,8 @@ def paged_reference_phase(device="cuda") -> dict:
     if max(diffs.values()) > PCM16_TOL:
         raise AssertionError(f"preempt/resume PCM off by {diffs} LSB")
     res["preempt_resume"] = {"preemptions": small["preemptions"],
-                             "tokens_equal": True, "max_pcm16_diff": diffs}
+                             "tokens_equal": True, "max_pcm16_diff": diffs,
+                             "replays": small["replays"]}
     print("reference[paged]: card vs CPU on tiny_config, preempt/resume on "
           "the card", json.dumps(res), flush=True)
     return res
@@ -1524,6 +1704,49 @@ def _free(phase: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# name → (cli argv, expected launches, serve_phase keywords)
+SERVE_PHASES = {
+    "dense": (["serve"], {"K1": PER_STEP}, {}),
+    "paged_int8": (["serve", "--paged-kv", "--kv-int8", "--kv-on-demand",
+                    "--kv-block-size", "128", "--kv-pool-tokens", "2048"],
+                   {"K3b": PER_STEP},
+                   {"generate": False, "min_preemptions": 1}),
+    "paged_bf16": (["serve", "--paged-kv"], {"K3a": PER_STEP}, {}),
+    "int4": (["serve", "--quantize", "--weight-bits", "4", "--paged-kv",
+              "--kv-int4"], {"K4": LINEARS, "K5": PER_STEP, "K2": HEAD},
+             {"generate": False}),
+    "int8w": (["serve", "--quantize"],
+              {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, {"generate": False}),
+}
+
+
+def run_serve_phase(name: str, eager: bool = False) -> dict:
+    argv, expect, kw = SERVE_PHASES[name]
+    return serve_phase(name if not eager else f"{name}_eager", argv, expect,
+                       eager=eager, **kw)
+
+
+def compare_phase() -> dict:
+    """Each serve phase eagerly and then replayed, in this process: TTFA
+    p50 / p95, per-stream and aggregate RTF, peak memory of both."""
+    keys = ("ttfa_ms_p50", "ttfa_ms_p95", "aggregate_rtf", "wave_wall_s",
+            "max_memory_allocated")
+    out = {}
+    for name in SERVE_PHASES:
+        row = {}
+        for tag, eager in (("eager", True), ("replayed", False)):
+            ph = run_serve_phase(name, eager=eager)
+            rtf = sorted(ph["per_stream_rtf"])
+            row[tag] = {**{k: ph[k] for k in keys},
+                        "per_stream_rtf_min": rtf[0],
+                        "per_stream_rtf_median": rtf[len(rtf) // 2],
+                        "per_stream_rtf_max": rtf[-1]}
+            _free(ph)
+        out[name] = row
+        print(f"compare[{name}]:", json.dumps(row), flush=True)
+    return out
+
+
 KERNELS = (
     # key, name, source under tts_inference_tpu_torch/csrc, the TPU kernel
     ("K1", "decode_attention", "decode_attention.cu",
@@ -1548,9 +1771,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
-                         "kernels, qmm, dense, paged, quant) and print no "
-                         "result "
-                         "line; the full run takes no arguments")
+                         "kernels, qmm, dense, paged, quant, compare = the "
+                         "serve phases eager and replayed) and print no "
+                         "result line; the full run takes no arguments")
     only = ap.parse_args(argv).only
     only = set(only.split(",")) if only else None
     if not torch.cuda.is_available():
@@ -1570,34 +1793,33 @@ def main(argv=None) -> int:
     kern = kernel_phase() if on("kernels") else None
     if only is not None and "qmm" in only:
         qmm_phase()
-    phases = {}
+    if only is not None and "compare" in only:
+        compare_phase()
+    phases, graphs = {}, {}
     if on("dense"):
-        dense = phases["dense"] = serve_phase("dense", ["serve"],
-                                              {"K1": PER_STEP})
+        dense = phases["dense"] = run_serve_phase("dense")
+        graphs["dense"] = graph_phase("dense", dense["rt"])
         exactness_phase(dense["rt"])
         reference_phase(dense["rt"])
         _free(dense)
     if on("paged"):
-        phases["paged_int8"] = serve_phase(
-            "paged_int8", ["serve", "--paged-kv", "--kv-int8",
-                           "--kv-on-demand", "--kv-block-size", "128",
-                           "--kv-pool-tokens", "2048"],
-            {"K3b": PER_STEP}, generate=False, min_preemptions=1)
+        phases["paged_int8"] = run_serve_phase("paged_int8")
+        graphs["paged_int8"] = graph_phase("paged_int8",
+                                           phases["paged_int8"]["rt"])
+        if graphs["paged_int8"]["preemptions"] < 1:
+            raise AssertionError("graph[paged_int8]: no preemption")
         _free(phases["paged_int8"])
-        phases["paged_bf16"] = serve_phase("paged_bf16",
-                                           ["serve", "--paged-kv"],
-                                           {"K3a": PER_STEP})
+        phases["paged_bf16"] = run_serve_phase("paged_bf16")
+        graphs["paged_bf16"] = graph_phase("paged_bf16",
+                                           phases["paged_bf16"]["rt"])
         _free(phases["paged_bf16"])
         paged_reference_phase()
     if on("quant"):
-        phases["int4"] = serve_phase(
-            "int4", ["serve", "--quantize", "--weight-bits", "4",
-                     "--paged-kv", "--kv-int4"],
-            {"K4": LINEARS, "K5": PER_STEP, "K2": HEAD}, generate=False)
+        phases["int4"] = run_serve_phase("int4")
+        graphs["int4"] = graph_phase("int4", phases["int4"]["rt"])
         _free(phases["int4"])
-        phases["int8w"] = serve_phase(
-            "int8w", ["serve", "--quantize"],
-            {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, generate=False)
+        phases["int8w"] = run_serve_phase("int8w")
+        graphs["int8w"] = graph_phase("int8w", phases["int8w"]["rt"])
         _free(phases["int8w"])
         quant_reference_phase()
     if only is not None:

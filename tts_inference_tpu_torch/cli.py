@@ -182,7 +182,12 @@ def build_serving(args):
         scheduler = Scheduler(rt.engine.core.params, rt.config, rt.vocoder,
                               rt.tokenizer, seed=args.seed, device=rt.device)
         if not args.no_warmup:
-            print(json.dumps({"warmup": scheduler.warmup()}), flush=True)
+            info = scheduler.warmup()
+            # the scheduler's graph census, then the single-stream engine's
+            single = {k: rt.load_timings[k] for k in (
+                "graphs_compiled", "graph_census_ms") if k in rt.load_timings}
+            print(json.dumps({"warmup": info, "single_stream": single}),
+                  flush=True)
     return rt, scheduler
 
 

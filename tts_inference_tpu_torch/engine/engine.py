@@ -11,6 +11,14 @@ Port of the dense path of ``tts_inference_tpu/engine/engine.py``:
 - sampling and EOS handling on the device; finished slots freeze;
 - the KV cache and the sampling state live on the core and are updated in
   place where JAX donated buffers;
+- where JAX compiled each launch once per shape with ``jax.jit``, a CUDA
+  device replays CUDA graphs: the admission graph of a prompt bucket (slot
+  reset + prefill + first sample) and the decode graph of (steps, KV
+  window), captured by ``warmup_graphs`` or, like a first ``jax.jit``
+  call, on first use; the fused admission launch replays the two back to
+  back. Inputs are copied into the graphs' fixed tensors, outputs are
+  cloned out of them. The CPU, and a core built with ``graphs=False``, run
+  the same launch bodies eagerly;
 - launches are asynchronous: ``*_launch`` returns device tensors and
   ``copy_async`` queues their device→host copies (pinned memory + a CUDA
   event), so the host fetches one launch while the next runs (depth-2
@@ -28,14 +36,21 @@ one stream-ordered host→device copy into the same table tensor, so a
 launch already enqueued reads the table it was launched with, and a later
 prefill into reused blocks runs after every launch that still wrote them.
 
-Not ported yet (ROADMAP.md): prefix cache, meshes, and CUDA-graph capture of
-the decode burst.
+The block table is read as a view inside the graphs, so one decode graph
+per window serves every table state; block growth stays on the host before
+the replay.
+
+Not ported yet (ROADMAP.md): prefix cache, meshes; the resume re-prefill
+(``prefill_slots``) runs eagerly.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
+import threading
+import time
 from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -46,11 +61,39 @@ from tts_inference_tpu_torch.config import (EngineConfig, ModelConfig,
                                             SamplingConfig)
 from tts_inference_tpu_torch.utils.timing import PhaseTimer
 from tts_inference_tpu_torch.models import llama
+from tts_inference_tpu_torch.ops import _build
 from tts_inference_tpu_torch.ops import sampling as S
 from tts_inference_tpu_torch.utils import copy_async, to_numpy
 
 __all__ = ["copy_async", "GenerationResult", "EngineCore",
            "GenerationEngine"]
+
+log = logging.getLogger("tts_inference_tpu_torch.engine")
+
+# one capture at a time in the process (a rule of torch.cuda.graph): the
+# runtime's two cores could otherwise capture late from two threads
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _Graph:
+    """A captured launch: the CUDA graph, its output tensors (every replay
+    overwrites them) and the kernel launches one replay stands for."""
+
+    def __init__(self, graph, outputs, launches: dict):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+
+    def replay(self):
+        self.graph.replay()
+        for counter, n in self.launches.items():
+            counter.add(n)
+        return self.outputs
+
+
+def _census_name(key) -> str:
+    return (f"capture_decode_n{key[1]}_w{key[2]}" if key[0] == "decode"
+            else f"capture_prefill_{key[1]}")
 
 
 @dataclasses.dataclass
@@ -74,7 +117,7 @@ class EngineCore:
     def __init__(self, params, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, *, batch_size: Optional[int] = None,
                  eos_id: int = protocol.TOKEN_EOS, seed: int = 0,
-                 device=None):
+                 device=None, graphs: bool = True):
         missing = _unported(engine_cfg)
         if missing:
             raise NotImplementedError(f"not ported yet: {missing}")
@@ -122,6 +165,21 @@ class EngineCore:
         self._len_bounds = np.zeros(self.batch, np.int64)
         self.decode_steps = 0   # decode steps launched (all slots at once)
         self.prefills = 0       # prefill passes launched
+        # CUDA graphs on a CUDA device (graphs=False: the eager launches,
+        # for comparisons on the card); key ("decode", steps, window) or
+        # ("admit", bucket) → _Graph
+        self.use_graphs = graphs and self.device.type == "cuda"
+        self._graphs: dict = {}
+        self._pool = None            # one memory pool for the core's graphs
+        self._static: Optional[dict] = None   # the launches' input tensors
+        self._prepared: set = set()  # threads that ran the eager pass
+        self._warming = False
+        self.graph_census_ms: dict = {}   # census name → capture ms
+        self.prepare_ms = 0.0
+        self.late_captures = 0       # captured outside warmup_graphs
+        # uses of each graph kind, and how many of them were replays
+        self.launches = collections.Counter()
+        self.replays = collections.Counter()
 
     # -- device code --------------------------------------------------------
 
@@ -146,14 +204,14 @@ class EngineCore:
             frame_pos=torch.where(m, new.frame_pos, old.frame_pos),
         )
 
-    def _reset_seed_impl(self, mask, seeds, reseed) -> None:
+    def _reset_state(self, ss: S.SamplingState, mask, seeds,
+                     reseed) -> S.SamplingState:
         """Slot reset + noise reseed: admitted slots (mask) get lengths,
         presence and speech state cleared; those with reseed restart their
         noise counter at the request's seed."""
         self.cache.lengths.masked_fill_(mask, 0)
-        ss = self.sampling_state
         rs = mask & reseed
-        self.sampling_state = ss._replace(
+        return ss._replace(
             presence=ss.presence.masked_fill(mask[:, None], False),
             seed=torch.where(rs, S.slot_seed(seeds), ss.seed),
             step=torch.where(rs, torch.zeros_like(ss.step), ss.step),
@@ -161,53 +219,195 @@ class EngineCore:
             frame_pos=ss.frame_pos.masked_fill(mask, 0),
         )
 
-    def _prefill_impl(self, kv_window, tokens, lens, sparams, slot_mask):
+    def _prefill_state(self, ss: S.SamplingState, kv_window, tokens, lens,
+                       sparams, slot_mask):
         """Prefill `tokens` (B, S bucket) for slots in slot_mask and sample
-        their first token; other slots are untouched."""
+        their first token; other slots are untouched. Returns (tokens, the
+        sampling state after)."""
         seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
-        self.prefills += 1
         logits, _ = llama.prefill(self.params, self.model_cfg, tokens, seg,
                                   self.cache, kv_window=kv_window,
                                   logits_base=self.logits_base)
-        old = self.sampling_state
-        marked = S.mark_prompt(old, tokens, seg)
+        marked = S.mark_prompt(ss, tokens, seg)
         tok, new = S.sample(logits, sparams, marked, base=self.logits_base)
-        self.sampling_state = self._restore_rows(old, new, slot_mask)
-        return tok
+        return tok, self._restore_rows(ss, new, slot_mask)
+
+    def _admit_impl(self, tokens, lens, sparams, mask, last_tok, active,
+                    seeds, reseed):
+        """The admission launch: slot reset + prefill within the bucket +
+        the first sample; returns (tok0, active0), the decode inputs where
+        admitted slots take their first token and the others keep theirs."""
+        ss = self._reset_state(self.sampling_state, mask, seeds, reseed)
+        ptok, ss = self._prefill_state(ss, tokens.shape[1], tokens, lens,
+                                       sparams, mask)
+        S.copy_state(self.sampling_state, ss)
+        return (torch.where(mask, ptok, last_tok),
+                torch.where(mask, ptok != self.eos_id, active))
 
     def _decode_impl(self, n_steps, kv_window, sparams, last_tok, active):
         """n_steps decode steps; returns (toks (B, n), last tok, active)."""
         max_seq = self.cache.max_seq
+        ss = self.sampling_state
         tok, act = last_tok, active
         out = []
         for _ in range(n_steps):
             logits, _ = llama.decode_one(
                 self.params, self.model_cfg, tok, self.cache, act,
                 kv_window=kv_window, logits_base=self.logits_base)
-            new_tok, self.sampling_state = S.sample(
-                logits, sparams, self.sampling_state, base=self.logits_base)
+            new_tok, ss = S.sample(logits, sparams, ss,
+                                   base=self.logits_base)
             new_tok = torch.where(act, new_tok,
                                   torch.full_like(new_tok, self.eos_id))
             act = act & (new_tok != self.eos_id) & (
                 self.cache.lengths < max_seq - 1)
             tok = new_tok
             out.append(new_tok)
-        self.decode_steps += n_steps
+        S.copy_state(self.sampling_state, ss)
         return torch.stack(out, dim=1), tok, act
 
-    def _prefill_decode_impl(self, n_steps, kv_window, tokens, lens, sparams,
-                             slot_mask, last_tok, active, seeds, reseed):
-        """Fused slot reset + prefill + n decode steps in one launch; column
-        0 of the returned tokens is the prefill-sampled token (non-admitted
-        slots repeat their last token there)."""
-        self._reset_seed_impl(slot_mask, seeds, reseed)
-        ptok = self._prefill_impl(tokens.shape[1], tokens, lens, sparams,
-                                  slot_mask)
-        tok0 = torch.where(slot_mask, ptok, last_tok)
-        active0 = torch.where(slot_mask, ptok != self.eos_id, active)
-        toks, tok, act = self._decode_impl(n_steps, kv_window, sparams, tok0,
-                                           active0)
-        return torch.cat([tok0[:, None], toks], dim=1), tok, act
+    # -- launches: CUDA-graph replay or eager ----------------------------------
+
+    def _static_inputs(self) -> dict:
+        """The launches' input tensors, written before every launch (the
+        graphs read them where they were captured)."""
+        if self._static is None:
+            b, dev = self.batch, self.device
+
+            def zeros(dtype):
+                return torch.zeros(b, dtype=dtype, device=dev)
+
+            self._static = {
+                "sp": S.SamplingParams.from_config(SamplingConfig(), b,
+                                                   device=dev),
+                "last_tok": zeros(torch.int32), "active": zeros(torch.bool),
+                "lens": zeros(torch.int32), "mask": zeros(torch.bool),
+                "seeds": zeros(torch.int64), "reseed": zeros(torch.bool),
+                "tokens": {},        # prompt bucket → (B, bucket) int32
+            }
+        return self._static
+
+    def _put(self, **inputs) -> None:
+        """Copy a launch's inputs (host arrays or device tensors) into the
+        input tensors, in stream order. A host array is pageable memory,
+        which the CUDA driver stages before the copy call returns."""
+        st = self._static_inputs()
+        for name, x in inputs.items():
+            if name == "sp":
+                for dst, src in zip(st["sp"], x):
+                    dst.copy_(src, non_blocking=True)
+                continue
+            if name == "tokens":
+                dst = st["tokens"].get(x.shape[1])
+                if dst is None:
+                    dst = st["tokens"][x.shape[1]] = torch.zeros(
+                        x.shape, dtype=torch.int32, device=self.device)
+            else:
+                dst = st[name]
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x)).to(dst.dtype)
+            dst.copy_(x, non_blocking=True)
+
+    def _body(self, key) -> Callable:
+        """The launch of `key` over the input tensors."""
+        st = self._static_inputs()
+        if key[0] == "decode":
+            return lambda: self._decode_impl(key[1], key[2], st["sp"],
+                                             st["last_tok"], st["active"])
+        return lambda: self._admit_impl(
+            st["tokens"][key[1]], st["lens"], st["sp"], st["mask"],
+            st["last_tok"], st["active"], st["seeds"], st["reseed"])
+
+    def _launch(self, key, **inputs):
+        """Write the inputs, then replay the graph of `key` (captured on
+        first use) or, without graphs, run its body eagerly. The outputs
+        are the graph's own tensors, good until the next replay of any of
+        the core's graphs: they share one memory pool, so a graph captured
+        later may keep its intermediates where an earlier one keeps its
+        outputs. The caller clones or copies them before that."""
+        self._put(**inputs)
+        kind = "decode" if key[0] == "decode" else "admission"
+        self.launches[kind] += 1
+        if self.use_graphs:
+            graph = self._graphs.get(key) or self._capture(key)
+            self.replays[kind] += 1
+            return graph.replay()
+        t0 = time.perf_counter()
+        out = self._body(key)()
+        name = _census_name(key)
+        if name not in self.graph_census_ms:
+            # the eager census: the keys the card would capture
+            self.graph_census_ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def _warmed(self, *keys) -> bool:
+        """Whether every key's graph is captured (its launch has run, on the
+        eager path)."""
+        return all(_census_name(k) in self.graph_census_ms for k in keys)
+
+    def _graph_windows(self) -> List[int]:
+        """Every KV window a decode launch can take."""
+        return sorted({self.kv_bucket(w) for w in
+                       list(self.engine_cfg.kv_buckets) + [self.max_seq]
+                       if w <= self.max_seq} | {self.kv_bucket(1)})
+
+    def _prepare(self) -> None:
+        """Before this thread's first capture: one eager pass over every
+        shape the graphs take — a decode step at each KV window, a prefill
+        at each prompt bucket — with every slot masked, so that it changes
+        no state (writes land in the trash row or block, lengths stay, the
+        sampled state is dropped) and counts no launch. It does what a
+        capture must not: the kernel build, this thread's cuBLAS handles,
+        the rope table, the kernels' one-time attributes, the K4 / K2 plans,
+        and the growth of the attention / K4 workspace to every shape."""
+        tid = threading.get_ident()
+        if tid in self._prepared:
+            return
+        t0 = time.perf_counter()
+        b, dev = self.batch, self.device
+        none = torch.zeros(b, dtype=torch.bool, device=dev)
+        zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+        sp = self._static_inputs()["sp"]
+        buckets = sorted(set(self.engine_cfg.prefill_buckets)
+                         | {self.engine_cfg.max_input_len})
+        with _build.record_launches():
+            for w in self._graph_windows():
+                logits, _ = llama.decode_one(
+                    self.params, self.model_cfg, zeros, self.cache, none,
+                    kv_window=w, logits_base=self.logits_base)
+                S.sample(logits, sp, self.sampling_state,
+                         base=self.logits_base)
+            for bucket in buckets:
+                tokens = torch.zeros((b, bucket), dtype=torch.int32,
+                                     device=dev)
+                self._prefill_state(self.sampling_state, bucket, tokens,
+                                    zeros, sp, none)
+        torch.cuda.synchronize(dev)
+        self._prepared.add(tid)
+        self.prepare_ms += (time.perf_counter() - t0) * 1e3
+
+    def _capture(self, key) -> _Graph:
+        """Capture the launch of `key` into a CUDA graph (on torch's side
+        stream, into the core's memory pool), recording the kernel launches
+        one replay stands for; a capture that fails raises."""
+        with _CAPTURE_LOCK:
+            self._prepare()
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the vocode threads keep launching meanwhile
+            with _build.record_launches() as launches, torch.cuda.graph(
+                    graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = self._body(key)()
+            ms = (time.perf_counter() - t0) * 1e3
+        self._graphs[key] = g = _Graph(graph, outputs, launches)
+        name = _census_name(key)
+        self.graph_census_ms[name] = ms
+        if not self._warming:
+            self.late_captures += 1
+            log.warning("captured %s on first use (%.0f ms): warmup_graphs "
+                        "did not reach it", name, ms)
+        return g
 
     # -- host orchestration ---------------------------------------------------
 
@@ -422,19 +622,19 @@ class EngineCore:
                        ) -> None:
         self._reset_host(slots)
         seed_arr, reseed = self._seed_arrays(slots, seeds)
-        self._reset_seed_impl(self._t(self._mask(slots), torch.bool),
-                              self._t(seed_arr, torch.int64),
-                              self._t(reseed, torch.bool))
+        S.copy_state(self.sampling_state, self._reset_state(
+            self.sampling_state, self._t(self._mask(slots), torch.bool),
+            self._t(seed_arr, torch.int64), self._t(reseed, torch.bool)))
 
     def _prompt_batch(self, prompts, slots, bucket):
+        """Host arrays (tokens (B, bucket), lens (B,), mask (B,))."""
         tokens = np.zeros((self.batch, bucket), np.int32)
         lens = np.zeros(self.batch, np.int32)
         for p, sl in zip(prompts, slots):
             p = list(p)[:bucket]
             tokens[sl, : len(p)] = p
             lens[sl] = len(p)
-        return (self._t(tokens, torch.int32), self._t(lens, torch.int32),
-                self._t(self._mask(slots), torch.bool))
+        return tokens, lens, self._mask(slots)
 
     @torch.no_grad()
     def prefill_slots(self, prompts: Sequence[Sequence[int]],
@@ -453,7 +653,11 @@ class EngineCore:
         tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
         self.reset_and_seed(slots, seeds)
         self._maybe_reserve(slots, bucket, reserve_extra)
-        tok = self._prefill_impl(bucket, tokens, lens, sparams, mask)
+        tok, ss = self._prefill_state(
+            self.sampling_state, bucket, self._t(tokens, torch.int32),
+            self._t(lens, torch.int32), sparams, self._t(mask, torch.bool))
+        S.copy_state(self.sampling_state, ss)
+        self.prefills += 1
         for p, sl in zip(prompts, slots):
             self._len_bounds[sl] = min(len(p), bucket) + 1
         return to_numpy(tok)
@@ -467,8 +671,11 @@ class EngineCore:
                               kv_window: Optional[int] = None,
                               seeds: Optional[Sequence[Optional[int]]] = None):
         """Fused admission prefill + n decode steps, launched without
-        waiting. Returns device tensors (toks (B, n+1), last_tok, active).
-        kv_window None = smallest bucket covering every live slot;
+        waiting: the admission launch of the prompt bucket, then the decode
+        launch of (n, window), in one host visit. Returns device tensors
+        (toks (B, n+1), last_tok, active); column 0 of toks is the
+        prefill-sampled token (non-admitted slots repeat their last token
+        there). kv_window None = smallest bucket covering every live slot;
         reserve_extra as in prefill_slots."""
         n = n or self.engine_cfg.decode_steps_per_call
         assert len(prompts) == len(slots)
@@ -483,12 +690,18 @@ class EngineCore:
             self._grow_blocks(n)    # the slots already live decode too
         needed = int(self._len_bounds.max(initial=0)) + n + 1
         window = kv_window or self.kv_bucket(needed)
-        out = self._prefill_decode_impl(
-            n, window, tokens, lens, sparams, mask,
-            self._t(last_tok, torch.int32), self._t(active, torch.bool),
-            self._t(seed_arr, torch.int64), self._t(reseed, torch.bool))
+        tok0, act0 = self._launch(
+            ("admit", bucket), tokens=tokens, lens=lens, mask=mask,
+            sp=sparams, last_tok=last_tok, active=active, seeds=seed_arr,
+            reseed=reseed)
+        tok0 = tok0.clone()     # before the next replay can overwrite it
+        toks, tok, act = self._launch(("decode", n, window), last_tok=tok0,
+                                      active=act0)
+        self.prefills += 1
+        self.decode_steps += n
         self._len_bounds[self._len_bounds > 0] += n
-        return out
+        return torch.cat([tok0[:, None], toks], dim=1), tok.clone(), \
+            act.clone()
 
     @torch.no_grad()
     def decode_steps_launch(self, sparams: S.SamplingParams, last_tok,
@@ -501,33 +714,108 @@ class EngineCore:
             self._grow_blocks(n)
         needed = int(self._len_bounds.max(initial=0)) + n + 1
         window = self.kv_bucket(needed)
-        out = self._decode_impl(n, window, sparams,
-                                self._t(last_tok, torch.int32),
-                                self._t(active, torch.bool))
+        toks, tok, act = self._launch(("decode", n, window), sp=sparams,
+                                      last_tok=last_tok, active=active)
+        self.decode_steps += n
         # conservative host bound: every occupied slot may grow by n
         self._len_bounds[self._len_bounds > 0] += n
-        return out
+        return toks.clone(), tok.clone(), act.clone()
 
-    def warmup_graphs(self, timer: Optional[PhaseTimer] = None) -> dict:
-        """Run one admission and one decode launch, so the kernels, cuBLAS
-        and cuDNN are initialised before the first request. Eager PyTorch
-        compiles nothing per shape, so unlike the JAX package this does not
-        enumerate (bucket, window, steps). Paged, the probe's blocks are
-        released at the end: the whole pool is free afterwards."""
+    def warmup_graphs(self, timer: Optional[PhaseTimer] = None,
+                      first_bursts: Sequence[int] = (),
+                      admission_ns: Optional[Sequence[int]] = None) -> dict:
+        """Capture the admission graph of every prompt bucket and the decode
+        graph of every (steps, KV window) the engine can reach — the JAX
+        package's enumeration (``EngineCore.warmup_graphs`` there), whose
+        fused (bucket, steps, window) graphs map here onto an admission
+        graph and a decode graph each. On the CPU the same launches run
+        eagerly, so the census names what the card would capture.
+
+        `first_bursts`: extra fused-launch step counts (the single-stream
+        first dispatch covers the whole first audio chunk); `admission_ns`:
+        the scheduler's fused-admission step counts (default {n, 2n}). A
+        bucket-b prompt may be shorter than b, so a bucket-b admission can
+        need any window from kv_bucket(shortest prompt + steps + 2) up: each
+        window is reached by a probe whose length needs it exactly, or, when
+        the probe alone cannot, by a live neighbour's length bound. Paged,
+        the probes' blocks are released at the end."""
         t = timer or PhaseTimer()
+        windows = self._graph_windows()
+        if self.device.type == "cuda" and not self.use_graphs:
+            # an eager core on the card (graphs=False) captures nothing:
+            # one eager pass initialises the kernels and the libraries
+            with t.phase("warmup_eager"):
+                self._prepare()
+            return {"warmed_windows": windows,
+                    "warmed_buckets": list(self.engine_cfg.prefill_buckets),
+                    "graphs_compiled": 0, "graph_census_ms": {}}
         sp = S.SamplingParams.from_config(SamplingConfig(greedy=True),
                                           self.batch, device=self.device)
         n = self.engine_cfg.decode_steps_per_call
         zeros_tok = np.zeros(self.batch, np.int32)
         zeros_act = np.zeros(self.batch, bool)
-        with t.phase("warmup_prefill_decode"):
-            toks, tok, act = self.prefill_decode_launch(
-                [[1] * 4], [0], sp, zeros_tok, zeros_act, n=n)
-            to_numpy(toks)
-        with t.phase("warmup_decode"):
-            to_numpy(self.decode_steps_launch(sp, tok, act, n)[0])
+        fused_ns = sorted({max(n - 1, 1)} | {
+            max(int(b) - 1, 1) for b in first_bursts if b})
+        adm_ns = sorted({int(a) for a in admission_ns if a}
+                        if admission_ns else {n, 2 * n})
+        all_ns = sorted(set(fused_ns) | set(adm_ns))
+        adm_windows = sorted({self.kv_bucket(w) for w in
+                              list(self.engine_cfg.kv_buckets)
+                              + [self.max_seq] if w <= self.max_seq})
+        self._warming = True
+        try:
+            prev_b = 0
+            for b in self.engine_cfg.prefill_buckets:
+                min_len = prev_b + 1  # shortest prompt that lands in bucket b
+                for nn in all_ns:
+                    for w in adm_windows:
+                        # smallest window any bucket-b prompt can need at nn
+                        if w < self.kv_bucket(min_len + nn + 2):
+                            continue
+                        # probe length that needs window w exactly
+                        length = min(b, max(min_len, w - nn - 2))
+                        direct = self.kv_bucket(length + nn + 2) == w
+                        if not direct and self.batch == 1:
+                            continue  # one slot cannot reach w here
+                        if self._warmed(("admit", b), ("decode", nn, w)):
+                            continue    # both graphs captured already
+                        probe = [1] * (length if direct else min_len)
+                        saved = self._len_bounds.copy()
+                        with t.phase(f"warmup_prefill_decode_{b}_n{nn}_w{w}"):
+                            if not direct:
+                                # a live neighbour at w-nn-1 forces window w
+                                self._len_bounds[1] = max(w - nn - 1, 1)
+                            try:
+                                toks, _, _ = self.prefill_decode_launch(
+                                    [probe], [0], sp, zeros_tok, zeros_act,
+                                    n=nn)
+                                to_numpy(toks)
+                            finally:
+                                self._len_bounds[:] = saved
+                prev_b = b
+            # release the last probe's blocks first: the decode probes' length
+            # bounds would grow them to the whole window, which an on-demand
+            # pool smaller than that cannot give (the JAX package's fault)
+            self._reset_host(list(range(self.batch)))
+            for w in windows:
+                if self._warmed(("decode", n, w)):
+                    continue
+                with t.phase(f"warmup_decode_w{w}"):
+                    saved = self._len_bounds.copy()
+                    self._len_bounds[:] = max(w - n - 1, 1)
+                    try:
+                        to_numpy(self.decode_steps_launch(
+                            sp, zeros_tok, zeros_act, n)[0])
+                    finally:
+                        self._len_bounds[:] = saved
+        finally:
+            self._warming = False
         self.reset_and_seed(list(range(self.batch)))
-        return {"warmup_ms": dict(t.phases)}
+        census = dict(self.graph_census_ms)
+        return {"warmed_windows": windows,
+                "warmed_buckets": list(self.engine_cfg.prefill_buckets),
+                "graphs_compiled": len(census),
+                "graph_census_ms": census}
 
 
 class GenerationEngine:
@@ -549,7 +837,7 @@ class GenerationEngine:
 
     def warmup(self) -> dict:
         t = PhaseTimer()
-        info = self.core.warmup_graphs(t)
+        info = self.core.warmup_graphs(t, first_bursts=self.first_bursts)
         return {**info, **t.as_dict()}
 
     def stream(self, prompt_ids: Sequence[int],

@@ -238,9 +238,14 @@ class Scheduler:
         return req
 
     def warmup(self) -> dict:
-        """Initialise the engine and run the batched vocode and the fused
-        first-chunk decode once (kernel build, cuBLAS/cuDNN setup)."""
-        info = self.core.warmup_graphs()
+        """Capture every engine launch this scheduler can make
+        (``EngineCore.warmup_graphs`` over the fused admission's step counts
+        and the decode launch's), then run the batched vocode and the fused
+        first-chunk decode once (cuDNN setup). Returns the engine's graph
+        census."""
+        info = self.core.warmup_graphs(
+            admission_ns=[self.admission_steps,
+                          self.config.engine.decode_steps_per_call])
         voc = self.vocoder
         fb = voc.frame_buckets[0]
         voc.decode_frames_batch(

@@ -12,6 +12,7 @@ sources so an edited kernel is rebuilt and an unchanged one is reused.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -141,17 +142,27 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
+_recording = threading.local()   # .deltas: the dict record_launches fills
+
+
 class LaunchCounter:
     """Count of a wrapper's kernel launches (thread-safe: the scheduler and
-    the vocode worker launch from different threads)."""
+    the vocode worker launch from different threads). Inside
+    ``record_launches`` a launch of this thread is recorded instead of
+    counted: a CUDA-graph capture records what one replay launches, and each
+    replay adds that."""
 
     def __init__(self):
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        deltas = getattr(_recording, "deltas", None)
+        if deltas is not None:
+            deltas[self] = deltas.get(self, 0) + n
+            return
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -160,3 +171,16 @@ class LaunchCounter:
     @property
     def count(self) -> int:
         return self._n
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the block, this thread's launches go into the yielded dict
+    (counter → launches) and are not counted. Other threads count as
+    always."""
+    prev = getattr(_recording, "deltas", None)
+    _recording.deltas = deltas = {}
+    try:
+        yield deltas
+    finally:
+        _recording.deltas = prev

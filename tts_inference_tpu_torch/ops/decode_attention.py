@@ -74,8 +74,17 @@ class _Workspace:
     arguments: the SM count, a counter per (slot, kv head) that is zero
     between launches (the kernel's last block sets its counter back), and
     the scratch for the chunks' partial results, both grown as needed. The
-    dense and the paged wrappers share it: calls on one device follow each
-    other on its stream, as the engine's do."""
+    dense and the paged wrappers, and K4 / K2, share it: calls on one device
+    follow each other on its stream, as the engine's do, and so do the
+    replays of the CUDA graphs that captured them.
+
+    A captured graph keeps the addresses it was captured with, so the
+    buffers must outlive every graph: growth inside a capture raises (the
+    eager pass before a capture sizes them), and a growth after a capture
+    has read the buffers keeps the old ones alive beside the new ones. The
+    engines of one process (the scheduler's and the single-stream one) and
+    configurations of other sizes share the workspace, so no one size can
+    be fixed before the first capture."""
 
     def __init__(self, device):
         self.device = device
@@ -84,14 +93,27 @@ class _Workspace:
         self.counters = torch.zeros(1024, dtype=torch.int32, device=device)
         self.scratch = torch.empty(1 << 20, dtype=torch.float32,
                                    device=device)
+        self.captured = False   # a capture has read the current buffers
+        self.retired = []       # buffers that captures read, kept alive
 
     def reserve(self, heads: int, floats: int):
-        if self.counters.numel() < heads:
-            self.counters = torch.zeros(2 * heads, dtype=torch.int32,
-                                        device=self.device)
-        if self.scratch.numel() < floats:
-            self.scratch = torch.empty(2 * floats, dtype=torch.float32,
-                                       device=self.device)
+        capturing = torch.cuda.is_current_stream_capturing()
+        if self.counters.numel() < heads or self.scratch.numel() < floats:
+            if capturing:
+                raise RuntimeError(
+                    f"attention/matmul workspace must grow to {heads} "
+                    f"counters and {floats} floats inside a CUDA graph "
+                    "capture: run the launch eagerly before capturing it")
+            if self.captured:
+                self.retired.append((self.counters, self.scratch))
+                self.captured = False
+            if self.counters.numel() < heads:
+                self.counters = torch.zeros(2 * heads, dtype=torch.int32,
+                                            device=self.device)
+            if self.scratch.numel() < floats:
+                self.scratch = torch.empty(2 * floats, dtype=torch.float32,
+                                           device=self.device)
+        self.captured |= capturing
         return self.counters, self.scratch
 
 

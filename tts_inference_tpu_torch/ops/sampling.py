@@ -8,7 +8,9 @@ Port of ``tts_inference_tpu/ops/sampling.py``; the chain is the same:
 
 All knobs are per-slot tensors; every function here is out-of-place, like
 the JAX one, because admission restores the rows of non-admitted slots from
-the old state.
+the old state. The engine writes a launch's final state back into its own
+state tensors with ``copy_state``: a CUDA graph reads and writes the
+addresses it was captured with.
 
 The noise differs from the JAX package on purpose: JAX draws its Gumbel noise
 with threefry keys, which torch cannot reproduce. Here the uniforms come from
@@ -94,6 +96,13 @@ def init_sampling_state(batch: int, vocab: int, seed: int = 0,
         in_speech=torch.zeros(batch, dtype=torch.bool, device=device),
         frame_pos=torch.zeros(batch, dtype=torch.int32, device=device),
     )
+
+
+def copy_state(dst: SamplingState, src: SamplingState) -> None:
+    """Write `src` into the tensors of `dst`, in place."""
+    for d, s in zip(dst, src):
+        if d is not s:
+            d.copy_(s)
 
 
 def mark_tokens(state: SamplingState, tokens: torch.Tensor,

@@ -91,7 +91,14 @@ class Runtime:
         pipeline = TTSPipeline(engine, vocoder, tokenizer, config)
         if warmup:
             t0 = time.perf_counter()
-            engine.warmup()
+            info = engine.warmup()
             timings["warmup_s"] = time.perf_counter() - t0
+            # the graph census as the JAX package reports it: ms → s, the
+            # census itself in ms
+            timings.update({
+                k: (v / 1000.0
+                    if isinstance(v, (int, float)) and k != "graphs_compiled"
+                    else v)
+                for k, v in info.items()})
         return cls(config, pipeline, engine, vocoder, tokenizer, timings,
                    dev)

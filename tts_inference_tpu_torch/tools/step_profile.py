@@ -6,11 +6,16 @@
     python -m tts_inference_tpu_torch.tools.step_profile --vocoder
 
 Takes the runtime flags of ``cli serve`` (full Orpheus-3B geometry with
-seeded random weights unless ``--tiny``). Admits one prompt into every slot,
-then times decode launches (``decode_steps_per_call`` steps each, all slots)
-two ways: the host clock around a launch that ends in a synchronise (wall),
-and ``torch.profiler`` over one launch (kernels launched, device time by
-kernel family). Prints one JSON line; every number is per decode step.
+seeded random weights unless ``--tiny``). Two engine cores over the same
+weights, one launching eagerly (``graphs=False``) and one replaying CUDA
+graphs (the serve path on a card), each admit one prompt into every slot
+and then time decode launches (``decode_steps_per_call`` steps each, all
+slots): the host clock around a launch that ends in a synchronise (wall)
+and up to the return of the launch (enqueue), ``torch.profiler`` over one
+launch (kernels, device time by kernel family; for the replay, the graph's
+kernels), and, for the replay, CUDA events around launches (device time of
+the replay as the stream runs it). Prints one JSON line with an "eager" and
+a "replayed" part; every number is per decode step.
 
 With ``--vocoder`` it times one vocoder call instead, as the serve path makes
 it with every slot streaming: ``--vocoder-rows`` windows of
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import re
 import subprocess
@@ -120,6 +126,68 @@ def vocoder_call(rt, args, flags) -> dict:
     return out
 
 
+def decode_launches(rt, core, launches: int) -> dict:
+    """Admit a prompt into every slot of `core`, then time `launches`
+    decode launches; per decode step."""
+    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.ops import sampling as S
+
+    sp = S.SamplingParams.from_config(
+        SamplingConfig(greedy=True), core.batch, device=core.device)
+    prompt = rt.pipeline.build_prompt("Where does the time go?",
+                                      force_speech=True)
+    n = rt.config.engine.decode_steps_per_call
+    _, tok, act = core.prefill_decode_launch(
+        [prompt] * core.batch, list(range(core.batch)), sp,
+        np.zeros(core.batch, np.int32), np.zeros(core.batch, bool), n=n,
+        reserve_extra=[n * (2 * launches + 8)] * core.batch)
+    on_card = core.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def launch():
+        nonlocal tok, act
+        _, tok, act = core.decode_steps_launch(sp, tok, act, n)
+
+    launch()        # the replayed core captures the graph of this window
+    sync()
+    walls, enqueues = [], []
+    for _ in range(launches):
+        t0 = time.perf_counter()
+        launch()
+        t1 = time.perf_counter()
+        sync()
+        walls.append((time.perf_counter() - t0) / n * 1e3)
+        enqueues.append((t1 - t0) / n * 1e3)
+    out = {"wall_ms_per_step": float(np.median(walls)),
+           "host_enqueue_ms_per_step": float(np.median(enqueues)),
+           "graphs": len(core.graph_census_ms) if core.use_graphs else 0,
+           "capture_ms": sum(core.graph_census_ms.values())
+           if core.use_graphs else 0.0}
+    if on_card:
+        prof = _profile(launch, _family, per=n)
+        out.update(
+            kernels_per_step=prof["kernels"],
+            device_ms_per_step=prof["device_ms"],
+            device_ms_per_step_by_family=prof["device_ms_by_family"],
+            kernels_per_step_by_family=prof["kernels_by_family"],
+            card=prof["card"])
+        if core.use_graphs:
+            # the replay as the stream runs it: events around launches
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            out["event_ms_per_step"] = start.elapsed_time(end) / (
+                launches * n)
+    return out
+
+
 def _family(name: str) -> str:
     # first template argument of the matmul kernels: 0 = int4, 1 = int8
     # (in, out), 2 = int8 (out, in) rows, the tied head
@@ -135,9 +203,7 @@ def _family(name: str) -> str:
 
 def main(argv=None) -> int:
     from tts_inference_tpu_torch import cli
-    from tts_inference_tpu_torch.config import SamplingConfig
     from tts_inference_tpu_torch.engine.engine import EngineCore
-    from tts_inference_tpu_torch.ops import sampling as S
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     cli._add_runtime_args(ap)
@@ -155,51 +221,20 @@ def main(argv=None) -> int:
         if args.vocoder:
             print(json.dumps(vocoder_call(rt, args, flags)), flush=True)
             return 0
-        core = EngineCore(rt.engine.core.params, rt.config.model,
-                          rt.config.engine, device=rt.device)
-        sp = S.SamplingParams.from_config(
-            SamplingConfig(greedy=True), core.batch, device=core.device)
-        prompt = rt.pipeline.build_prompt("Where does the time go?",
-                                          force_speech=True)
-        n = rt.config.engine.decode_steps_per_call
-        slots = list(range(core.batch))
-        _, tok, act = core.prefill_decode_launch(
-            [prompt] * core.batch, slots, sp,
-            np.zeros(core.batch, np.int32), np.zeros(core.batch, bool), n=n,
-            reserve_extra=[n * (args.launches + 4)] * core.batch)
-        on_card = core.device.type == "cuda"
-
-        def sync():
-            if on_card:
-                torch.cuda.synchronize()
-
-        def launch():
-            nonlocal tok, act
-            _, tok, act = core.decode_steps_launch(sp, tok, act, n)
-
-        launch()
-        sync()
-        walls, enqueues = [], []
-        for _ in range(args.launches):
-            t0 = time.perf_counter()
-            launch()
-            t1 = time.perf_counter()
-            sync()
-            walls.append((time.perf_counter() - t0) / n * 1e3)
-            enqueues.append((t1 - t0) / n * 1e3)
-        out = {"flags": flags,
-               "device": str(core.device), "slots": core.batch,
-               "steps_per_launch": n,
-               "wall_ms_per_step": float(np.median(walls)),
-               "host_enqueue_ms_per_step": float(np.median(enqueues))}
+        on_card = rt.device.type == "cuda"
+        out = {"flags": flags, "device": str(rt.device),
+               "slots": rt.config.engine.max_batch_size,
+               "steps_per_launch": rt.config.engine.decode_steps_per_call}
+        for tag, graphs in (("eager", False), ("replayed", True)):
+            core = EngineCore(rt.engine.core.params, rt.config.model,
+                              rt.config.engine, device=rt.device,
+                              graphs=graphs)
+            out[tag] = decode_launches(rt, core, args.launches)
+            del core
+            gc.collect()
         if on_card:
-            prof = _profile(launch, _family, per=n)
-            out.update(
-                kernels_per_step=prof["kernels"],
-                device_ms_per_step=prof["device_ms"],
-                device_ms_per_step_by_family=prof["device_ms_by_family"],
-                kernels_per_step_by_family=prof["kernels_by_family"],
-                card=prof["card"])
+            out["card"] = out["eager"].pop("card")
+            out["replayed"].pop("card")
         print(json.dumps(out), flush=True)
     return 0
 
