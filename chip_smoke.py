@@ -42,29 +42,37 @@ no result line is printed:
 5. streaming exactness: windowed lookahead decode vs one batch decode;
 6. reference: the slice at ``tiny_config()`` on the card against the same
    weights on the CPU (plain versions), and finite full-geometry logits;
-7. paged int8 serve phase: ``serve --paged-kv --kv-int8 --kv-on-demand``
+7. checkpoint phase: the dense phase's seeded weights written as an
+   Orpheus-3B HF dir (bf16, 2 GiB safetensors shards, a byte-level BPE
+   tokenizer.json) and a SNAC dir by ``tools/make_checkpoint.py``, booted
+   by ``cli serve --model-path --snac-path`` (every leaf equal, the port's
+   own tokenizer) and served as in 4 (K1, K6, every launch a replay);
+   then ``cli quantize`` and a boot from its output with no quantization
+   at boot, int8 leaves byte-equal, one request carried by K2;
+8. paged int8 serve phase: ``serve --paged-kv --kv-int8 --kv-on-demand``
    with a pool too small for the 8 streams (16 blocks of 128), so streams
    are preempted and resumed; K3b carries every decode step, K1 and K3a
    none;
-8. paged bf16 serve phase: ``serve --paged-kv`` (worst-case reservation),
+9. paged bf16 serve phase: ``serve --paged-kv`` (worst-case reservation),
    8 streams and one ``/generate``; K3a carries every decode step;
-9. paged reference: the tiny slice paged (K3a), dense int8 and paged int8
+10. paged reference: the tiny slice paged (K3a), dense int8 and paged int8
    (K3b) on the card against the CPU, and a preempt → resume on the card
    against the same requests served without preemption, every launch of
    both a graph replay (the scheduler's warmup captures them);
-10. int4 serve phase: ``serve --quantize --weight-bits 4 --paged-kv
+11. int4 serve phase: ``serve --quantize --weight-bits 4 --paged-kv
     --kv-int4``; K4 carries every layer linear of every forward pass, K5
     every decode step, K2 the head; K1, K3a, K3b none;
-11. int8 weights serve phase: ``serve --quantize``; K2 carries every linear
+12. int8 weights serve phase: ``serve --quantize``; K2 carries every linear
     and the head, K1 every decode step;
-12. quantized reference: the tiny slice with int4 weights + int4 KV and with
+13. quantized reference: the tiny slice with int4 weights + int4 KV and with
     int8 weights on the card against the same quantized leaves on the CPU;
-13. the card line, the kernels' JSON line, and last
+14. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
 without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
-paged, quant) runs some phases during development and prints no result line.
+checkpoint, paged, quant) runs some phases during development and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -1085,7 +1093,8 @@ LINEARS_AND_HEAD = lambda layers, steps, passes: (               # noqa: E731
 
 
 def serve_phase(name: str, argv, expect: dict, generate: bool = True,
-                min_preemptions: int = 0, eager: bool = False) -> dict:
+                min_preemptions: int = 0, eager: bool = False,
+                on_boot=None) -> dict:
     """Build `cli serve` (runtime + scheduler) from `argv`, put the port's
     aiohttp app on a localhost port and drive it: 8 concurrent /ws/tts
     streams, then (with `generate`) one /generate, then /metrics. `expect`
@@ -1093,7 +1102,8 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     of (layers, decode steps, forward passes); every kernel it does not name
     must not run, except K6, which must. With `eager` both engine cores are
     replaced by eager ones (``EngineCore(..., graphs=False)``, warmed by one
-    eager pass): the path as it ran before CUDA graphs, for comparison."""
+    eager pass): the path as it ran before CUDA graphs, for comparison.
+    `on_boot(rt)` runs after the boot, before the requests."""
     from aiohttp import web
 
     from tts_inference_tpu_torch import cli
@@ -1112,6 +1122,8 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
                                      device=c.device, graphs=False)
         rt.engine.warmup()
         scheduler.warmup()
+    if on_boot is not None:
+        on_boot(rt)
     core = scheduler.core
     kv = (" int4" if getattr(core.cache, "int4", False)
           else " int8" if core.cache.quantized else "")
@@ -1696,6 +1708,184 @@ def quant_reference_phase(device="cuda") -> dict:
     return res
 
 
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def _assert_trees_equal(got, want, path: str) -> int:
+    """Every leaf torch.equal (same dtype, shape, bytes); returns the
+    number of leaves."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{path}: keys {sorted(got)} vs "
+                                 f"{sorted(want)}")
+        return sum(_assert_trees_equal(got[k], want[k], f"{path}.{k}")
+                   for k in want)
+    if isinstance(want, (list, tuple)):
+        if type(got) is not type(want) or len(got) != len(want):
+            raise AssertionError(f"{path}: {type(got)} vs {type(want)}")
+        return sum(_assert_trees_equal(g, w, f"{path}[{i}]")
+                   for i, (g, w) in enumerate(zip(got, want)))
+    if want is None:
+        if got is not None:
+            raise AssertionError(f"{path}: expected None")
+        return 0
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.equal(got, want):
+        raise AssertionError(f"{path}: {got.dtype}{tuple(got.shape)} differs "
+                             f"from {want.dtype}{tuple(want.shape)}")
+    return 1
+
+
+def checkpoint_phase(extra=()) -> dict:
+    """Boot from checkpoint directories at full width: the dense phase's
+    seeded weights (``cli serve``: LM seed 0, vocoder seed 1) written by
+    ``tools/make_checkpoint.py`` as an Orpheus-3B HF dir (bf16, 2 GiB
+    shards, index, config.json, a byte-level BPE tokenizer.json) and a SNAC
+    dir, under ``build/`` of this checkout; ``cli serve --model-path D
+    --snac-path S`` boots from them (every LM and SNAC leaf torch.equal to
+    the seeded ones, the port's HFTokenizer in use) and serves the 8
+    streams and one /generate (K1 every decode step, K6, every launch a
+    replay); then ``cli quantize --model-path D --quantize --out Q`` and a
+    boot from Q with no quantization at boot (``--quantize`` given and
+    ignored), int8 leaves byte-equal to ``quantize_llama_params`` of the
+    loaded tree, one request carried by K2. The directory is removed in
+    any case. `extra`: more ``cli serve`` flags for every boot (the CPU
+    rehearsal: ``--tiny --device cpu --max-output-len 512``)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+
+    from tts_inference_tpu_torch import cli, protocol, weights
+    from tts_inference_tpu_torch import runtime as R
+    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.models.quant import quantize_llama_params
+    from tts_inference_tpu_torch.tools.make_checkpoint import (
+        write_llama_checkpoint, write_snac_checkpoint, write_tokenizer)
+    from tts_inference_tpu_torch.utils.tokenizer import (ByteTokenizer,
+                                                         HFTokenizer)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "checkpoint_phase")
+    model_dir, snac_dir, q_dir = (os.path.join(root, n)
+                                  for n in ("model", "snac", "quantized"))
+    extra = list(extra)
+    args = cli.build_parser().parse_args(["serve", *extra])
+    cfg = cli._config(args)
+    device = args.device or "cuda"
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res = {}
+    try:
+        llama = weights.init_llama_params(cfg.model, args.seed, device)
+        snac = weights.init_snac_params(cfg.snac, args.seed + 1, device)
+        nbytes = _tree_bytes(llama)
+        free = shutil.disk_usage(root).free
+        # the bf16 dir and the int8 one (about half), with room to spare
+        if free < 2 * nbytes:
+            raise AssertionError(f"checkpoint: {free} bytes free under "
+                                 f"{root}, need {2 * nbytes}")
+        t0 = time.perf_counter()
+        info = write_llama_checkpoint(llama, cfg.model, model_dir)
+        write_tokenizer(model_dir)
+        sinfo = write_snac_checkpoint(snac, cfg.snac, snac_dir)
+        res["write_s"] = time.perf_counter() - t0
+        res.update(bytes=info["bytes"], shards=info["shards"],
+                   snac_bytes=sinfo["bytes"], disk_free_before=free)
+        print("checkpoint: wrote", json.dumps(res), flush=True)
+
+        def on_boot(rt):
+            t = rt.load_timings
+            n_llama = _assert_trees_equal(rt.engine.core.params, llama,
+                                          "llama")
+            n_snac = _assert_trees_equal(rt.vocoder.params, snac, "snac")
+            if not isinstance(rt.tokenizer, HFTokenizer):
+                raise AssertionError(f"tokenizer {type(rt.tokenizer)}")
+            text = _request(0)["text"]
+            boot = {k: t[k] for k in ("load_model_s", "load_snac_s",
+                                      "load_tokenizer_s")}
+            boot["read_gb_per_s"] = info["bytes"] / t["load_model_s"] / 1e9
+            boot["leaves_equal"] = {"llama": n_llama, "snac": n_snac}
+            boot["prompt_ids"] = {
+                "bpe": len(rt.pipeline.build_prompt(text, force_speech=True)),
+                "bytes": len(protocol.format_prompt_ids(
+                    ByteTokenizer().encode(protocol.format_prompt_text(
+                        text, "tara")), force_speech=True))}
+            res["boot"] = boot
+            print("checkpoint: booted", json.dumps(boot), flush=True)
+
+        ph = serve_phase("checkpoint", ["serve", "--model-path", model_dir,
+                                        "--snac-path", snac_dir, *extra],
+                         {"K1": PER_STEP}, on_boot=on_boot)
+        res["serve"] = {k: ph[k] for k in (
+            "ttfa_ms_p50", "ttfa_ms_p95", "aggregate_rtf", "launches",
+            "decode_steps")}
+        _free(ph)
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["quantize", "--model-path", model_dir,
+                           "--quantize", "--out", q_dir, *extra])
+        if rc != 0:
+            raise AssertionError(f"cli quantize: {rc}")
+        res["quantize"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        res["quantize"]["command_s"] = time.perf_counter() - t0
+        print("checkpoint: cli quantize", json.dumps(res["quantize"]),
+              flush=True)
+
+        def no_quantization(*a, **k):
+            raise AssertionError("quantized at boot")
+
+        args = cli.build_parser().parse_args(
+            ["generate", "--model-path", q_dir, "--snac-path", snac_dir,
+             "--tokenizer-path", model_dir, "--quantize", "--no-warmup",
+             "--text", _request(0)["text"], *extra])
+        saved = R.quantize_llama_params
+        R.quantize_llama_params = no_quantization
+        try:
+            rt = cli._build_runtime(args)
+        finally:
+            R.quantize_llama_params = saved
+        want = quantize_llama_params(llama, bits=8)
+        n_q = _assert_trees_equal(rt.engine.core.params, want, "quantized")
+        del want
+        counters = _launch_counters()
+        for c in counters.values():
+            c.reset()
+        pcm, metrics = rt.pipeline.synthesize(
+            _request(0)["text"], "tara", SamplingConfig(
+                max_tokens=70, seed=3, token_range=(
+                    protocol.TOKEN_AUDIO_BASE,
+                    protocol.TOKEN_AUDIO_BASE + protocol.AUDIO_VOCAB)),
+            force_speech=True)
+        launches = {k: c.count for k, c in counters.items()}
+        if (device != "cpu" and launches["K2"] < 1) \
+                or len(pcm) != 10 * 2048 * 2 or not np.frombuffer(
+                    pcm, np.int16).any():
+            raise AssertionError(f"checkpoint[quantized]: launches "
+                                 f"{launches}, {len(pcm)} samples")
+        res["quantized_boot"] = {
+            "load_model_s": rt.load_timings["load_model_s"],
+            "load_model_s_quantizing_at_boot":
+                res["quantize"]["load_model_s"],
+            "leaves_equal": n_q, "launches": launches,
+            "tokens": metrics.tokens}
+        print("checkpoint: boot from cli quantize's output",
+              json.dumps(res["quantized_boot"]), flush=True)
+        del rt
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def _free(phase: dict) -> None:
     """Drop a full-width runtime before the next one is built."""
     phase.pop("rt", None)
@@ -1771,9 +1961,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
-                         "kernels, qmm, dense, paged, quant, compare = the "
-                         "serve phases eager and replayed) and print no "
-                         "result line; the full run takes no arguments")
+                         "kernels, qmm, dense, checkpoint, paged, quant, "
+                         "compare = the serve phases eager and replayed) and "
+                         "print no result line; the full run takes no "
+                         "arguments")
     only = ap.parse_args(argv).only
     only = set(only.split(",")) if only else None
     if not torch.cuda.is_available():
@@ -1802,6 +1993,8 @@ def main(argv=None) -> int:
         exactness_phase(dense["rt"])
         reference_phase(dense["rt"])
         _free(dense)
+    if on("checkpoint"):
+        phases["checkpoint"] = checkpoint_phase()
     if on("paged"):
         phases["paged_int8"] = run_serve_phase("paged_int8")
         graphs["paged_int8"] = graph_phase("paged_int8",

@@ -1,18 +1,27 @@
-"""CLI entry points of the port: ``generate`` and ``serve``.
+"""CLI entry points of the port: ``generate``, ``serve``, ``dump-tokens``,
+``quantize`` and ``devices``.
 
-    python -m tts_inference_tpu_torch.cli serve --port 8000
+    python -m tts_inference_tpu_torch.cli serve --model-path HF_DIR \\
+        --snac-path SNAC_DIR [--lora-path ADAPTER] [--tokenizer-path DIR]
+    python -m tts_inference_tpu_torch.cli quantize --model-path HF_DIR \\
+        --quantize [--weight-bits 4] --out QDIR
     python -m tts_inference_tpu_torch.cli generate --text "hi" --tiny \\
         --device cpu --force-speech --audio-only --output out.wav
 
-Defaults are the JAX package's ``cli serve`` defaults: Orpheus-3B geometry
-with seeded random bf16 weights, 8 continuous-batching slots, max_seq 4608,
-the f32 SNAC 24 kHz vocoder. The KV cache and admission options map onto
-``EngineConfig`` as the JAX CLI maps them (``--paged-kv``, ``--kv-int8``,
-``--kv-int4``, ``--kv-on-demand``, ``--kv-pool-tokens``, ``--kv-block-size``,
-``--admission-policy``, ``--reserved-short-slots``, ``--short-tokens``);
-``--quantize [--weight-bits 4]`` quantizes the LM weights at boot (kernels K2
-and K4). Without ``--device`` both commands run on ``cuda`` and fail when
-there is none; ``--device cpu`` asks for the CPU.
+Without ``--model-path`` / ``--snac-path`` the defaults are the JAX
+package's ``cli serve`` defaults: Orpheus-3B geometry with seeded random
+bf16 weights, 8 continuous-batching slots, max_seq 4608, the f32 SNAC 24 kHz
+vocoder. A checkpoint's own ``config.json`` wins over them; the tokenizer
+comes from ``--tokenizer-path``, else the model dir, else bytes. The KV
+cache and admission options map onto ``EngineConfig`` as the JAX CLI maps
+them (``--paged-kv``, ``--kv-int8``, ``--kv-int4``, ``--kv-on-demand``,
+``--kv-pool-tokens``, ``--kv-block-size``, ``--kv-buckets``,
+``--prefill-buckets``, ``--max-input-len``, ``--admission-policy``,
+``--reserved-short-slots``, ``--short-tokens``); ``--quantize
+[--weight-bits 4]`` quantizes the LM weights at boot (kernels K2 and K4)
+unless the checkpoint is pre-quantized. Without ``--device`` every command
+but ``devices`` runs on ``cuda`` and fails when there is none; ``--device
+cpu`` asks for the CPU.
 Options of configurations that are not ported yet are accepted by the
 parser and rejected with the ROADMAP item that ports them — the port never
 runs a different path silently.
@@ -36,6 +45,14 @@ UNPORTED = {
 
 
 def _add_runtime_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model-path",
+                   help="HF checkpoint dir (safetensors), or a dir written by "
+                        "`quantize`")
+    p.add_argument("--snac-path", help="SNAC checkpoint dir")
+    p.add_argument("--lora-path", help="LoRA adapter dir to merge at load")
+    p.add_argument("--tokenizer-path",
+                   help="tokenizer dir (tokenizer.json; defaults to the "
+                        "model dir)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny random-weight runtime (tests, CPU)")
     p.add_argument("--device", default=None,
@@ -43,8 +60,14 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "none — ask for the CPU with --device cpu)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-warmup", action="store_true")
+    p.add_argument("--max-input-len", type=int, default=None)
     p.add_argument("--max-output-len", type=int, default=None)
     p.add_argument("--max-batch-size", type=int, default=None)
+    p.add_argument("--prefill-buckets", default=None,
+                   help="comma-separated prompt buckets, e.g. 64,128")
+    p.add_argument("--kv-buckets", default=None,
+                   help="comma-separated KV attention-window buckets "
+                        "(default: doubling series extended to max_seq_len)")
     p.add_argument("--paged-kv", action="store_true",
                    help="paged KV cache: a block pool shared by the slots, "
                         "per-slot block tables, capacity-gated admission "
@@ -99,14 +122,22 @@ def check_ported(args) -> None:
                              f"yet: {item}")
 
 
-def _build_runtime(args):
+def _config(args):
+    """The Config the flags ask for, as the JAX CLI maps them."""
     from tts_inference_tpu_torch.config import (Config, extended_kv_buckets,
-                                          tiny_config)
-    from tts_inference_tpu_torch.runtime import Runtime
+                                                tiny_config)
 
     check_ported(args)
     cfg = tiny_config() if args.tiny else Config()
     eng_over = {}
+    if args.max_input_len:
+        eng_over["max_input_len"] = args.max_input_len
+    if args.prefill_buckets:
+        eng_over["prefill_buckets"] = tuple(
+            int(x) for x in args.prefill_buckets.split(","))
+    if args.kv_buckets:
+        eng_over["kv_buckets"] = tuple(
+            int(x) for x in args.kv_buckets.split(","))
     if args.max_output_len:
         eng_over["max_output_len"] = args.max_output_len
     if args.max_batch_size:
@@ -129,11 +160,23 @@ def _build_runtime(args):
     if eng_over:
         cfg = dataclasses.replace(
             cfg, engine=dataclasses.replace(cfg.engine, **eng_over))
-    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
-        cfg.engine, kv_buckets=extended_kv_buckets(
-            cfg.engine.kv_buckets, cfg.engine.max_seq_len)))
-    return Runtime.create(cfg, seed=args.seed, device=args.device,
-                          warmup=not args.no_warmup, quantize=args.quantize,
+    if not args.kv_buckets:
+        # long-audio engines need window buckets past the default 4096 so
+        # mid-length decodes don't read the full max_seq window
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, kv_buckets=extended_kv_buckets(
+                cfg.engine.kv_buckets, cfg.engine.max_seq_len)))
+    return cfg
+
+
+def _build_runtime(args):
+    from tts_inference_tpu_torch.runtime import Runtime
+
+    return Runtime.create(_config(args), model_path=args.model_path,
+                          snac_path=args.snac_path, lora_path=args.lora_path,
+                          tokenizer_path=args.tokenizer_path, seed=args.seed,
+                          device=args.device, warmup=not args.no_warmup,
+                          quantize=args.quantize,
                           weight_bits=args.weight_bits)
 
 
@@ -168,6 +211,72 @@ def cmd_generate(args) -> int:
         "rtf": round(metrics.rtf, 3),
         "chunks": metrics.chunks,
     }))
+    return 0
+
+
+def cmd_dump_tokens(args) -> int:
+    from tts_inference_tpu_torch.config import SamplingConfig
+
+    rt = _build_runtime(args)
+    prompt = rt.pipeline.build_prompt(args.text, args.voice)
+    res = rt.engine.generate(
+        prompt, SamplingConfig(max_tokens=args.max_tokens, seed=args.seed))
+    print(json.dumps({"prompt_ids": prompt, "token_ids": res.token_ids,
+                      "timings": res.timings}))
+    return 0
+
+
+def cmd_quantize(args) -> int:
+    """Offline weight quantization: checkpoint in → pre-quantized checkpoint
+    out (``params.safetensors`` + ``metadata.json``). A boot from the output
+    skips the quantization. The int4 group is ``TTS_INT4_GROUP`` (512 by
+    default), as in the JAX package."""
+    import torch
+
+    from tts_inference_tpu_torch.models.quant import (QuantEmbed,
+                                                      QuantLinear,
+                                                      quantize_llama_params,
+                                                      to_plain)
+    from tts_inference_tpu_torch.runtime import default_device, load_model
+    from tts_inference_tpu_torch.training.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    cfg = _config(args)
+    dev = torch.device(args.device) if args.device else default_device()
+    params, cfg = load_model(cfg, dev, model_path=args.model_path,
+                             lora_path=args.lora_path, seed=args.seed,
+                             quantize=args.quantize,
+                             weight_bits=args.weight_bits)
+    load_s = time.perf_counter() - t0
+    if not isinstance(params.get("embed"), (QuantEmbed, QuantLinear)):
+        params = quantize_llama_params(params, bits=args.weight_bits,
+                                       free_source=True)
+    t1 = time.perf_counter()
+    nbytes = save_params(args.out, to_plain(params), metadata={
+        "vocab_size": cfg.model.vocab_size,
+        "quantized": args.weight_bits,
+        "model_config": dataclasses.asdict(cfg.model),
+    })
+    print(json.dumps({"out": args.out, "weight_bits": args.weight_bits,
+                      "device": str(dev), "bytes": nbytes,
+                      "load_model_s": round(load_s, 3),
+                      "save_s": round(time.perf_counter() - t1, 3),
+                      "wall_s": round(time.perf_counter() - t0, 1)}))
+    return 0
+
+
+def cmd_devices(args) -> int:
+    """Device visibility check: the JAX CLI's keys for the torch devices."""
+    import torch
+
+    if torch.cuda.is_available():
+        devices = [f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                   for i in range(torch.cuda.device_count())]
+        platform = "gpu"
+    else:
+        devices, platform = ["cpu"], "cpu"
+    print(json.dumps({"platform": platform, "devices": devices,
+                      "device_count": len(devices)}))
     return 0
 
 
@@ -218,6 +327,25 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--audio-only", action="store_true",
                    help="constrain sampling to the audio token range")
     g.set_defaults(fn=cmd_generate)
+
+    d = sub.add_parser("dump-tokens", help="raw LM token stream")
+    _add_runtime_args(d)
+    d.add_argument("--text", required=True)
+    d.add_argument("--voice", default="tara")
+    d.add_argument("--max-tokens", type=int, default=256)
+    d.set_defaults(fn=cmd_dump_tokens)
+
+    q = sub.add_parser("quantize",
+                       help="offline weight quantization → a checkpoint "
+                            "that boots without quantizing")
+    _add_runtime_args(q)
+    q.add_argument("--out", required=True,
+                   help="output checkpoint dir (serve/generate "
+                        "--model-path this)")
+    q.set_defaults(fn=cmd_quantize)
+
+    dv = sub.add_parser("devices", help="device visibility check")
+    dv.set_defaults(fn=cmd_devices)
 
     s = sub.add_parser("serve", help="HTTP/WS streaming server")
     _add_runtime_args(s)

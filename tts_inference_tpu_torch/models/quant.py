@@ -1,8 +1,7 @@
 """Weight-only quantization for the decode path: int8, and int4 per group.
 
-Port of ``tts_inference_tpu/models/quant.py`` without its checkpoint codec
-(``to_plain`` / ``from_plain`` belong to ``cli quantize``, which is not
-ported yet). A decode step reads every weight once, so fewer bits per weight
+Port of ``tts_inference_tpu/models/quant.py``, with its checkpoint codec
+(``to_plain`` / ``from_plain``, for ``cli quantize``). A decode step reads every weight once, so fewer bits per weight
 are fewer bytes per step. Leaves become ``QuantLinear`` / ``QuantEmbed`` /
 ``QuantLinearI4`` tuples of tensors with the JAX package's field names and
 layouts; ``mm`` / ``embed_rows`` / ``tied_logits`` / ``head_logits`` dispatch
@@ -189,3 +188,44 @@ def head_logits(hidden: torch.Tensor, w, base: int = 0) -> torch.Tensor:
         return w8_mm(hidden, w.w_i8[:, base:], w.scale[base:],
                      out_dtype=torch.float32)
     return _dot_f32(hidden, w[:, base:])
+
+
+# -- offline-quantized checkpoint codec ---------------------------------------
+# The quantized leaves are NamedTuples; to_plain / from_plain round-trip them
+# through marker-keyed dicts (every leaf stays a tensor), so `cli quantize`
+# can save a pre-quantized checkpoint once and a boot from it skips the
+# quantization (the JAX package's marker keys).
+
+_QKINDS = {
+    "__q_linear_i8__": QuantLinear,
+    "__q_embed_i8__": QuantEmbed,
+    "__q_linear_i4__": QuantLinearI4,
+}
+_QMARKERS = {v: k for k, v in _QKINDS.items()}
+
+
+def to_plain(tree):
+    """Quantized params tree → plain dict/list tree."""
+    t = type(tree)
+    if t in _QMARKERS:
+        return {_QMARKERS[t]: dict(tree._asdict())}
+    if isinstance(tree, dict):
+        return {k: to_plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_plain(v) for v in tree]
+    return tree
+
+
+def from_plain(tree):
+    """Inverse of to_plain: rebuild the quantized NamedTuples."""
+    if isinstance(tree, dict):
+        if len(tree) == 1:
+            key = next(iter(tree))
+            if key in _QKINDS:
+                fields = tree[key]
+                cls = _QKINDS[key]
+                return cls(**{f: fields[f] for f in cls._fields})
+        return {k: from_plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_plain(v) for v in tree]
+    return tree

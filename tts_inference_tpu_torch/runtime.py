@@ -1,22 +1,31 @@
-"""Runtime assembly: config + weights → ready TTSPipeline.
+"""Runtime assembly: config + checkpoints → ready TTSPipeline.
 
-Port of ``tts_inference_tpu/runtime.py`` without checkpoint loading, the XLA
-cache or ``aot-compile``: the weights are either seeded random ones, made on
-the target device, or the JAX package's parameter pytrees (numpy leaves)
-passed in — how the tests give both packages the same model.
+Port of ``tts_inference_tpu/runtime.py`` without the XLA cache or
+``aot-compile`` (CUDA-graph capture at warmup takes their place). The LM
+comes from an HF checkpoint dir (optionally with a LoRA adapter merged), a
+pre-quantized dir written by ``cli quantize`` (``params.safetensors``), or
+seeded random weights made on the target device; the vocoder from a SNAC
+dir or seeded random weights; the tokenizer from the tokenizer dir, else
+the model dir when it holds one, else ``ByteTokenizer``. The tests can also
+pass the JAX package's parameter pytrees (numpy leaves) as ``llama_tree`` /
+``snac_tree``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tts_inference_tpu_torch import protocol
-from tts_inference_tpu_torch.config import Config
-from tts_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+from tts_inference_tpu_torch.config import Config, ModelConfig
+from tts_inference_tpu_torch.utils.tokenizer import (ByteTokenizer,
+                                                     load_tokenizer)
 from tts_inference_tpu_torch import weights
 from tts_inference_tpu_torch.engine.engine import GenerationEngine
 from tts_inference_tpu_torch.models.quant import quantize_llama_params
@@ -35,6 +44,70 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def load_model(config: Config, dev: torch.device, *,
+               model_path: Optional[str] = None,
+               lora_path: Optional[str] = None, seed: int = 0,
+               llama_tree: Optional[Dict] = None, quantize: bool = False,
+               weight_bits: int = 8) -> Tuple[Dict, Config]:
+    """The LM's parameters on `dev` and the config they imply, with the JAX
+    package's precedence: a pre-quantized dir (``cli quantize`` output)
+    brings its own dims and is never quantized again; an HF dir's
+    config.json wins over `config.model` (``use_pallas_attention`` carries
+    over); else the JAX pytree `llama_tree`, else seeded random weights.
+    With `quantize` the weights are quantized on the device, layer by
+    layer."""
+    from tts_inference_tpu_torch.training import checkpoint
+
+    if model_path and os.path.exists(os.path.join(model_path, "params")):
+        raise ValueError(
+            f"{model_path} is an orbax checkpoint of the JAX package; the "
+            "port reads its own params.safetensors (ROADMAP.md Queue 3)")
+    if model_path and checkpoint.is_checkpoint(model_path):
+        from tts_inference_tpu_torch.models.quant import from_plain
+
+        params, meta = checkpoint.restore_params(model_path, dev)
+        if meta.get("model_config"):
+            # the checkpoint carries its own dims; only performance knobs
+            # carry over from the passed config
+            mc = ModelConfig(**{
+                k: v for k, v in meta["model_config"].items()
+                if k in ModelConfig.__dataclass_fields__})
+            mc = dataclasses.replace(
+                mc, use_pallas_attention=config.model.use_pallas_attention)
+            config = dataclasses.replace(config, model=mc)
+        elif meta.get("vocab_size"):
+            config = dataclasses.replace(config, model=dataclasses.replace(
+                config.model, vocab_size=int(meta["vocab_size"])))
+        if meta.get("quantized"):
+            params = from_plain(params)
+            quantize = False
+    elif model_path:
+        from tts_inference_tpu_torch.models.llama import param_dtype
+        from tts_inference_tpu_torch.models.loader import \
+            load_llama_checkpoint
+
+        has_hf_cfg = os.path.exists(os.path.join(model_path, "config.json"))
+        params, model_cfg = load_llama_checkpoint(
+            model_path, None if has_hf_cfg else config.model,
+            lora_path=lora_path,
+            dtype=None if has_hf_cfg else param_dtype(config.model),
+            device=dev)
+        if has_hf_cfg:
+            model_cfg = dataclasses.replace(
+                model_cfg,
+                use_pallas_attention=config.model.use_pallas_attention)
+        config = dataclasses.replace(config, model=model_cfg)
+    elif llama_tree is not None:
+        params = weights.llama_params_from_jax(llama_tree, dev)
+    else:
+        params = weights.init_llama_params(config.model, seed, dev)
+    if quantize:
+        # layer by layer, dropping each full-precision weight as it goes
+        params = quantize_llama_params(params, bits=weight_bits,
+                                       free_source=True)
+    return params, config
+
+
 @dataclasses.dataclass
 class Runtime:
     config: Config
@@ -46,37 +119,59 @@ class Runtime:
     device: torch.device
 
     @classmethod
-    def create(cls, config: Optional[Config] = None, *, seed: int = 0,
-               device=None, warmup: bool = False,
+    def create(cls, config: Optional[Config] = None, *,
+               model_path: Optional[str] = None,
+               snac_path: Optional[str] = None,
+               lora_path: Optional[str] = None,
+               tokenizer_path: Optional[str] = None,
+               seed: int = 0, device=None, warmup: bool = False,
                llama_tree: Optional[Dict] = None,
                snac_tree: Optional[Dict] = None, quantize: bool = False,
                weight_bits: int = 8) -> "Runtime":
-        """Random weights from `seed` (LM: seed, vocoder: seed + 1, like the
-        JAX package), or the JAX pytrees `llama_tree` / `snac_tree`. With
-        `quantize` the LM weights are quantized on the device after init or
-        import: weight_bits 8 = per-channel int8 everywhere, 4 = per-group
-        int4 layer linears with the embedding and the head in int8."""
+        """Checkpoint dirs, or random weights from `seed` (LM: seed,
+        vocoder: seed + 1, like the JAX package), or the JAX pytrees
+        `llama_tree` / `snac_tree`. With `quantize` the LM weights are
+        quantized on the device after loading (unless the checkpoint is
+        pre-quantized): weight_bits 8 = per-channel int8 everywhere, 4 =
+        per-group int4 layer linears with the embedding and the head in
+        int8."""
         config = config or Config()
         dev = torch.device(device) if device is not None else default_device()
         timings = {}
 
         t0 = time.perf_counter()
-        params = (weights.llama_params_from_jax(llama_tree, dev)
-                  if llama_tree is not None
-                  else weights.init_llama_params(config.model, seed, dev))
-        if quantize:
-            # layer by layer, dropping each full-precision weight as it goes
-            params = quantize_llama_params(params, bits=weight_bits,
-                                           free_source=True)
+        params, config = load_model(
+            config, dev, model_path=model_path, lora_path=lora_path,
+            seed=seed, llama_tree=llama_tree, quantize=quantize,
+            weight_bits=weight_bits)
         timings["load_model_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        vparams = (weights.snac_params_from_jax(snac_tree, dev)
-                   if snac_tree is not None
-                   else weights.init_snac_params(config.snac, seed + 1, dev))
+        if snac_path:
+            from tts_inference_tpu_torch.models.loader import \
+                load_snac_checkpoint
+
+            # as with the LM: the checkpoint's own config.json wins
+            snac_has_cfg = os.path.exists(
+                os.path.join(snac_path, "config.json"))
+            vparams, snac_cfg = load_snac_checkpoint(
+                snac_path, None if snac_has_cfg else config.snac, dev)
+            config = dataclasses.replace(config, snac=snac_cfg)
+        elif snac_tree is not None:
+            vparams = weights.snac_params_from_jax(snac_tree, dev)
+        else:
+            vparams = weights.init_snac_params(config.snac, seed + 1, dev)
         vocoder = SnacDecoder(vparams, config.snac)
         timings["load_snac_s"] = time.perf_counter() - t0
-        tokenizer = ByteTokenizer()
+
+        t0 = time.perf_counter()
+        tok_dir = tokenizer_path
+        if tok_dir is None and model_path and any(
+                os.path.exists(os.path.join(model_path, f))
+                for f in ("tokenizer.json", "tokenizer_config.json")):
+            tok_dir = model_path
+        tokenizer = load_tokenizer(tok_dir) if tok_dir else ByteTokenizer()
+        timings["load_tokenizer_s"] = time.perf_counter() - t0
 
         # first-launch burst sizes: tokens for the first stable chunk
         s = config.stream
@@ -92,6 +187,12 @@ class Runtime:
         if warmup:
             t0 = time.perf_counter()
             info = engine.warmup()
+            # the vocoder's first two frame buckets, as the JAX package
+            # warms them (a dummy decode)
+            for b in vocoder.frame_buckets[:2]:
+                vocoder.decode_frames(np.zeros(b, np.int32),
+                                      np.zeros(2 * b, np.int32),
+                                      np.zeros(4 * b, np.int32))
             timings["warmup_s"] = time.perf_counter() - t0
             # the graph census as the JAX package reports it: ms → s, the
             # census itself in ms
@@ -102,3 +203,18 @@ class Runtime:
                 for k, v in info.items()})
         return cls(config, pipeline, engine, vocoder, tokenizer, timings,
                    dev)
+
+    def write_build_info(self, path: str) -> None:
+        """build_info.json: the configs, the device and the boot timings."""
+        info = {
+            "framework": "tts_inference_tpu_torch",
+            "backend": self.device.type,
+            "device_name": (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda" else "cpu"),
+            "model": dataclasses.asdict(self.config.model),
+            "engine": dataclasses.asdict(self.config.engine),
+            "snac": dataclasses.asdict(self.config.snac),
+            "load_timings": self.load_timings,
+        }
+        with open(path, "w") as f:
+            json.dump(info, f, indent=2, default=str)
