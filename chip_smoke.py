@@ -66,13 +66,26 @@ no result line is printed:
     and the head, K1 every decode step;
 13. quantized reference: the tiny slice with int4 weights + int4 KV and with
     int8 weights on the card against the same quantized leaves on the CPU;
-14. the card line, the kernels' JSON line, and last
+14. prefix serve phase: ``serve --prefix-cache`` (dense bf16 KV), two waves
+    of 8 ``/ws/tts`` requests whose texts share a 37-byte opener, then one
+    ``/generate``; the waves add exactly 1 miss and 15 hits to the
+    scheduler core's prefix counters on ``/metrics`` (the warmup's probes
+    missed once and hit before), every launch (the build's too) is a
+    replay, K1 carries every decode step; TTFA per wave beside the dense
+    phase's;
+15. prefix reference: the five KV layouts (dense bf16, dense int8, paged
+    bf16, paged int8 on demand, paged int4 with int4 weights) at full
+    width, a prefix core against a plain core over the same weights (eager
+    cores): the injected rows [0, 32) against the plain prefill's, greedy
+    tokens of a miss wave and a hit wave of 8 requests, and on demand an
+    admission beside a live slot at the edge of its last block;
+16. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
 without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
-checkpoint, paged, quant) runs some phases during development and prints no
-result line.
+checkpoint, paged, quant, prefix) runs some phases during development and
+prints no result line.
 """
 
 from __future__ import annotations
@@ -1008,14 +1021,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _request(i: int) -> dict:
+# the prefix phase's shared opener: with ByteTokenizer the first 32 prompt
+# tokens of every request are equal (a voice agent's canned greeting)
+OPENER = "Thanks for calling the support line. "
+
+
+def _request(i: int, opener: str = "") -> dict:
     # bench.py's request: speech forced, audio tokens only, fixed budget
-    return {"text": f"Stream {i}: the quick brown fox jumps over the dog.",
+    return {"text": f"{opener}Stream {i}: the quick brown fox jumps over the "
+                    "dog.",
             "force_speech": True, "audio_only": True,
             "max_tokens": MAX_TOKENS, "seed": 1000 + i, "benchmark": True}
 
 
-async def _drive(port: int, generate: bool) -> dict:
+async def _drive(port: int, generate: bool, waves: int = 1,
+                 opener: str = "") -> dict:
+    """`waves` waves of N_STREAMS concurrent /ws/tts requests, one after the
+    other, then (with `generate`) one /generate; /metrics before the first
+    wave, after the last and at the end."""
     import io
     import wave
 
@@ -1024,13 +1047,17 @@ async def _drive(port: int, generate: bool) -> dict:
     base = f"http://127.0.0.1:{port}"
     async with aiohttp.ClientSession() as sess:
 
+        async def metrics() -> dict:
+            async with sess.get(base + "/metrics") as r:
+                return await r.json()
+
         async def one(i: int) -> dict:
             t0 = time.perf_counter()
             first = None
             nbytes = 0
             done = None
             async with sess.ws_connect(base + "/ws/tts") as ws:
-                await ws.send_json(_request(i))
+                await ws.send_json(_request(i, opener))
                 async for msg in ws:
                     if msg.type == aiohttp.WSMsgType.BINARY:
                         first = first or time.perf_counter()
@@ -1050,14 +1077,21 @@ async def _drive(port: int, generate: bool) -> dict:
             return {"ttfa_ms": (first - t0) * 1e3, "bytes": nbytes,
                     "wall_s": wall, "done": done}
 
-        t0 = time.perf_counter()
-        streams = await asyncio.gather(*(one(i) for i in range(N_STREAMS)))
-        wave_s = time.perf_counter() - t0
-        out = {"streams": streams, "wave_s": wave_s}
+        out = {"streams": [], "waves": [], "wave_s": 0.0,
+               "metrics_before": await metrics()}
+        for w in range(waves):
+            t0 = time.perf_counter()
+            streams = await asyncio.gather(*(
+                one(w * N_STREAMS + i) for i in range(N_STREAMS)))
+            wave_s = time.perf_counter() - t0
+            out["waves"].append({"streams": streams, "wave_s": wave_s})
+            out["streams"] += streams
+            out["wave_s"] += wave_s
+        out["metrics_waves"] = await metrics()
         if generate:
             t1 = time.perf_counter()
-            async with sess.post(base + "/generate",
-                                 json=_request(N_STREAMS)) as r:
+            async with sess.post(base + "/generate", json=_request(
+                    waves * N_STREAMS, opener)) as r:
                 if r.status != 200:
                     raise AssertionError(f"/generate: {r.status} "
                                          f"{await r.text()}")
@@ -1065,9 +1099,14 @@ async def _drive(port: int, generate: bool) -> dict:
             out["generate_s"] = time.perf_counter() - t1
             with wave.open(io.BytesIO(wav)) as w:
                 out["generate_samples"] = w.getnframes()
-        async with sess.get(base + "/metrics") as r:
-            out["metrics"] = await r.json()
+        out["metrics"] = await metrics()
     return out
+
+
+def _ttfa(streams) -> tuple:
+    """TTFA p50 and p95 (ms) of a list of streams."""
+    t = sorted(s["ttfa_ms"] for s in streams)
+    return t[len(t) // 2], t[min(len(t) - 1, int(round(0.95 * (len(t) - 1))))]
 
 
 def _launch_counters() -> dict:
@@ -1094,16 +1133,20 @@ LINEARS_AND_HEAD = lambda layers, steps, passes: (               # noqa: E731
 
 def serve_phase(name: str, argv, expect: dict, generate: bool = True,
                 min_preemptions: int = 0, eager: bool = False,
-                on_boot=None) -> dict:
+                on_boot=None, waves: int = 1, opener: str = "",
+                prefix_counts=None) -> dict:
     """Build `cli serve` (runtime + scheduler) from `argv`, put the port's
-    aiohttp app on a localhost port and drive it: 8 concurrent /ws/tts
-    streams, then (with `generate`) one /generate, then /metrics. `expect`
-    maps each kernel of the phase's path to its launch count as a function
-    of (layers, decode steps, forward passes); every kernel it does not name
-    must not run, except K6, which must. With `eager` both engine cores are
-    replaced by eager ones (``EngineCore(..., graphs=False)``, warmed by one
-    eager pass): the path as it ran before CUDA graphs, for comparison.
-    `on_boot(rt)` runs after the boot, before the requests."""
+    aiohttp app on a localhost port and drive it: `waves` waves of 8
+    concurrent /ws/tts streams (texts starting with `opener`), then (with
+    `generate`) one /generate, then /metrics. `expect` maps each kernel of
+    the phase's path to its launch count as a function of (layers, decode
+    steps, forward passes); every kernel it does not name must not run,
+    except K6, which must. With `eager` both engine cores are replaced by
+    eager ones (``EngineCore(..., graphs=False)``, warmed by one eager
+    pass): the path as it ran before CUDA graphs, for comparison.
+    `on_boot(rt)` runs after the boot, before the requests.
+    `prefix_counts` (misses, hits): what the waves must add to the
+    scheduler core's prefix-cache counters on /metrics."""
     from aiohttp import web
 
     from tts_inference_tpu_torch import cli
@@ -1155,7 +1198,7 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         await runner.setup()
         await web.TCPSite(runner, "127.0.0.1", port).start()
         try:
-            return await _drive(port, generate)
+            return await _drive(port, generate, waves, opener)
         finally:
             await runner.cleanup()
 
@@ -1212,14 +1255,28 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     if sched_metrics.get("preemptions", 0) < min_preemptions:
         raise AssertionError(f"serve[{name}]: /metrics {sched_metrics}, "
                              f"expected >= {min_preemptions} preemptions")
+    prefix = None
+    if prefix_counts is not None:
+        b4 = res["metrics_before"]["scheduler"]
+        aft = res["metrics_waves"]["scheduler"]
+        prefix = {k: aft[k] - b4[k] for k in ("prefix_misses", "prefix_hits")}
+        print(f"serve[{name}] prefix cache: the waves added {prefix} "
+              f"(before {b4['prefix_misses']} misses, {b4['prefix_hits']} "
+              f"hits; at the end {sched_metrics['prefix_misses']} / "
+              f"{sched_metrics['prefix_hits']})", flush=True)
+        if (prefix["prefix_misses"], prefix["prefix_hits"]) != \
+                tuple(prefix_counts):
+            raise AssertionError(f"serve[{name}]: the waves added {prefix} "
+                                 f"to the prefix counters, expected "
+                                 f"{prefix_counts}")
     audio_s = PCM_BYTES / 2 / 24000
-    ttfa = sorted(s["ttfa_ms"] for s in res["streams"])
+    p50, p95 = _ttfa(res["streams"])
     out = {
-        "ttfa_ms_p50": ttfa[len(ttfa) // 2],
-        "ttfa_ms_p95": ttfa[min(len(ttfa) - 1,
-                                int(round(0.95 * (len(ttfa) - 1))))],
+        "ttfa_ms_p50": p50, "ttfa_ms_p95": p95,
+        "ttfa_ms_per_wave": [_ttfa(w["streams"]) for w in res["waves"]],
+        "prefix_counts": prefix,
         "per_stream_rtf": [audio_s / s["wall_s"] for s in res["streams"]],
-        "aggregate_rtf": N_STREAMS * audio_s / res["wave_s"],
+        "aggregate_rtf": len(res["streams"]) * audio_s / res["wave_s"],
         "wave_wall_s": res["wave_s"],
         "generate_wall_s": res.get("generate_s"),
         "decode_steps": steps, "forward_passes": passes,
@@ -1230,14 +1287,17 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         "graphs": graphs, "graph_uses": uses,
     }
     print(f"serve[{name}] TTFA ms p50 {out['ttfa_ms_p50']:.1f} p95 "
-          f"{out['ttfa_ms_p95']:.1f}", flush=True)
+          f"{out['ttfa_ms_p95']:.1f}; per wave (p50, p95) "
+          f"{[(round(a, 1), round(b, 1)) for a, b in out['ttfa_ms_per_wave']]}",
+          flush=True)
     rtf = out["per_stream_rtf"]
     print(f"serve[{name}] RTF per stream {min(rtf):.4f}..{max(rtf):.4f} "
           f"aggregate {out['aggregate_rtf']:.3f}", flush=True)
     print(f"serve[{name}] peak memory {out['max_memory_allocated']} bytes",
           flush=True)
-    print(f"serve[{name}]: 8 x /ws/tts{' + /generate' if generate else ''} "
-          "ok:", json.dumps(out), flush=True)
+    print(f"serve[{name}]: {waves} x 8 x /ws/tts"
+          f"{' + /generate' if generate else ''} ok:", json.dumps(out),
+          flush=True)
     return {"rt": rt, **out}
 
 
@@ -1337,9 +1397,19 @@ def _tiny_sampling():
 def _top2_gap(rt, prompt, toks, i, sampling) -> float:
     """The logit gap between the best and the second-best allowed token at
     greedy step i, on the runtime's device (the CPU's in the reference
-    phases): prompt + toks[:i] prefilled into a one-slot cache of the
-    runtime's kind, then the repetition penalty and the token range applied
-    as the sampler applies them."""
+    phases)."""
+    top = _allowed_logits(rt, prompt, toks, i, sampling)[0].topk(2).values
+    return float(top[0] - top[1])
+
+
+def _allowed_logits(rt, prompt, toks, i, sampling, kv_window=None,
+                    with_cache=False, split=0):
+    """The logits the sampler ranks at greedy step i: prompt + toks[:i]
+    prefilled into a one-slot cache of the runtime's kind (attention window:
+    those tokens, or `kv_window`), then the repetition penalty and the token
+    range applied as the sampler applies them (-inf outside the range).
+    `with_cache`: (logits, the one-slot cache). `split`: prefill the first
+    `split` tokens alone, then the rest from position `split`."""
     from tts_inference_tpu_torch.models import llama
     from tts_inference_tpu_torch.ops import sampling as S
 
@@ -1358,8 +1428,19 @@ def _top2_gap(rt, prompt, toks, i, sampling) -> float:
     ids = torch.tensor([list(prompt) + list(toks[:i])], dtype=torch.int32,
                        device=dev)
     n = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
-    logits, _ = llama.prefill(core.params, cfg, ids, n, cache,
-                              logits_base=core.logits_base)
+    if split:
+        first = torch.tensor([split], dtype=torch.int32, device=dev)
+        llama.forward(core.params, cfg, ids[:, :split], cache,
+                      torch.zeros_like(first), first, kv_window=split)
+        hidden, _ = llama.forward(core.params, cfg, ids[:, split:], cache,
+                                  first, n - first,
+                                  kv_window=kv_window or ids.shape[1])
+        logits = llama.compute_logits(core.params, cfg, hidden[:, -1],
+                                      core.logits_base)
+    else:
+        logits, _ = llama.prefill(core.params, cfg, ids, n, cache,
+                                  kv_window=kv_window,
+                                  logits_base=core.logits_base)
     presence = S.mark_prompt(S.init_sampling_state(1, cfg.vocab_size,
                                                    device=dev), ids,
                              n).presence
@@ -1369,8 +1450,7 @@ def _top2_gap(rt, prompt, toks, i, sampling) -> float:
     lo, hi = sampling.token_range
     col = core.logits_base + torch.arange(pen.shape[-1], device=dev)
     pen = pen.masked_fill(~((col >= lo) & (col < hi)), float("-inf"))
-    top = pen[0].topk(2).values
-    return float(top[0] - top[1])
+    return (pen, cache) if with_cache else pen
 
 
 def _tiny_check(name: str, device, flip_gap=None, quantize=False,
@@ -1708,6 +1788,355 @@ def quant_reference_phase(device="cuda") -> dict:
     return res
 
 
+# the prefix reference phase. The build and the plain prefill compute the
+# prefix's K/V with GEMMs of other widths (32 rows against the whole batch's
+# prompts), so in bf16 they differ by rounding, which grows through the
+# layers (and, in int8 / int4 rows, flips quantization levels); the plain
+# path itself moves as much under a mathematical no-op.
+# The model's own noise, measured on four of the prompts in the same run
+# (_own_noise: logits, and the cache rows [0, 32) dequantized), sets the
+# bounds: the pool entry's rows within twice the rows' noise plus one
+# quantization level of the plain prefill's; a greedy flip only where the
+# plain core's top-2 gap is within twice the logits' noise; and the logits'
+# noise itself under PREFIX_NOISE_MAX, half a standard deviation of the
+# random model's audio logits (1.1 at full width). With int4 KV the noise is
+# largest: a level there is 1/7 of a row's largest magnitude (on an H100 at
+# 700 W: logits 0.09 in bf16 and int8 KV, 0.25 in int4). The injection must
+# copy the pool entry exactly: the slot's rows [0, plen) equal the pool
+# row's bytes.
+PREFIX_NOISE_MAX = 0.5
+# name → (engine flags, int4 weights): the five KV layouts
+PREFIX_LAYOUTS = {
+    "dense": ({}, False),
+    "dense_int8": ({"kv_cache_int8": True}, False),
+    "paged": ({"paged_kv": True}, False),
+    "paged_int8_on_demand": ({"paged_kv": True, "kv_cache_int8": True,
+                              "kv_on_demand": True}, False),
+    "int4": ({"paged_kv": True, "kv_cache_int4": True}, True),
+}
+
+
+def _prefix_rows(c, slot: int, n: int) -> list:
+    """(name, tensor) of every tensor of every layer of cache `c` at the
+    slot's positions [0, n), position-major; through the block table when
+    paged."""
+    paged = hasattr(c, "block_table")
+    out = []
+    for name in ("k", "v", "k_scale", "v_scale"):
+        for x in getattr(c, name):
+            if not paged:
+                out.append((name, x[slot, :n].clone()))
+                continue
+            pos = torch.arange(n, device=x.device)
+            rows = c.block_table[slot].long()[pos // c.block_size]
+            pax = 3 if name.endswith("scale") and c.int4 else 2
+            out.append((name, x.movedim(pax, 1)[rows, pos % c.block_size]))
+    return out
+
+
+def _pool_rows(core, idx: int, n: int) -> list:
+    """Pool row idx of the prefix cache at positions [0, n), in
+    _prefix_rows' order and layout."""
+    int4 = core.engine_cfg.kv_cache_int4
+    out = []
+    for part, name in zip(core._pool, ("k", "v", "k_scale", "v_scale")):
+        for x in part:
+            row = x[idx]
+            if int4:      # (P2, PB, D) values, (2, P2, PB) scale planes
+                row = row.movedim(2, 0) if name.endswith("scale") \
+                    else row.movedim(1, 0)
+            out.append((name, row[:n]))
+    return out
+
+
+def _rows_diff(got: list, want: list, int4: bool) -> dict:
+    """Injected rows against the plain prefill's, as (dequantized) values:
+    max |d|, the largest magnitude and the largest quantization level
+    (scale); for quantized rows also the differing bytes, the largest level
+    step and the largest relative scale difference."""
+    from tts_inference_tpu_torch.ops.paged_attention_int4 import (
+        planes_to_scales, unpack_kv_int4)
+
+    res = {"max_abs_diff": 0.0, "max_abs": 0.0, "max_level": 0.0,
+           "bytes_differing": 0, "bytes": 0, "max_level_step": 0,
+           "max_scale_rel_diff": 0.0}
+    # k and v of every layer first, then (quantized) their scales in the
+    # same order
+    n_values = sum(not name.endswith("scale") for name, _ in got)
+    for j, ((name, x), (_, y)) in enumerate(zip(got, want)):
+        if name.endswith("scale"):
+            rel = ((x - y).abs() / y.abs().clamp(min=1e-30)).max()
+            res["max_scale_rel_diff"] = max(res["max_scale_rel_diff"],
+                                            float(rel))
+            continue
+        if x.dtype == torch.int8:
+            res["bytes_differing"] += int((x != y).sum())
+            res["bytes"] += x.numel()
+            a, b = ((unpack_kv_int4(x), unpack_kv_int4(y)) if int4
+                    else (x.int(), y.int()))
+            res["max_level_step"] = max(res["max_level_step"],
+                                        int((a - b).abs().max()))
+            sa, sb = got[n_values + j][1], want[n_values + j][1]
+            if int4:        # nibble planes (…, 2, P2) → (…, Hkv)
+                sa, sb = planes_to_scales(sa), planes_to_scales(sb)
+            x, y = a.float() * sa[..., None], b.float() * sb[..., None]
+            res["max_level"] = max(res["max_level"], float(sb.max()))
+        res["max_abs_diff"] = max(res["max_abs_diff"], float(
+            (x.float() - y.float()).abs().max()))
+        res["max_abs"] = max(res["max_abs"], float(y.float().abs().max()))
+    return res
+
+
+def _own_noise(shim, prompts, sampling, pb: int, int4: bool) -> tuple:
+    """The plain model's own noise, over one-slot prefills of each prompt,
+    under two mathematical no-ops: the attention window widened from the
+    prompt to max_seq, and the prompt prefilled in two parts (its first pb
+    tokens, then the rest from position pb). Returns the largest change of
+    the allowed logits under either, and of the (dequantized) cache rows
+    [0, pb) under the second."""
+    logits = rows = 0.0
+    for p in prompts:
+        a, ca = _allowed_logits(shim, p, [], 0, sampling, with_cache=True)
+        b = _allowed_logits(shim, p, [], 0, sampling,
+                            kv_window=shim.engine.core.max_seq)
+        c, cp = _allowed_logits(shim, p, [], 0, sampling, with_cache=True,
+                                split=pb)
+        ok = torch.isfinite(a)
+        logits = max(logits, float((a - b)[ok].abs().max()),
+                     float((a - c)[ok].abs().max()))
+        rows = max(rows, _rows_diff(_prefix_rows(cp, 0, pb),
+                                    _prefix_rows(ca, 0, pb),
+                                    int4)["max_abs_diff"])
+    return logits, rows
+
+
+def _prefix_waves(core, waves, n_adm: int, launches: int, sampling, pb: int):
+    """Each wave's prompts admitted into slots 0.. in one fused admission of
+    n_adm steps (a paged cache reserves what the wave decodes), then
+    `launches` decode launches of 7; returns per wave the tokens of every
+    slot and its cache rows [0, pb) after the admission. With the prefix
+    cache, each slot's rows [0, plen) must be its pool row's bytes."""
+    import numpy as np
+
+    from tts_inference_tpu_torch.ops import sampling as S
+    from tts_inference_tpu_torch.utils import to_numpy
+
+    sp = S.SamplingParams.from_config(sampling, core.batch,
+                                      device=core.device)
+    out = []
+    for prompts in waves:
+        slots = list(range(len(prompts)))
+        t0, tok, act = core.prefill_decode_launch(
+            prompts, slots, sp, np.zeros(core.batch, np.int32),
+            np.zeros(core.batch, bool), n=n_adm,
+            reserve_extra=[n_adm + 7 * launches] * len(prompts))
+        rows = [_prefix_rows(core.cache, sl, pb) for sl in slots]
+        if core.engine_cfg.prefix_cache:
+            for p, got in zip(prompts, rows):
+                cut = core.prefix_cut(len(p))
+                pool = _pool_rows(core, core._prefix_map[tuple(p[:cut])],
+                                  cut)
+                if not all(torch.equal(g[:cut], w) for (_, g), (_, w)
+                           in zip(got, pool)):
+                    raise AssertionError("the injected rows are not the "
+                                         "pool entry's bytes")
+        chunks = [t0]
+        for _ in range(launches):
+            t, tok, act = core.decode_steps_launch(sp, tok, act, 7)
+            chunks.append(t)
+        toks = to_numpy(torch.cat(chunks, dim=1))
+        out.append(([toks[sl].tolist() for sl in slots], rows))
+        core.reset_and_seed(list(range(core.batch)))
+    return out
+
+
+def _boundary_run(core, neighbour, newcomer, sampling) -> dict:
+    """A live neighbour in slot 7 decoded until its next write position is
+    126 — with blocks of 128 its blocks then cover 128 positions — then a
+    fused admission of 13 steps into slot 0 (the neighbour writes 126..138
+    inside it) and two decode launches. Returns both slots' tokens, the
+    neighbour's write position before the admission and its blocks after
+    it."""
+    import numpy as np
+
+    from tts_inference_tpu_torch.ops import sampling as S
+    from tts_inference_tpu_torch.utils import to_numpy
+
+    sp = S.SamplingParams.from_config(sampling, core.batch,
+                                      device=core.device)
+    t0, tok, act = core.prefill_decode_launch(
+        [neighbour], [7], sp, np.zeros(core.batch, np.int32),
+        np.zeros(core.batch, bool), n=13)
+    late = [t0[7]]
+    for _ in range(10):
+        t, tok, act = core.decode_steps_launch(sp, tok, act, 7)
+        late.append(t[7])
+    pos = int(core.cache.lengths[7])
+    t, tok, act = core.prefill_decode_launch([newcomer], [0], sp, tok, act,
+                                             n=13)
+    blocks = len(core._slot_blocks[7])
+    late.append(t[7, 1:])
+    new = [t[0]]
+    for _ in range(2):
+        t, tok, act = core.decode_steps_launch(sp, tok, act, 7)
+        late.append(t[7])
+        new.append(t[0])
+    res = {"neighbour": to_numpy(torch.cat(late)).tolist(),
+           "newcomer": to_numpy(torch.cat(new)).tolist(),
+           "write_pos": pos, "neighbour_blocks": blocks}
+    core.reset_and_seed(list(range(core.batch)))
+    return res
+
+
+def _first_flip(name: str, shim, prompt, got, want, sampling, bound):
+    """None when the token lists are equal; else the first differing step
+    and the plain core's top-2 logit gap there, which must be at most
+    `bound`."""
+    if got == want:
+        return None
+    i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    gap = _top2_gap(shim, prompt, want, i, sampling)
+    print(f"reference[prefix {name}]: first token difference at step {i}: "
+          f"prefix core {got[i] if i < len(got) else None} plain "
+          f"{want[i] if i < len(want) else None}; plain top-2 logit gap "
+          f"{gap} (bound {bound})", flush=True)
+    if not gap <= bound:
+        raise AssertionError(f"prefix {name}: tokens differ from the plain "
+                             f"core's at step {i} (gap {gap} > {bound})")
+    return {"step": i, "gap": gap}
+
+
+def prefix_reference_phase(rt) -> dict:
+    """The prefix cache against the plain path on the card, at full width,
+    over the runtime's weights (int4 weights quantized from them for the
+    int4 layout), eager cores: for each of the five KV layouts a prefix core
+    and a plain core run 8 greedy requests sharing a 32-token header — a
+    miss wave (the first request builds, the other seven hit in the same
+    admission) and a hit wave of other suffixes — 56 tokens each. After
+    each admission every slot's rows [0, plen) are its pool entry's bytes,
+    and the rows [0, 32) are the plain core's within the bounds above the
+    PREFIX_NOISE_MAX line (the model's own noise, measured here); so are the
+    tokens (a flip only at a plain top-2 logit gap within twice the
+    logits' noise). Under --kv-on-demand a
+    request is admitted while a live neighbour stands at write position
+    126 of a 128-token block: the neighbour's and the newcomer's tokens
+    equal the plain core's (the admission grows the live slot's blocks)."""
+    import types
+
+    from tts_inference_tpu_torch.engine.engine import EngineCore
+    from tts_inference_tpu_torch.models.quant import quantize_llama_params
+
+    t_start = time.perf_counter()
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    mcfg, base = rt.config.model, rt.config.engine
+    sampling = _tiny_sampling()
+    pb = base.prefix_len
+    waves = [[rt.pipeline.build_prompt(f"{OPENER}{kind} {i}: the quick "
+                                       "brown fox jumps over the dog.",
+                                       force_speech=True)
+              for i in range(N_STREAMS)] for kind in ("Request", "Answer")]
+    if len({tuple(p[:pb]) for w in waves for p in w}) != 1:
+        raise AssertionError("the prefix phase's prompts share no "
+                             f"{pb}-token header")
+    long = rt.pipeline.build_prompt(OPENER + "Neighbour stream, a longer "
+                                    "text for the boundary check.",
+                                    force_speech=True)
+    neighbour = long[:39] + long[-4:]        # 43 tokens
+    newcomer = waves[1][0]
+    res = {}
+    with torch.no_grad():
+        for name, (over, w4) in PREFIX_LAYOUTS.items():
+            t0 = time.perf_counter()
+            params = rt.engine.core.params
+            if w4:
+                params = quantize_llama_params(params, bits=4)
+            plain_cfg = dataclasses.replace(base, prefix_cache=False, **over)
+            runs = {}
+            for tag in ("prefix", "plain"):
+                cfg = dataclasses.replace(plain_cfg,
+                                          prefix_cache=tag == "prefix")
+                core = EngineCore(params, mcfg, cfg, device=rt.device,
+                                  graphs=False)
+                run = {"waves": _prefix_waves(core, waves, 13, 6, sampling,
+                                              pb)}
+                if cfg.kv_on_demand:
+                    run["boundary"] = _boundary_run(core, neighbour, newcomer,
+                                                    sampling)
+                run["counts"] = (core.prefix_misses, core.prefix_hits)
+                runs[tag] = run
+            # `core` is the plain one: the gaps of a flip are its
+            shim = types.SimpleNamespace(
+                engine=types.SimpleNamespace(core=core),
+                config=types.SimpleNamespace(model=mcfg, engine=plain_cfg))
+            int4 = plain_cfg.kv_cache_int4
+            noise, kv_noise = _own_noise(shim, waves[0][:4], sampling, pb,
+                                         int4)
+            if not noise <= PREFIX_NOISE_MAX:
+                raise AssertionError(f"prefix {name}: the plain prefill's "
+                                     f"logits move by {noise} under a no-op "
+                                     f"(> {PREFIX_NOISE_MAX})")
+            bound = 2 * noise
+            flips = []
+            for wave, (got, _), (want, _) in zip(
+                    waves, runs["prefix"]["waves"], runs["plain"]["waves"]):
+                for i, prompt in enumerate(wave):
+                    f = _first_flip(name, shim, prompt, got[i], want[i],
+                                    sampling, bound)
+                    if f is not None:
+                        flips.append(f)
+            row = {"prefix_counts": runs["prefix"]["counts"],
+                   "logit_noise": noise, "kv_noise": kv_noise}
+            if plain_cfg.kv_on_demand:
+                bg, bw = runs["prefix"]["boundary"], runs["plain"]["boundary"]
+                for who, prompt in (("neighbour", neighbour),
+                                    ("newcomer", newcomer)):
+                    f = _first_flip(f"{name} boundary {who}", shim, prompt,
+                                    bg[who], bw[who], sampling, bound)
+                    if f is not None:
+                        flips.append(f)
+                row["boundary"] = {k: bg[k] for k in ("write_pos",
+                                                      "neighbour_blocks")}
+                if bg["write_pos"] != 126 or bg["neighbour_blocks"] \
+                        * plain_cfg.kv_block_size < 126 + 13:
+                    raise AssertionError(f"prefix {name} boundary: "
+                                         f"{row['boundary']}")
+            del core, shim
+            diff = None
+            for (_, rg), (_, rw) in zip(runs["prefix"]["waves"],
+                                        runs["plain"]["waves"]):
+                for g, w in zip(rg, rw):
+                    d = _rows_diff(g, w, int4)
+                    diff = d if diff is None else {
+                        k: (diff[k] + v if k.startswith("bytes")
+                            else max(diff[k], v)) for k, v in d.items()}
+            row.update(kv=diff, flips=flips,
+                       seconds=time.perf_counter() - t0)
+            print(f"reference[prefix {name}]:", json.dumps(row), flush=True)
+            # one miss (the first request), then hits: the rest of the miss
+            # wave, the hit wave, and the boundary check's two requests
+            want_counts = (1, 2 * N_STREAMS - 1
+                           + (2 if plain_cfg.kv_on_demand else 0))
+            if runs["prefix"]["counts"] != want_counts:
+                raise AssertionError(f"prefix {name}: (misses, hits) "
+                                     f"{runs['prefix']['counts']}, expected "
+                                     f"{want_counts}")
+            if not diff["max_abs_diff"] <= 2 * kv_noise + diff["max_level"]:
+                raise AssertionError(f"prefix {name}: injected rows vs the "
+                                     f"plain prefill's {diff}")
+            res[name] = row
+            del params, runs
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches = {k: c.count for k, c in counters.items()}
+    print(f"reference[prefix]: {time.perf_counter() - t_start:.1f} s, kernel "
+          "launches", json.dumps(launches), flush=True)
+    res["launches"] = launches
+    return res
+
+
 def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
@@ -1907,6 +2336,9 @@ SERVE_PHASES = {
              {"generate": False}),
     "int8w": (["serve", "--quantize"],
               {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, {"generate": False}),
+    # two waves sharing an opener: the first request misses, 15 hit
+    "prefix": (["serve", "--prefix-cache"], {"K1": PER_STEP},
+               {"waves": 2, "opener": OPENER, "prefix_counts": (1, 15)}),
 }
 
 
@@ -1962,9 +2394,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
                          "kernels, qmm, dense, checkpoint, paged, quant, "
-                         "compare = the serve phases eager and replayed) and "
-                         "print no result line; the full run takes no "
-                         "arguments")
+                         "prefix, compare = the serve phases eager and "
+                         "replayed) and print no result line; the full run "
+                         "takes no arguments")
     only = ap.parse_args(argv).only
     only = set(only.split(",")) if only else None
     if not torch.cuda.is_available():
@@ -2015,6 +2447,20 @@ def main(argv=None) -> int:
         graphs["int8w"] = graph_phase("int8w", phases["int8w"]["rt"])
         _free(phases["int8w"])
         quant_reference_phase()
+    if on("prefix"):
+        t0 = time.perf_counter()
+        ph = phases["prefix"] = run_serve_phase("prefix")
+        t1 = time.perf_counter()
+        print(f"serve[prefix]: {t1 - t0:.1f} s", flush=True)
+        if "dense" in phases:
+            print("serve[prefix] TTFA ms (p50, p95) per wave",
+                  ph["ttfa_ms_per_wave"], "; dense phase of this run",
+                  (phases["dense"]["ttfa_ms_p50"],
+                   phases["dense"]["ttfa_ms_p95"]), flush=True)
+        prefix_reference_phase(ph["rt"])
+        print(f"reference[prefix]: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        _free(ph)
     if only is not None:
         print(f"chip_smoke: phases {sorted(only)} passed; no result line "
               "without the full run", flush=True)

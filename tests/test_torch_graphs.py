@@ -43,6 +43,17 @@ JAX_KEYS = {"warmed_windows", "warmed_buckets", "graphs_compiled",
             "graph_census_ms"}
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite runs it beside
+    other files' CPU-bound workers and servers, which wait on starved
+    OpenMP threads when every worker takes all the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 @pytest.fixture(scope="module")
 def trees():
     tree = numpy_llama_tree(tiny_config().model, seed=0)
@@ -67,26 +78,33 @@ def _stub_launches(core: JCore) -> None:
     core.reset_slots = lambda *a, **kw: None
 
 
-def _expected_captures(jax_census: dict, n: int) -> set:
-    """The port's capture names for the JAX package's compile names."""
-    out = set()
+def _expected_captures(jax_census: dict, n: int, prefix: bool) -> set:
+    """The port's capture names for the JAX package's compile names; with
+    the prefix cache the admissions are prefix admissions of the suffix
+    bucket, and the build has its own graph (the JAX package compiles it
+    inside its first probe)."""
+    admit = "capture_prefill_prefix_" if prefix else "capture_prefill_"
+    out = {"capture_prefix_build"} if prefix else set()
     for name in jax_census:
         parts = name.split("_")
         if name.startswith("compile_prefill_decode_"):
             b, nn, w = parts[3], parts[4][1:], parts[5][1:]
-            out |= {f"capture_prefill_{b}", f"capture_decode_n{nn}_w{w}"}
+            out |= {admit + b, f"capture_decode_n{nn}_w{w}"}
         elif name.startswith("compile_decode_w"):
             out.add(f"capture_decode_n{n}_w{name[len('compile_decode_w'):]}")
     return out
 
 
-@pytest.mark.parametrize("slots", [8, 1])
-def test_warmup_census_covers_the_jax_graphs(trees, slots):
+@pytest.mark.parametrize("slots,prefix", [(8, False), (1, False),
+                                          (8, True), (1, True)],
+                         ids=["8", "1", "8-prefix_cache", "1-prefix_cache"])
+def test_warmup_census_covers_the_jax_graphs(trees, slots, prefix):
     """8 slots: the scheduler's warmup (admission_ns = [admission_steps,
     decode_steps_per_call]); 1 slot: the single-stream engine's (its first
-    bursts). The port's census holds exactly the counterparts of the JAX
-    core's graphs, one admission graph per prompt bucket, and JAX's four
-    result keys."""
+    bursts); each without and with the prefix cache (probes padded by
+    prefix_len). The port's census holds exactly the counterparts of the
+    JAX core's graphs, one admission graph per prompt bucket, and JAX's
+    four result keys."""
     from tts_inference_tpu_torch.engine.engine import GenerationEngine
     from tts_inference_tpu_torch.engine.scheduler import Scheduler
     from tts_inference_tpu_torch.models.snac import SnacDecoder
@@ -95,7 +113,7 @@ def test_warmup_census_covers_the_jax_graphs(trees, slots):
     jp, tp = trees
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
-        cfg.engine, max_batch_size=slots))
+        cfg.engine, max_batch_size=slots, prefix_cache=prefix))
     tcfg = port_config(cfg)
     n = cfg.engine.decode_steps_per_call
     jcore = JCore(jp, cfg.model, cfg.engine, batch_size=slots)
@@ -115,13 +133,14 @@ def test_warmup_census_covers_the_jax_graphs(trees, slots):
             admission_ns=[sched.admission_steps, n])
         info, core = sched.warmup(), sched.core
     assert JAX_KEYS <= set(info)
-    want = _expected_captures(jinfo["graph_census_ms"], n)
+    want = _expected_captures(jinfo["graph_census_ms"], n, prefix)
     assert set(info["graph_census_ms"]) == want
     assert info["graphs_compiled"] == len(want)
     assert info["warmed_windows"] == jinfo["warmed_windows"]
     assert info["warmed_buckets"] == jinfo["warmed_buckets"]
     # every bucket has its admission graph; decode at every window
-    assert {f"capture_prefill_{b}" for b in cfg.engine.prefill_buckets} <= want
+    admit = "capture_prefill_prefix_" if prefix else "capture_prefill_"
+    assert {f"{admit}{b}" for b in cfg.engine.prefill_buckets} <= want
     assert {f"capture_decode_n{n}_w{w}" for w in jinfo["warmed_windows"]} \
         <= want
     # the decode graphs are shared by the buckets: fewer captures than
@@ -132,6 +151,9 @@ def test_warmup_census_covers_the_jax_graphs(trees, slots):
     assert core.replays == {} and core.launches["admission"] >= len(
         cfg.engine.prefill_buckets)
     assert not core._len_bounds.any()
+    # the probes share one prefix: one build, then hits
+    assert (core.prefix_misses, core.launches["prefix_build"]) == (
+        (1, 1) if prefix else (0, 0))
 
 
 def _core(tp, kind: str) -> TCore:
@@ -323,3 +345,47 @@ def test_workspace_outlives_the_graphs_that_read_it(monkeypatch):
         [t.data_ptr() for t in read]
     assert grown[1].numel() == 2000 and not ws.captured
     assert first[0].data_ptr() != read[0].data_ptr()
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged_int4"])
+def test_prefix_pools_keep_their_addresses(trees, kind):
+    """The prefix pools, the build's scratch cache and the launch inputs keep
+    their data_ptr through a miss, a hit and an LRU eviction (the admission
+    graphs read the pools where they captured them, and the build writes
+    its row in place); every build is a launch of its own kind."""
+    _, tp = trees
+    base = _core(tp, kind)
+    ecfg = dataclasses.replace(base.engine_cfg, prefix_cache=True,
+                               prefix_len=8, prefix_entries=2)
+    core = TCore(tp, base.model_cfg, ecfg, device="cpu")
+    sp = _sp(core, greedy=True)
+
+    def ptrs():
+        out = {f"pool{i}.{j}": t.data_ptr()
+               for i, part in enumerate(core._pool) for j, t in
+               enumerate(part)}
+        out.update({f"build.{i}": t.data_ptr() for i, t in enumerate(
+            core._build_cache.k + core._build_cache.v)})
+        out.update({name: t.data_ptr() for name, t in
+                    core._static_inputs().items()
+                    if isinstance(t, torch.Tensor)})
+        return {**out, **_addresses(core)}
+
+    act = np.zeros(core.batch, bool)
+    header = [P.TOKEN_SOS] + list(range(300, 309))
+    addr = None
+    for i, text in enumerate([[5, 6], [7], [8, 9]]):    # miss, hit, miss
+        first = list(range(400 + 10 * i, 409 + 10 * i)) if i == 2 else header
+        toks, lt, act = core.prefill_decode_launch(
+            [first + text], [0], sp, np.zeros(core.batch, np.int32), act,
+            n=3)
+        to_numpy(toks)
+        addr = addr or ptrs()
+        assert ptrs() == addr
+        core.reset_and_seed([0])
+    assert (core.prefix_misses, core.prefix_hits) == (2, 1)
+    assert core.launches == {"admission": 3, "decode": 3, "prefix_build": 2}
+    # a third prefix evicts the least recently used entry
+    core.prefill_decode_launch([[1, 2, 3, 4, 5, 6, 7, 8, 9, 10]], [0], sp,
+                               np.zeros(core.batch, np.int32), act, n=3)
+    assert len(core._prefix_map) == 2 and ptrs() == addr

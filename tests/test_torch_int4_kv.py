@@ -37,6 +37,17 @@ TINY_LM = ModelConfig.tiny(vocab_size=512)
 BLOCK = 16
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite runs it beside
+    other files' CPU-bound workers and servers, which wait on starved
+    OpenMP threads when every worker takes all the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # -- packing ---------------------------------------------------------------------
 
 
@@ -360,9 +371,45 @@ def test_int4_kv_engine_rejections():
     both = port_config(dataclasses.replace(KENG, kv_cache_int8=True))
     with pytest.raises(ValueError, match="mutually exclusive"):
         TCore(tree, cfg, both)
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        TCore(tree, cfg, port_config(dataclasses.replace(
-            KENG, prefix_cache=True)))
+
+
+def test_int4_kv_prefix_core_matches_plain():
+    """The prefix cache over int4 pools (D 128, two head pairs, int4
+    weights): a miss and then a hit give the plain int4 core's greedy
+    tokens, and the injected rows are the plain prefill's bytes."""
+    jp = jq.quantize_llama_params(to_jax(numpy_llama_tree(KCFG, seed=0)),
+                                  bits=4)
+    tree = W.llama_params_from_jax(jp)
+    pfx = TCore(tree, port_config(KCFG), port_config(dataclasses.replace(
+        KENG, prefix_cache=True, prefix_len=8)), eos_id=511)
+    plain = TCore(tree, port_config(KCFG), port_config(KENG), eos_id=511)
+    sp = tS.SamplingParams.from_config(
+        port_config(SamplingConfig(greedy=True)), 2)
+    prompts = [[7, 8, 9, 10, 11, 12, 13, 14, 15, 16], [13, 14]]
+
+    def run(core):
+        t0, tok, act = core.prefill_decode_launch(
+            prompts, [0, 1], sp, np.zeros(2, np.int32), np.zeros(2, bool),
+            n=3, reserve_extra=[24, 24])
+        t1, _, _ = core.decode_steps_launch(sp, tok, act)
+        return np.concatenate([to_numpy(t0), to_numpy(t1)], axis=1)
+
+    want = run(plain)
+    miss = run(pfx)
+    np.testing.assert_array_equal(miss, want)
+    assert (pfx.prefix_misses, pfx.prefix_hits) == (1, 0)
+    assert pfx._pool[0][0].shape == (16, 2, 8, 128)      # (E, P2, PB, D)
+    assert pfx._pool[2][0].shape == (16, 2, 2, 8)        # (E, 2, P2, PB)
+    # slot 0's positions [0, 8): the first block of its table on each side
+    rows = [int(c._table_host[0, 0]) for c in (pfx, plain)]
+    assert min(rows) > 0
+    for name in ("k", "v"):
+        for x, y in zip(getattr(pfx.cache, name), getattr(plain.cache, name)):
+            np.testing.assert_array_equal(x[rows[0], :, :8].numpy(),
+                                          y[rows[1], :, :8].numpy())
+    pfx.reset_and_seed([0, 1])
+    np.testing.assert_array_equal(run(pfx), want)
+    assert (pfx.prefix_misses, pfx.prefix_hits) == (1, 1)
 
 
 def test_int4_kv_snapshot_preempt_resume_unchanged():

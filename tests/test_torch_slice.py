@@ -284,8 +284,19 @@ def test_cli_generate_tiny_cpu(tmp_path, monkeypatch, capsys):
     assert line["tokens_per_sec"] == round(line["tokens_per_sec"], 1)
 
 
-@pytest.mark.parametrize("flag", ["--kv-int4", "--prefix-cache",
-                                  "--vocoder-bf16", "--tp=2", "--dp=2"])
+def test_cli_prefix_cache_flag():
+    """`--prefix-cache` is ported: it parses into EngineConfig(prefix_cache=
+    True) and is no option the CLI rejects any more."""
+    args = cli.build_parser().parse_args(
+        ["serve", "--tiny", "--device", "cpu", "--prefix-cache"])
+    cfg = cli._config(args)
+    assert cfg.engine.prefix_cache and "prefix_cache" not in cli.UNPORTED
+    assert not cli._config(cli.build_parser().parse_args(
+        ["serve", "--tiny"])).engine.prefix_cache
+
+
+@pytest.mark.parametrize("flag", ["--kv-int4", "--vocoder-bf16", "--tp=2",
+                                  "--dp=2"])
 def test_cli_rejects_unported_configurations(flag):
     if flag == "--kv-int4":
         # ported, but only over a paged cache: the JAX package's message

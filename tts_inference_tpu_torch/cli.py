@@ -16,10 +16,10 @@ comes from ``--tokenizer-path``, else the model dir, else bytes. The KV
 cache and admission options map onto ``EngineConfig`` as the JAX CLI maps
 them (``--paged-kv``, ``--kv-int8``, ``--kv-int4``, ``--kv-on-demand``,
 ``--kv-pool-tokens``, ``--kv-block-size``, ``--kv-buckets``,
-``--prefill-buckets``, ``--max-input-len``, ``--admission-policy``,
-``--reserved-short-slots``, ``--short-tokens``); ``--quantize
-[--weight-bits 4]`` quantizes the LM weights at boot (kernels K2 and K4)
-unless the checkpoint is pre-quantized. Without ``--device`` every command
+``--prefill-buckets``, ``--max-input-len``, ``--prefix-cache``,
+``--admission-policy``, ``--reserved-short-slots``, ``--short-tokens``);
+``--quantize [--weight-bits 4]`` quantizes the LM weights at boot (kernels
+K2 and K4) unless the checkpoint is pre-quantized. Without ``--device`` every command
 but ``devices`` runs on ``cuda`` and fails when there is none; ``--device
 cpu`` asks for the CPU.
 Options of configurations that are not ported yet are accepted by the
@@ -37,7 +37,6 @@ import time
 
 # flag → the ROADMAP.md item that ports it
 UNPORTED = {
-    "prefix_cache": "prefix cache (ROADMAP.md Queue 1 item 12)",
     "vocoder_bf16": "bf16 vocoder (ROADMAP.md Queue 1 item 14)",
     "tp": "tensor parallelism (ROADMAP.md Queue 1 item 15, multi-GPU)",
     "dp": "data parallelism (ROADMAP.md Queue 1 item 15, multi-GPU)",
@@ -103,9 +102,11 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "--short-tokens) may occupy")
     p.add_argument("--short-tokens", type=int, default=None,
                    help="'short request' threshold in tokens")
-    for flag in ("prefix_cache", "vocoder_bf16"):
-        p.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                       help=f"not ported yet: {UNPORTED[flag]}")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="cache KV for repeated prompt prefixes (the "
+                        "reference's vLLM enable_prefix_caching analog)")
+    p.add_argument("--vocoder-bf16", action="store_true",
+                   help=f"not ported yet: {UNPORTED['vocoder_bf16']}")
     p.add_argument("--tp", type=int, default=1,
                    help=f"not ported yet: {UNPORTED['tp']}")
     p.add_argument("--dp", type=int, default=1,
@@ -142,7 +143,8 @@ def _config(args):
         eng_over["max_output_len"] = args.max_output_len
     if args.max_batch_size:
         eng_over["max_batch_size"] = args.max_batch_size
-    for flag, field in (("paged_kv", "paged_kv"),
+    for flag, field in (("prefix_cache", "prefix_cache"),
+                        ("paged_kv", "paged_kv"),
                         ("kv_int8", "kv_cache_int8"),
                         ("kv_int4", "kv_cache_int4"),
                         ("kv_on_demand", "kv_on_demand")):

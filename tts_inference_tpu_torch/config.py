@@ -3,8 +3,8 @@
 The port's own copy of ``tts_inference_tpu/config.py``: the same
 dataclasses, field names and defaults, so a config translates between the
 two packages field by field (``dataclasses.asdict``). A field the port does
-not honour yet keeps its name and is rejected where it is read (the prefix
-cache and the mesh axes in ``engine/engine.py`` and ``cli.py``) or has no
+not honour yet keeps its name and is rejected where it is read (the mesh
+axes and the bf16 vocoder, in ``cli.py``) or has no
 effect because the port has no such switch (``use_pallas_attention``,
 ``use_pallas``, ``compilation_cache_dir``: the port's kernels always run on
 a CUDA tensor and eager PyTorch compiles nothing).

@@ -28,7 +28,15 @@ Port of the dense path of ``tts_inference_tpu/engine/engine.py``:
   block allocator, worst-case reservation at
   admission or on-demand growth per decode launch (``kv_on_demand``), and
   ``snapshot_slot``/``restore_slot``/``preempt_slot`` for the scheduler's
-  preempt-and-resume.
+  preempt-and-resume;
+- the prefix cache (``prefix_cache``; the reference's analog of vLLM's
+  ``enable_prefix_caching``): the KV of a prompt's first ``prefix_len``
+  tokens lives in an LRU pool of per-layer entries on the device, in the
+  serving cache's layout and precision. A miss builds the entry (the build
+  launch: a prefill of the prefix into a one-slot scratch cache, then a
+  copy into the pool row, in place); the admission launch of a prefix hit
+  copies the entry into the slot's positions [0, plen) and prefills only
+  the suffix, at its own (smaller) prompt bucket.
 
 The block table is device state written from the host. The JAX package
 swapped in a fresh immutable array on every change; here every change is
@@ -38,9 +46,11 @@ prefill into reused blocks runs after every launch that still wrote them.
 
 The block table is read as a view inside the graphs, so one decode graph
 per window serves every table state; block growth stays on the host before
-the replay.
+the replay. The prefix pools are read the same way: the build writes the
+pool rows in place, on the stream, so an admission graph replayed after it
+reads the new entry and one replayed before it the old.
 
-Not ported yet (ROADMAP.md): prefix cache, meshes; the resume re-prefill
+Not ported yet (ROADMAP.md): meshes; the resume re-prefill
 (``prefill_slots``) runs eagerly.
 """
 
@@ -92,8 +102,18 @@ class _Graph:
 
 
 def _census_name(key) -> str:
-    return (f"capture_decode_n{key[1]}_w{key[2]}" if key[0] == "decode"
-            else f"capture_prefill_{key[1]}")
+    if key[0] == "decode":
+        return f"capture_decode_n{key[1]}_w{key[2]}"
+    if key[0] == "admit_prefix":
+        return f"capture_prefill_prefix_{key[1]}"
+    if key[0] == "prefix_build":
+        return "capture_prefix_build"
+    return f"capture_prefill_{key[1]}"
+
+
+def _launch_kind(key) -> str:
+    return {"decode": "decode", "prefix_build": "prefix_build"}.get(
+        key[0], "admission")
 
 
 @dataclasses.dataclass
@@ -101,13 +121,6 @@ class GenerationResult:
     token_ids: List[int]
     finished: bool
     timings: dict
-
-
-def _unported(engine_cfg: EngineConfig) -> Optional[str]:
-    """The ROADMAP item of the first engine option the port lacks."""
-    if engine_cfg.prefix_cache:
-        return "prefix cache (ROADMAP.md Queue 1 item 12)"
-    return None
 
 
 class EngineCore:
@@ -118,9 +131,6 @@ class EngineCore:
                  engine_cfg: EngineConfig, *, batch_size: Optional[int] = None,
                  eos_id: int = protocol.TOKEN_EOS, seed: int = 0,
                  device=None, graphs: bool = True):
-        missing = _unported(engine_cfg)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {missing}")
         self.params = params
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
@@ -165,12 +175,17 @@ class EngineCore:
         self._len_bounds = np.zeros(self.batch, np.int64)
         self.decode_steps = 0   # decode steps launched (all slots at once)
         self.prefills = 0       # prefill passes launched
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        if engine_cfg.prefix_cache:
+            self._init_prefix_pool()
         # CUDA graphs on a CUDA device (graphs=False: the eager launches,
-        # for comparisons on the card); key ("decode", steps, window) or
-        # ("admit", bucket) → _Graph
+        # for comparisons on the card); key ("decode", steps, window),
+        # ("admit", bucket), ("admit_prefix", suffix bucket) or
+        # ("prefix_build",) → _Graph
         self.use_graphs = graphs and self.device.type == "cuda"
         self._graphs: dict = {}
-        self._pool = None            # one memory pool for the core's graphs
+        self._graph_pool = None      # one memory pool for the core's graphs
         self._static: Optional[dict] = None   # the launches' input tensors
         self._prepared: set = set()  # threads that ran the eager pass
         self._warming = False
@@ -219,27 +234,146 @@ class EngineCore:
             frame_pos=ss.frame_pos.masked_fill(mask, 0),
         )
 
-    def _prefill_state(self, ss: S.SamplingState, kv_window, tokens, lens,
-                       sparams, slot_mask):
+    def _prefill_state(self, ss: S.SamplingState, tokens, lens, sparams,
+                       slot_mask, prefix=None):
         """Prefill `tokens` (B, S bucket) for slots in slot_mask and sample
         their first token; other slots are untouched. Returns (tokens, the
-        sampling state after)."""
+        sampling state after). `prefix` (ptoks, plens, pidx): the prefix
+        cache's admission, see _prefix_prefill_state."""
+        if prefix is not None:
+            return self._prefix_prefill_state(ss, tokens, lens, *prefix,
+                                              sparams, slot_mask)
         seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
         logits, _ = llama.prefill(self.params, self.model_cfg, tokens, seg,
-                                  self.cache, kv_window=kv_window,
+                                  self.cache, kv_window=tokens.shape[1],
                                   logits_base=self.logits_base)
         marked = S.mark_prompt(ss, tokens, seg)
         tok, new = S.sample(logits, sparams, marked, base=self.logits_base)
         return tok, self._restore_rows(ss, new, slot_mask)
 
+    # -- the prefix cache: pools, build, injection ---------------------------
+
+    def _init_prefix_pool(self) -> None:
+        """The LRU map (prefix tokens → pool row), the free rows and the
+        per-layer pools (k, v, k_scale, v_scale) in the JAX package's
+        layouts: (E, PB, Hkv, D) with (E, PB, Hkv) int8 scales, or for int4
+        KV packed by head pair (E, Hkv/2, PB, D) with (E, 2, Hkv/2, PB)
+        nibble-plane scales; and the build's one-slot scratch cache of PB
+        positions in the serving cache's precision (for int4 one paged block
+        of PB, block 1; 0 stays the trash block). Layer > 0 K/V depend on
+        the quantized reads of the layers below, so only a build in the
+        serving precision reproduces a plain prefill's cache bytes."""
+        ecfg, cfg, dev = self.engine_cfg, self.model_cfg, self.device
+        pb, n = ecfg.prefix_len, ecfg.prefix_entries
+        hkv, hd = cfg.num_key_value_heads, cfg.head_dim
+        self._prefix_map: collections.OrderedDict = collections.OrderedDict()
+        self._prefix_free = list(range(n))
+        if ecfg.kv_cache_int4:
+            shape, sshape = (n, hkv // 2, pb, hd), (n, 2, hkv // 2, pb)
+            self._build_cache = llama.init_paged_kv_cache(
+                cfg, 1, pb, num_blocks=2, block_size=pb, int4=True,
+                device=dev)
+            self._build_cache.block_table.fill_(1)
+        else:
+            shape, sshape = (n, pb, hkv, hd), (n, pb, hkv)
+            self._build_cache = llama.init_kv_cache(
+                cfg, 1, pb, device=dev, int8=ecfg.kv_cache_int8)
+        quant = ecfg.kv_cache_int8 or ecfg.kv_cache_int4
+        dt = torch.int8 if quant else llama.param_dtype(cfg)
+
+        def layers(shp, dtype):
+            return [torch.zeros(shp, dtype=dtype, device=dev)
+                    for _ in range(cfg.num_hidden_layers)]
+
+        self._pool = (layers(shape, dt), layers(shape, dt),
+                      layers(sshape, torch.float32) if quant else [],
+                      layers(sshape, torch.float32) if quant else [])
+
+    def _build_forward(self, ptoks, plen) -> None:
+        """Prefill the prefix (1, PB) into the build's scratch cache."""
+        c = self._build_cache
+        c.lengths.zero_()
+        llama.forward(self.params, self.model_cfg, ptoks, c,
+                      torch.zeros_like(plen), plen, kv_window=ptoks.shape[1])
+
+    def _prefix_build_impl(self, ptoks, plen, idx) -> None:
+        """The build launch: the prefix's KV into the scratch cache, then
+        into pool row idx (1,), in place — the admission graphs read the
+        pools where they were captured."""
+        self._build_forward(ptoks, plen)
+        c = self._build_cache
+        row = slice(1, 2) if self.engine_cfg.kv_cache_int4 else slice(None)
+        for pools, built in zip(self._pool, (c.k, c.v, c.k_scale,
+                                             c.v_scale)):
+            for p, x in zip(pools, built):
+                p.index_copy_(0, idx, x[row])
+
+    def _inject_prefix(self, pidx, inject) -> None:
+        """Copy pool rows pidx (B,) into cache positions [0, PB) of the
+        slots in `inject`, in place. Dense: the other slots' rows are left
+        as they are. Paged: through the block table, the other slots
+        writing the trash block (row 0), like any masked paged write."""
+        cache, pb = self.cache, self.engine_cfg.prefix_len
+        caches = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+        if isinstance(cache, llama.PagedKVCache):
+            bs, b = cache.block_size, cache.block_table.shape[0]
+            pos = torch.arange(pb, device=self.device)
+            rows = cache.block_table[:, pos // bs]
+            rows = torch.where(inject[:, None], rows, torch.zeros_like(rows))
+            offs = (pos % bs)[None, :].expand(b, pb)
+            memo: dict = {}
+            for i, (cs, pools) in enumerate(zip(caches, self._pool)):
+                scale = i >= 2
+                for c, p in zip(cs, pools):
+                    sel = p.index_select(0, pidx)
+                    if cache.int4:
+                        # positions next to the batch axis: (B, PB, P2, D)
+                        # values, (B, PB, 2, P2) scale planes
+                        sel = sel.movedim(3, 1) if scale else sel.movedim(
+                            1, 2)
+                    llama.pool_scatter(c, rows, offs, sel,
+                                       n_mid=2 if scale and cache.int4
+                                       else 1, memo=memo)
+            return
+        for cs, pools in zip(caches, self._pool):
+            for c, p in zip(cs, pools):
+                sel = p.index_select(0, pidx).to(c.dtype)
+                m = inject.view((-1,) + (1,) * (sel.dim() - 1))
+                c[:, :pb].copy_(torch.where(m, sel, c[:, :pb]))
+
+    def _prefix_prefill_state(self, ss, tokens, lens, ptoks, plens, pidx,
+                              sparams, slot_mask):
+        """The prefix cache's prefill: inject each hit's pool row, prefill
+        the suffix `tokens` (B, suffix bucket) at write_pos = plens, sample
+        at the last suffix token. Slots with plens 0 (no cached prefix)
+        prefill their whole prompt from position 0. The attention window is
+        the suffix bucket + PB."""
+        zeros = torch.zeros_like(plens)
+        inject = slot_mask & (plens > 0)
+        self._inject_prefix(pidx, inject)
+        wp = torch.where(inject, plens, zeros)
+        seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
+        window = min(tokens.shape[1] + ptoks.shape[1], self.max_seq)
+        hidden, _ = llama.forward(self.params, self.model_cfg, tokens,
+                                  self.cache, wp, seg, kv_window=window)
+        last = (seg - 1).clamp(min=0).long()
+        logits = llama.compute_logits(
+            self.params, self.model_cfg,
+            hidden[torch.arange(tokens.shape[0], device=self.device), last],
+            self.logits_base)
+        marked = S.mark_prompt(S.mark_prompt(ss, ptoks, wp), tokens, seg)
+        tok, new = S.sample(logits, sparams, marked, base=self.logits_base)
+        return tok, self._restore_rows(ss, new, slot_mask)
+
     def _admit_impl(self, tokens, lens, sparams, mask, last_tok, active,
-                    seeds, reseed):
+                    seeds, reseed, prefix=None):
         """The admission launch: slot reset + prefill within the bucket +
         the first sample; returns (tok0, active0), the decode inputs where
-        admitted slots take their first token and the others keep theirs."""
+        admitted slots take their first token and the others keep theirs.
+        `prefix` (ptoks, plens, pidx): the prefix cache's admission."""
         ss = self._reset_state(self.sampling_state, mask, seeds, reseed)
-        ptok, ss = self._prefill_state(ss, tokens.shape[1], tokens, lens,
-                                       sparams, mask)
+        ptok, ss = self._prefill_state(ss, tokens, lens, sparams, mask,
+                                       prefix)
         S.copy_state(self.sampling_state, ss)
         return (torch.where(mask, ptok, last_tok),
                 torch.where(mask, ptok != self.eos_id, active))
@@ -284,6 +418,15 @@ class EngineCore:
                 "seeds": zeros(torch.int64), "reseed": zeros(torch.bool),
                 "tokens": {},        # prompt bucket → (B, bucket) int32
             }
+            if self.engine_cfg.prefix_cache:
+                pb = self.engine_cfg.prefix_len
+                self._static.update(
+                    ptoks=torch.zeros((b, pb), dtype=torch.int32, device=dev),
+                    plens=zeros(torch.int32), pidx=zeros(torch.int64),
+                    build_toks=torch.zeros((1, pb), dtype=torch.int32,
+                                           device=dev),
+                    build_len=torch.zeros(1, dtype=torch.int32, device=dev),
+                    build_idx=torch.zeros(1, dtype=torch.int64, device=dev))
         return self._static
 
     def _put(self, **inputs) -> None:
@@ -313,9 +456,14 @@ class EngineCore:
         if key[0] == "decode":
             return lambda: self._decode_impl(key[1], key[2], st["sp"],
                                              st["last_tok"], st["active"])
+        if key[0] == "prefix_build":
+            return lambda: self._prefix_build_impl(
+                st["build_toks"], st["build_len"], st["build_idx"])
+        prefix = ((st["ptoks"], st["plens"], st["pidx"])
+                  if key[0] == "admit_prefix" else None)
         return lambda: self._admit_impl(
             st["tokens"][key[1]], st["lens"], st["sp"], st["mask"],
-            st["last_tok"], st["active"], st["seeds"], st["reseed"])
+            st["last_tok"], st["active"], st["seeds"], st["reseed"], prefix)
 
     def _launch(self, key, **inputs):
         """Write the inputs, then replay the graph of `key` (captured on
@@ -325,7 +473,7 @@ class EngineCore:
         later may keep its intermediates where an earlier one keeps its
         outputs. The caller clones or copies them before that."""
         self._put(**inputs)
-        kind = "decode" if key[0] == "decode" else "admission"
+        kind = _launch_kind(key)
         self.launches[kind] += 1
         if self.use_graphs:
             graph = self._graphs.get(key) or self._capture(key)
@@ -353,9 +501,10 @@ class EngineCore:
     def _prepare(self) -> None:
         """Before this thread's first capture: one eager pass over every
         shape the graphs take — a decode step at each KV window, a prefill
-        at each prompt bucket — with every slot masked, so that it changes
-        no state (writes land in the trash row or block, lengths stay, the
-        sampled state is dropped) and counts no launch. It does what a
+        at each prompt bucket, the prefix build's prefill — with every slot
+        masked, so that it changes no state (writes land in the trash row or
+        block or the build's scratch cache, lengths stay, the sampled state
+        is dropped) and counts no launch. It does what a
         capture must not: the kernel build, this thread's cuBLAS handles,
         the rope table, the kernels' one-time attributes, the K4 / K2 plans,
         and the growth of the attention / K4 workspace to every shape."""
@@ -366,10 +515,18 @@ class EngineCore:
         b, dev = self.batch, self.device
         none = torch.zeros(b, dtype=torch.bool, device=dev)
         zeros = torch.zeros(b, dtype=torch.int32, device=dev)
-        sp = self._static_inputs()["sp"]
+        st = self._static_inputs()
+        sp = st["sp"]
         buckets = sorted(set(self.engine_cfg.prefill_buckets)
                          | {self.engine_cfg.max_input_len})
+        prefix = None
         with _build.record_launches():
+            if self.engine_cfg.prefix_cache:
+                # the build's prefill into its scratch cache (no pool write)
+                self._build_forward(torch.zeros_like(st["build_toks"]),
+                                    torch.zeros_like(st["build_len"]))
+                prefix = (torch.zeros_like(st["ptoks"]), zeros,
+                          torch.zeros_like(st["pidx"]))
             for w in self._graph_windows():
                 logits, _ = llama.decode_one(
                     self.params, self.model_cfg, zeros, self.cache, none,
@@ -379,8 +536,8 @@ class EngineCore:
             for bucket in buckets:
                 tokens = torch.zeros((b, bucket), dtype=torch.int32,
                                      device=dev)
-                self._prefill_state(self.sampling_state, bucket, tokens,
-                                    zeros, sp, none)
+                self._prefill_state(self.sampling_state, tokens, zeros, sp,
+                                    none, prefix)
         torch.cuda.synchronize(dev)
         self._prepared.add(tid)
         self.prepare_ms += (time.perf_counter() - t0) * 1e3
@@ -392,12 +549,13 @@ class EngineCore:
         with _CAPTURE_LOCK:
             self._prepare()
             t0 = time.perf_counter()
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             # thread_local: the vocode threads keep launching meanwhile
             with _build.record_launches() as launches, torch.cuda.graph(
-                    graph, pool=self._pool, capture_error_mode="thread_local"):
+                    graph, pool=self._graph_pool,
+                    capture_error_mode="thread_local"):
                 outputs = self._body(key)()
             ms = (time.perf_counter() - t0) * 1e3
         self._graphs[key] = g = _Graph(graph, outputs, launches)
@@ -443,10 +601,14 @@ class EngineCore:
     def kv_demand(self, prompt_len: int, max_tokens: int) -> int:
         """Tokens a request reserves at admission: padded prompt bucket + its
         token budget (none with kv_on_demand, which grows per decode launch)
-        + decode-call slack, rounded up to whole blocks."""
+        + decode-call slack, rounded up to whole blocks. With the prefix
+        cache the injected prefix takes block positions on top of the
+        suffix bucket: counted as prefix_len, as the JAX package does."""
         bs_blk = self.engine_cfg.kv_block_size
+        pfx = self.engine_cfg.prefix_len if self.engine_cfg.prefix_cache \
+            else 0
         budget = 0 if self.engine_cfg.kv_on_demand else max_tokens
-        total = min(self.bucket_len(prompt_len) + budget
+        total = min(self.bucket_len(prompt_len) + pfx + budget
                     + self.engine_cfg.decode_steps_per_call + 2, self.max_seq)
         return -(-total // bs_blk) * bs_blk
 
@@ -574,10 +736,12 @@ class EngineCore:
             self._free_slot_blocks([slot])
 
     def _maybe_reserve(self, slots: Sequence[int], bucket: int,
-                       reserve_extra: Optional[Sequence[int]]) -> None:
-        """Paged: reserve each admitted slot's blocks — bucket + its token
-        budget (default max_output_len) + slack, or with kv_on_demand only
-        the prefill window and one decode-call window."""
+                       reserve_extra: Optional[Sequence[int]],
+                       plens=None) -> None:
+        """Paged: reserve each admitted slot's blocks — its injected prefix
+        (plens[slot], prefix cache) + bucket + its token budget (default
+        max_output_len) + slack, or with kv_on_demand only the prefill
+        window and one decode-call window."""
         if not self.engine_cfg.paged_kv:
             return
         slack = self.engine_cfg.decode_steps_per_call + 1
@@ -588,8 +752,9 @@ class EngineCore:
         else:
             extras = (list(reserve_extra) if reserve_extra is not None
                       else [self.engine_cfg.max_output_len] * len(slots))
-        self._reserve_blocks(slots, [min(bucket + e + slack, self.max_seq)
-                                     for e in extras])
+        self._reserve_blocks(slots, [
+            min((int(plens[sl]) if plens is not None else 0) + bucket + e
+                + slack, self.max_seq) for sl, e in zip(slots, extras)])
 
     def _mask(self, slots: Sequence[int]) -> np.ndarray:
         mask = np.zeros(self.batch, bool)
@@ -636,6 +801,96 @@ class EngineCore:
             lens[sl] = len(p)
         return tokens, lens, self._mask(slots)
 
+    # -- prefix-cache host side ------------------------------------------------
+
+    MIN_PREFIX = 4   # prefixes shorter than this are not cached
+
+    def prefix_cut(self, n: int) -> int:
+        """Tokens of an n-token prompt that the prefix cache serves (0 when
+        it is off or the prompt is too short): the suffix is never empty."""
+        if not self.engine_cfg.prefix_cache:
+            return 0
+        cut = min(n - 1, self.engine_cfg.prefix_len)
+        return cut if cut >= self.MIN_PREFIX else 0
+
+    def _acquire_prefixes(self, prompts: Sequence[Sequence[int]]):
+        """Split prompts into (cached prefix, suffix), building the pool
+        entries of missing prefixes (a miss takes a free row or evicts the
+        least recently used entry; each build is one launch, enqueued
+        before the admission that reads it). Returns (suffixes, pool rows,
+        prefix lengths, prefix rows padded to PB)."""
+        pb = self.engine_cfg.prefix_len
+        suffixes, pidxs, plens, rows = [], [], [], []
+        for p in prompts:
+            p = list(p)
+            cut = self.prefix_cut(len(p))
+            if not cut:
+                suffixes.append(p)
+                pidxs.append(0)
+                plens.append(0)
+                rows.append([0] * pb)
+                continue
+            key = tuple(p[:cut])
+            idx = self._prefix_map.get(key)
+            if idx is None:
+                if self._prefix_free:
+                    idx = self._prefix_free.pop()
+                else:   # LRU eviction
+                    _, idx = self._prefix_map.popitem(last=False)
+                ptok = np.zeros((1, pb), np.int32)
+                ptok[0, :cut] = p[:cut]
+                self._launch(("prefix_build",), build_toks=ptok,
+                             build_len=[cut], build_idx=[idx])
+                self._prefix_map[key] = idx
+                self.prefix_misses += 1
+            else:
+                self._prefix_map.move_to_end(key)
+                self.prefix_hits += 1
+            suffixes.append(p[cut:])
+            pidxs.append(idx)
+            plens.append(cut)
+            rows.append(p[:cut] + [0] * (pb - cut))
+        return suffixes, pidxs, plens, rows
+
+    def _prefix_batch_arrays(self, prompts, slots, bucket=None):
+        """Host arrays of a prefix-cache admission over the slot batch;
+        `bucket` overrides the SUFFIX bucket."""
+        suffixes, pidxs, plens_l, rows = self._acquire_prefixes(prompts)
+        pb = self.engine_cfg.prefix_len
+        bucket = bucket or self.bucket_len(
+            max((len(s) for s in suffixes), default=1))
+        tokens, lens, mask = self._prompt_batch(suffixes, slots, bucket)
+        ptoks = np.zeros((self.batch, pb), np.int32)
+        plens = np.zeros(self.batch, np.int32)
+        pidx = np.zeros(self.batch, np.int32)
+        for pi, pl, row, sl in zip(pidxs, plens_l, rows, slots):
+            ptoks[sl] = row
+            plens[sl] = pl
+            pidx[sl] = pi
+        bounds = {sl: pl + min(len(suf), bucket) + 1
+                  for suf, pl, sl in zip(suffixes, plens_l, slots)}
+        return tokens, lens, ptoks, plens, pidx, mask, bounds
+
+    def _admission(self, prompts, slots, bucket=None):
+        """(launch key, host inputs, the admitted slots' length bounds) of
+        admitting `prompts` into `slots`: the plain admission of the prompt
+        bucket, or with the prefix cache the prefix admission of the suffix
+        bucket (missing prefixes built first). `bucket` overrides the
+        (suffix) bucket."""
+        if self.engine_cfg.prefix_cache:
+            tokens, lens, ptoks, plens, pidx, mask, bounds = \
+                self._prefix_batch_arrays(prompts, slots, bucket)
+            return (("admit_prefix", tokens.shape[1]),
+                    dict(tokens=tokens, lens=lens, mask=mask, ptoks=ptoks,
+                         plens=plens, pidx=pidx), bounds)
+        bucket = bucket or self.bucket_len(
+            max((len(p) for p in prompts), default=1))
+        tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
+        bounds = {sl: min(len(p), bucket) + 1
+                  for p, sl in zip(prompts, slots)}
+        return ("admit", bucket), dict(tokens=tokens, lens=lens,
+                                       mask=mask), bounds
+
     @torch.no_grad()
     def prefill_slots(self, prompts: Sequence[Sequence[int]],
                       slots: Sequence[int], sparams: S.SamplingParams,
@@ -644,22 +899,28 @@ class EngineCore:
                       bucket: Optional[int] = None) -> np.ndarray:
         """Prefill the given slots; returns their first tokens (B,) on the
         host. Runs over the whole slot batch; other slots are untouched.
-        Paged, each slot reserves bucket + reserve_extra[i] tokens of blocks
-        (default max_output_len). ``bucket`` overrides the prompt's bucket:
-        the preemption resume re-prefills through the resume tier so."""
+        Paged, each slot reserves its injected prefix + bucket +
+        reserve_extra[i] tokens of blocks (default max_output_len).
+        ``bucket`` overrides the prompt's (with the prefix cache: the
+        suffix's) bucket: the preemption resume re-prefills through the
+        resume tier so."""
         assert len(prompts) == len(slots)
-        bucket = bucket or self.bucket_len(
-            max((len(p) for p in prompts), default=1))
-        tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
+        key, inp, bounds = self._admission(prompts, slots, bucket)
         self.reset_and_seed(slots, seeds)
-        self._maybe_reserve(slots, bucket, reserve_extra)
+        self._maybe_reserve(slots, key[1], reserve_extra, inp.get("plens"))
+        prefix = None
+        if key[0] == "admit_prefix":
+            prefix = (self._t(inp["ptoks"], torch.int32),
+                      self._t(inp["plens"], torch.int32),
+                      self._t(inp["pidx"], torch.int64))
         tok, ss = self._prefill_state(
-            self.sampling_state, bucket, self._t(tokens, torch.int32),
-            self._t(lens, torch.int32), sparams, self._t(mask, torch.bool))
+            self.sampling_state, self._t(inp["tokens"], torch.int32),
+            self._t(inp["lens"], torch.int32), sparams,
+            self._t(inp["mask"], torch.bool), prefix)
         S.copy_state(self.sampling_state, ss)
         self.prefills += 1
-        for p, sl in zip(prompts, slots):
-            self._len_bounds[sl] = min(len(p), bucket) + 1
+        for sl, b in bounds.items():
+            self._len_bounds[sl] = b
         return to_numpy(tok)
 
     @torch.no_grad()
@@ -679,21 +940,22 @@ class EngineCore:
         reserve_extra as in prefill_slots."""
         n = n or self.engine_cfg.decode_steps_per_call
         assert len(prompts) == len(slots)
-        bucket = self.bucket_len(max((len(p) for p in prompts), default=1))
-        tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
+        key, inp, bounds = self._admission(prompts, slots)
         self._reset_host(slots)
         seed_arr, reseed = self._seed_arrays(slots, seeds)
-        self._maybe_reserve(slots, bucket, reserve_extra)
-        for p, sl in zip(prompts, slots):
-            self._len_bounds[sl] = min(len(p), bucket) + 1
+        self._maybe_reserve(slots, key[1], reserve_extra, inp.get("plens"))
+        for sl, b in bounds.items():
+            self._len_bounds[sl] = b
         if self.engine_cfg.paged_kv and self.engine_cfg.kv_on_demand:
-            self._grow_blocks(n)    # the slots already live decode too
+            # the slots already live decode too; on the prefix cache's
+            # branch as well, which the JAX package's lacks (ROADMAP.md
+            # Queue 3)
+            self._grow_blocks(n)
         needed = int(self._len_bounds.max(initial=0)) + n + 1
         window = kv_window or self.kv_bucket(needed)
         tok0, act0 = self._launch(
-            ("admit", bucket), tokens=tokens, lens=lens, mask=mask,
-            sp=sparams, last_tok=last_tok, active=active, seeds=seed_arr,
-            reseed=reseed)
+            key, sp=sparams, last_tok=last_tok, active=active, seeds=seed_arr,
+            reseed=reseed, **inp)
         tok0 = tok0.clone()     # before the next replay can overwrite it
         toks, tok, act = self._launch(("decode", n, window), last_tok=tok0,
                                       active=act0)
@@ -728,8 +990,10 @@ class EngineCore:
         graph of every (steps, KV window) the engine can reach — the JAX
         package's enumeration (``EngineCore.warmup_graphs`` there), whose
         fused (bucket, steps, window) graphs map here onto an admission
-        graph and a decode graph each. On the CPU the same launches run
-        eagerly, so the census names what the card would capture.
+        graph and a decode graph each (the prefix cache's admission graph
+        of the suffix bucket, and its build graph, with ``prefix_cache``).
+        On the CPU the same launches run eagerly, so the census names what
+        the card would capture.
 
         `first_bursts`: extra fused-launch step counts (the single-stream
         first dispatch covers the whole first audio chunk); `admission_ns`:
@@ -762,6 +1026,12 @@ class EngineCore:
         adm_windows = sorted({self.kv_bucket(w) for w in
                               list(self.engine_cfg.kv_buckets)
                               + [self.max_seq] if w <= self.max_seq})
+        # with the prefix cache the first prefix_len tokens are cached and
+        # the SUFFIX picks the bucket: every probe is padded by plen (they
+        # share one prefix: the first probe misses and captures the build)
+        plen = self.engine_cfg.prefix_len if self.engine_cfg.prefix_cache \
+            else 0
+        admit = "admit_prefix" if plen else "admit"
         self._warming = True
         try:
             prev_b = 0
@@ -770,16 +1040,16 @@ class EngineCore:
                 for nn in all_ns:
                     for w in adm_windows:
                         # smallest window any bucket-b prompt can need at nn
-                        if w < self.kv_bucket(min_len + nn + 2):
+                        if w < self.kv_bucket(min_len + plen + nn + 2):
                             continue
                         # probe length that needs window w exactly
-                        length = min(b, max(min_len, w - nn - 2))
-                        direct = self.kv_bucket(length + nn + 2) == w
+                        length = min(b, max(min_len, w - plen - nn - 2))
+                        direct = self.kv_bucket(length + plen + nn + 2) == w
                         if not direct and self.batch == 1:
                             continue  # one slot cannot reach w here
-                        if self._warmed(("admit", b), ("decode", nn, w)):
+                        if self._warmed((admit, b), ("decode", nn, w)):
                             continue    # both graphs captured already
-                        probe = [1] * (length if direct else min_len)
+                        probe = [1] * ((length if direct else min_len) + plen)
                         saved = self._len_bounds.copy()
                         with t.phase(f"warmup_prefill_decode_{b}_n{nn}_w{w}"):
                             if not direct:

@@ -436,11 +436,19 @@ class Scheduler:
         decode launch) could take the blocks the live slots were about to
         grow into, and the launch then failed with the pool exhausted —
         under serving traffic, where requests arrive after the preemption
-        dry run of the same step."""
+        dry run of the same step.
+
+        With the prefix cache a fresh request's demand counts prefix_len on
+        top of its bucket, as the JAX gate does, and a resume's the prefix
+        its re-prefill will inject: the resume re-prefill goes through the
+        prefix cache and reserves prefix + resume bucket + slack, which the
+        JAX gate, counting the bucket alone, could not cover on a tight
+        pool."""
         ecfg = self.config.engine
         bs_blk = ecfg.kv_block_size
         slack = ecfg.decode_steps_per_call + 1
         max_seq = self.core.max_seq
+        pfx = ecfg.prefix_len if ecfg.prefix_cache else 0
         grow = 0
         if ecfg.kv_on_demand:
             grow = bs_blk * sum(
@@ -449,13 +457,16 @@ class Scheduler:
         def entry_demand(r, p, fresh_bucket):
             if r._resume_state is not None:
                 b = self.core.resume_bucket_len(len(p)) or max_seq
-                total = min(b + slack + 1, max_seq)
+                total = min(self.core.prefix_cut(len(p)) + b + slack + 1,
+                            max_seq)
             elif ecfg.kv_on_demand:
                 # prefill window, grown through the admission launch; later
                 # growth is on demand, and preemption covers exhaustion
-                total = min(fresh_bucket + self.admission_steps + 2, max_seq)
+                total = min(fresh_bucket + pfx + self.admission_steps + 2,
+                            max_seq)
             else:
-                total = min(fresh_bucket + self._budget(r) + slack, max_seq)
+                total = min(fresh_bucket + pfx + self._budget(r) + slack,
+                            max_seq)
             return -(-total // bs_blk) * bs_blk
 
         while batch:

@@ -295,6 +295,9 @@ class Server:
                 sch["kv_free_tokens"] = core.free_tokens()
                 if core.engine_cfg.kv_on_demand:
                     sch["preemptions"] = s.preemptions
+            if core.engine_cfg.prefix_cache:
+                sch["prefix_hits"] = core.prefix_hits
+                sch["prefix_misses"] = core.prefix_misses
             body["scheduler"] = sch
         if self.rt.device.type == "cuda":
             stats = torch.cuda.memory_stats(self.rt.device)
