@@ -7,7 +7,7 @@ no result line is printed:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build of the hand-written kernels from ``tts_inference_tpu_torch/csrc``;
-3. kernel phase: each of the seven kernels (K1, K6, K3a, K3b, K5 over pools
+3. kernel phase: each of the eight kernels (K1, K6, K6-bf16, K3a, K3b, K5 over pools
    filled by the port's own pool writes; K4 and K2 over weights quantized
    by the port) against its plain PyTorch version on the card, at the serve
    paths' shapes: max |Δ| and its tolerance, device µs per call of both (a
@@ -26,7 +26,10 @@ no result line is printed:
    and W - 1, pos at a chunk's last and first key, a column slice of a
    wider block table; K6: T that is no multiple of a tile, T below the
    halo, valid 0 and T on different rows, channel-last input, channel
-   counts below the narrowest tile and no multiple of 4);
+   counts below the narrowest tile and no multiple of 4); K6-bf16, the
+   bf16 kernel, at the same 12 serve shapes against its bf16 plain version
+   (two bf16 steps of the largest output) and at K6's edges in bf16 plus
+   an odd channel count;
 4. serve phase: the full Orpheus-3B + SNAC 24 kHz geometry with seeded
    random weights behind the port's aiohttp server (``cli serve``
    defaults: 8 slots, max_seq 4608, dense bf16 KV); 8 concurrent
@@ -34,11 +37,15 @@ no result line is printed:
    K6 carried the path. Every serve phase prints the CUDA-graph census of
    its two engine cores (graphs captured at warmup, capture seconds), and
    fails unless every decode and admission launch of the run was a graph
-   replay with no capture while serving; after it, a graph phase runs the
-   same eight requests (greedy and seeded) through a scheduler over an
-   eager core (``EngineCore(..., graphs=False)``) and over a replayed one
-   on the phase's weights: tokens equal, or a greedy flip at an eager top-2
-   logit gap <= 1e-3;
+   replay with no capture while serving; every serve phase prints the
+   vocoder's graph census too (row bucket x frame bucket, first chunk) and
+   fails unless every vocode-worker call and fused first chunk was a
+   replay, with K6 (or K6-bf16) launched exactly 12 times a vocoder call;
+   after it, a graph phase runs the same eight requests (greedy and
+   seeded) through a scheduler over an eager core (``EngineCore(...,
+   graphs=False)``) and eager vocoder and over replayed ones on the
+   phase's weights: tokens equal, or a greedy flip at an eager top-2 logit
+   gap <= 1e-3, and the PCM of equal tokens within PCM16_TOL;
 5. streaming exactness: windowed lookahead decode vs one batch decode;
 6. reference: the slice at ``tiny_config()`` on the card against the same
    weights on the CPU (plain versions), and finite full-geometry logits;
@@ -79,13 +86,20 @@ no result line is printed:
     cores): the injected rows [0, 32) against the plain prefill's, greedy
     tokens of a miss wave and a hit wave of 8 requests, and on demand an
     admission beside a live slot at the edge of its last block;
-16. the card line, the kernels' JSON line, and last
+16. the bf16 vocoder: the `vocoder_bf16` serve phase (``serve
+    --vocoder-bf16``; K6-bf16 on every unit of every vocoder call, K6
+    none, K1 every decode step, every vocoder call a replay) beside the
+    dense phase's numbers, windowed vs batch decode in bf16 within
+    PCM16_TOL_BF16, and the fidelity gate of
+    ``tools/vocoder_dtype_fidelity.py`` at full geometry (64 frames x 4
+    rows: MSE, max |diff|, corr, std ratio);
+17. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
 without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
-checkpoint, paged, quant, prefix) runs some phases during development and
-prints no result line.
+checkpoint, paged, quant, prefix, vocoder = phase 16 with K6-bf16's kernel
+cases) runs some phases during development and prints no result line.
 """
 
 from __future__ import annotations
@@ -103,6 +117,11 @@ import torch
 K1_TOL = 2e-2    # bf16 inputs; compared in f32
 K3_TOL = 2e-2    # K3a/K3b/K5: bf16 queries and outputs; compared in f32
 K6_TOL = 1e-4    # f32 with TF32 off on both sides
+# K6 in bf16: the kernel keeps stage 1 and the sums in f32 and rounds twice
+# (y2, the output); the plain version rounds after every bf16 operation. On
+# the CPU the two arithmetics differ by one bf16 step of the largest output
+# at all twelve serve shapes; the tolerance is two such steps
+K6_BF16_STEPS = 2
 # K4/K2: the kernel and the plain version both accumulate in f32, in another
 # order, and round once: a bf16 output may differ by one bf16 step of the
 # largest output (2^-7 relative), an f32 output by summation order only
@@ -115,12 +134,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
-def bound(nbytes: float, flops: float, kind: str) -> dict:
+def bound(nbytes: float, flops, kind: str = "") -> dict:
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory rate, or the operations at
-    the peak rate of their type, whichever is larger."""
+    the peak rate of their type, whichever is larger. `flops` is a count of
+    `kind`, or a dict type → count (their times add)."""
+    if not isinstance(flops, dict):
+        flops = {kind: flops}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[k] for k, n in flops.items()) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -599,18 +621,99 @@ def _k3_case(kind: str, b: int, w: int, gen: torch.Generator):
                    _attention_bound(pos, hkv, g, d, key_bytes, 2))
 
 
-def _k6_unit(c: int, gen: torch.Generator):
+def _k6_unit(c: int, gen: torch.Generator, dtype=torch.float32):
     dev = "cuda"
 
     def u(shape, scale):
-        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * scale
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * scale).to(dtype)
 
     return {
-        "alpha1": 0.5 + torch.rand(c, generator=gen, device=dev),
+        "alpha1": (0.5 + torch.rand(c, generator=gen, device=dev)).to(dtype),
         "conv1": {"w": u((c, 1, 7), 7 ** -0.5), "b": u((c,), 0.1)},
-        "alpha2": 0.5 + torch.rand(c, generator=gen, device=dev),
+        "alpha2": (0.5 + torch.rand(c, generator=gen, device=dev)).to(dtype),
         "conv2": {"w": u((c, c, 1), c ** -0.5), "b": u((c,), 0.1)},
     }
+
+
+def bf16_steps(want: torch.Tensor, steps: int) -> float:
+    """`steps` bf16 steps of the largest magnitude in `want` (a bf16 value
+    in [2^e, 2^(e+1)) has steps of 2^(e-7))."""
+    import math
+
+    m = want.float().abs().max().item()
+    return steps * 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _k6_bf16_case(c: int, t: int, dil: int, gen: torch.Generator):
+    """One residual unit in bf16 (the ``--vocoder-bf16`` path). The plain
+    version is torch's bf16 sequence (snakes, cuDNN depthwise and pointwise
+    convolutions, add), which is also the library sequence."""
+    from tts_inference_tpu_torch.ops.vocoder import (
+        fused_residual_unit, fused_residual_unit_reference)
+
+    b = 8
+    p = _k6_unit(c, gen, torch.bfloat16)
+    x = torch.randn(b, c, t, generator=gen, device="cuda").bfloat16() \
+        .transpose(1, 2)
+    valid = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    valid[3] = t - 37
+    x = torch.where(torch.arange(t, device="cuda")[None, :, None]
+                    < valid[:, None, None], x,
+                    torch.zeros((), dtype=x.dtype, device="cuda"))
+    got = fused_residual_unit(x, p, dil, valid)
+    want = fused_residual_unit_reference(x, p, dil, valid)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ms = time_ms(lambda: fused_residual_unit(x, p, dil, valid))
+    plain = time_ms(lambda: fused_residual_unit_reference(x, p, dil, valid))
+    # x read and the output written once in bf16, the weights once; the
+    # pointwise product (2·C per output element) on the bf16 tensor cores,
+    # the taps and two snakes (~30 operations an element) in f32
+    elems = b * t * c
+    bnd = bound(2.0 * (2 * elems + c * c + 10 * c),
+                {"bf16": 2.0 * c * elems, "f32": 30.0 * elems})
+    return _report("K6-bf16 fused_residual_unit", f"B8 C{c} T{t} dil{dil} "
+                   "bf16", err, bf16_steps(want, K6_BF16_STEPS), ms, plain,
+                   bnd, plain)
+
+
+def _k6_bf16_edges(gen: torch.Generator) -> float:
+    """K6-bf16 at the edges of its tilings: K6's f32 edge cases in bf16
+    (T no multiple of a tile, T below the halo at dilation 9, valid 0 and
+    T on different rows, channel-last input, channel counts below the
+    narrowest tile and no multiple of 4), plus an odd channel count (the
+    weight read element by element). Returns the worst error in units of
+    the tolerance."""
+    from tts_inference_tpu_torch.ops.vocoder import (
+        fused_residual_unit, fused_residual_unit_reference)
+
+    dev = "cuda"
+    cases = [   # c, t, dil, channel_first
+        (512, 37, 1, True), (512, 512 + 5, 9, True), (64, 37, 3, True),
+        (64, 512 + 5, 9, True), (256, 16, 9, True), (128, 133, 9, True),
+        (512, 96, 3, False), (64, 700, 9, False), (256, 100, 1, False),
+        (32, 512, 1, True), (16, 4096, 3, True), (8, 1000, 9, True),
+        (4, 300, 9, True), (6, 77, 3, True), (6, 77, 3, False),
+        (100, 260, 9, True), (300, 70, 3, True), (7, 64, 9, True),
+    ]
+    worst = 0.0
+    for c, t, dil, channel_first in cases:
+        b = 3
+        p = _k6_unit(c, gen, torch.bfloat16)
+        x = (torch.randn(b, c, t, generator=gen, device=dev).transpose(1, 2)
+             if channel_first
+             else torch.randn(b, t, c, generator=gen, device=dev)).bfloat16()
+        valid = torch.tensor([t, 0, max(1, t // 3)], dtype=torch.int32,
+                             device=dev)
+        what = (f"B{b} C{c} T{t} dil{dil} "
+                f"{'channel-first' if channel_first else 'channel-last'}")
+        want = fused_residual_unit_reference(x, p, dil, valid)
+        tol = bf16_steps(want, K6_BF16_STEPS)
+        err = _edge("K6-bf16", what,
+                    lambda: fused_residual_unit(x, p, dil, valid), want, tol)
+        worst = max(worst, err / tol)
+    return worst
 
 
 def _k6_case(c: int, t: int, dil: int, gen: torch.Generator):
@@ -949,6 +1052,17 @@ def qmm_phase() -> None:
     _qmm_one_launch_check(gen)
 
 
+def k6_bf16_phase(gen: torch.Generator):
+    """K6-bf16 at the serve shapes (the 12 units of an 8-row, 16-frame
+    vocoder call: C 512 / 256 / 128 / 64 at dilations 1, 3, 9) and at its
+    edges."""
+    cases = {}
+    for c, t_frame in ((512, 32), (256, 256), (128, 1024), (64, 2048)):
+        for dil in (1, 3, 9):
+            cases[(c, dil)] = _k6_bf16_case(c, 16 * t_frame, dil, gen)
+    return cases, _k6_bf16_edges(gen)
+
+
 def kernel_phase() -> dict:
     """Each kernel against its plain version at the serve paths' shapes."""
     # the vocoder's f32 parity needs full-precision cuDNN and matmuls
@@ -980,6 +1094,8 @@ def kernel_phase() -> dict:
     k3b_edge = _k3b_edges(gen)
     k5_edge = _k5_edges(gen)
     _attention_one_launch_check(gen)
+    # after every earlier draw, so that those keep their inputs
+    k6_bf16, _ = k6_bf16_phase(gen)
 
     def worst(cases):
         return max(c["max_abs_err"] for c in cases.values())
@@ -999,6 +1115,8 @@ def kernel_phase() -> dict:
         "K5": {**k5[(8, 512)], "max_abs_err": max(worst(k5), k5_edge)},
         # all 12 units of one 8-row, 16-frame vocoder call
         "K6": {**summed(k6), "max_abs_err": max(worst(k6), k6_edge)},
+        # the same in bf16 (its edge cases are checked in their own units)
+        "K6-bf16": summed(k6_bf16),
         # the gate / up projection of a decode step, the largest linear
         "K4": {**k4[(8, 3072, 8192)],
                "max_abs_err": max(worst(k4), qmm_edge["K4"])},
@@ -1011,6 +1129,12 @@ N_STREAMS = 8
 MAX_TOKENS = 280                     # 40 frames of 7 tokens
 PCM_BYTES = (MAX_TOKENS // 7) * 2048 * 2
 PCM16_TOL = 4                        # LSB, windowed vs batch decode
+# LSB, windowed vs batch decode of the bf16 vocoder: twice the 4 LSB
+# measured on the card at this random model's amplitude (rms ~0.0035). One
+# cuDNN op (the second transposed convolution) rounds ~1.6e-4 of its bf16
+# outputs one step apart at a window's length and at a batch's; in f32,
+# rounded once, it agrees exactly but the call takes 47% longer (PERF.md)
+PCM16_TOL_BF16 = 8
 
 
 def _free_port() -> int:
@@ -1103,10 +1227,31 @@ async def _drive(port: int, generate: bool, waves: int = 1,
     return out
 
 
+def _pct(values) -> tuple:
+    """p50 and p95 of a list."""
+    t = sorted(values)
+    return t[len(t) // 2], t[min(len(t) - 1, int(round(0.95 * (len(t) - 1))))]
+
+
 def _ttfa(streams) -> tuple:
     """TTFA p50 and p95 (ms) of a list of streams."""
-    t = sorted(s["ttfa_ms"] for s in streams)
-    return t[len(t) // 2], t[min(len(t) - 1, int(round(0.95 * (len(t) - 1))))]
+    return _pct(s["ttfa_ms"] for s in streams)
+
+
+def _ttfa_parts(streams) -> dict:
+    """Where a stream's TTFA goes, p50 over the streams (ms): before its
+    slot's admission (the WebSocket, the queue: client TTFA − server TTFA),
+    the admission launch up to the first tokens on the host (server TTFT,
+    from the admission), and the first chunk from there to its emission
+    (server TTFA − TTFT)."""
+    sm = [s["done"]["server_metrics"] for s in streams]
+    return {"before_admission": _pct(
+                s["ttfa_ms"] - m["server_ttfa_ms"]
+                for s, m in zip(streams, sm))[0],
+            "admission_to_first_tokens": _pct(
+                m["server_ttft_ms"] for m in sm)[0],
+            "first_tokens_to_first_chunk": _pct(
+                m["server_ttfa_ms"] - m["server_ttft_ms"] for m in sm)[0]}
 
 
 def _launch_counters() -> dict:
@@ -1117,6 +1262,7 @@ def _launch_counters() -> dict:
     return {"K1": decode_attention.launches, "K3a": paged_attention.launches,
             "K3b": paged_attention.launches_int8,
             "K5": paged_attention_int4.launches, "K6": vocoder.launches,
+            "K6-bf16": vocoder.launches_bf16,
             "K4": int4_matmul.launches, "K2": int4_matmul.launches_w8}
 
 
@@ -1131,19 +1277,54 @@ LINEARS_AND_HEAD = lambda layers, steps, passes: (               # noqa: E731
     7 * layers + 1) * passes
 
 
+UNITS_PER_CALL = 12     # residual units of one vocoder call: 4 blocks × 3
+
+
+def _eager_vocoder(voc):
+    """A decoder over the same (already cast) weights that launches eagerly
+    (``graphs=False``)."""
+    from tts_inference_tpu_torch.models.snac import SnacDecoder
+
+    return SnacDecoder(voc.params, voc.cfg, frame_buckets=voc.frame_buckets,
+                       use_noise=voc.use_noise, graphs=False,
+                       graph_max_frames=voc.graph_max_frames)
+
+
+def _vocoder_uses(voc) -> dict:
+    return {"launches": dict(voc.launches), "replays": dict(voc.replays),
+            "late_captures": voc.late_captures,
+            "eager_calls": voc.eager_calls}
+
+
+def _vocoder_delta(voc, before: dict) -> dict:
+    import collections
+
+    now = _vocoder_uses(voc)
+    return {k: (dict(collections.Counter(now[k])
+                     - collections.Counter(before[k]))
+                if isinstance(now[k], dict) else now[k] - before[k])
+            for k in now}
+
+
 def serve_phase(name: str, argv, expect: dict, generate: bool = True,
                 min_preemptions: int = 0, eager: bool = False,
                 on_boot=None, waves: int = 1, opener: str = "",
-                prefix_counts=None) -> dict:
+                prefix_counts=None, vocoder_kernel: str = "K6") -> dict:
     """Build `cli serve` (runtime + scheduler) from `argv`, put the port's
     aiohttp app on a localhost port and drive it: `waves` waves of 8
     concurrent /ws/tts streams (texts starting with `opener`), then (with
     `generate`) one /generate, then /metrics. `expect` maps each kernel of
     the phase's path to its launch count as a function of (layers, decode
     steps, forward passes); every kernel it does not name must not run,
-    except K6, which must. With `eager` both engine cores are replaced by
-    eager ones (``EngineCore(..., graphs=False)``, warmed by one eager
-    pass): the path as it ran before CUDA graphs, for comparison.
+    except `vocoder_kernel` (K6, or K6-bf16 under ``--vocoder-bf16``),
+    which carries every residual unit of every vocoder call: 12 launches a
+    call. Every vocoder call of the run (the vocode worker's and the fused
+    first chunk's) must be a graph replay, with no capture while serving;
+    decodes beyond the streaming window's frame bucket run eagerly and are
+    counted. With `eager` both engine cores are replaced by eager ones
+    (``EngineCore(..., graphs=False)``, warmed by one eager pass) and the
+    vocoder by an eager decoder: the path as it ran before CUDA graphs, for
+    comparison.
     `on_boot(rt)` runs after the boot, before the requests.
     `prefix_counts` (misses, hits): what the waves must add to the
     scheduler core's prefix-cache counters on /metrics."""
@@ -1163,6 +1344,8 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
             holder.core = EngineCore(c.params, c.model_cfg, c.engine_cfg,
                                      batch_size=c.batch, eos_id=c.eos_id,
                                      device=c.device, graphs=False)
+        rt.vocoder = rt.pipeline.vocoder = scheduler.vocoder = \
+            _eager_vocoder(rt.vocoder)
         rt.engine.warmup()
         scheduler.warmup()
     if on_boot is not None:
@@ -1190,6 +1373,15 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     print(f"serve[{name}] census ms (scheduler):",
           json.dumps({k: round(v, 1) for k, v in core.graph_census_ms.items()}),
           flush=True)
+    voc = rt.vocoder
+    vocoder_census = {"graphs_captured": len(voc.graph_census_ms),
+                      "capture_s": sum(voc.graph_census_ms.values()) / 1e3,
+                      "dtype": rt.config.snac.dtype,
+                      "graph_max_frames": voc.graph_max_frames}
+    print(f"serve[{name}] vocoder graph census:", json.dumps(vocoder_census),
+          json.dumps({k: round(v, 1) for k, v in voc.graph_census_ms.items()}),
+          flush=True)
+    voc0 = _vocoder_uses(voc)
     late0 = [c.late_captures for c in cores]
     uses0 = [(c.launches.copy(), c.replays.copy()) for c in cores]
 
@@ -1232,6 +1424,17 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
             or not uses[0]["replays"].get("admission")):
         raise AssertionError(f"serve[{name}]: launches vs replays {uses}, "
                              f"late captures {late}")
+    # every vocoder call a replay: the worker's window decodes and the fused
+    # first chunks; whole-utterance decodes (none on this path) eager
+    vuse = _vocoder_delta(voc, voc0)
+    vcalls = sum(vuse["launches"].values())
+    print(f"serve[{name}] vocoder calls:", json.dumps(vuse), flush=True)
+    if rt.device.type == "cuda" and not eager and (
+            vuse["late_captures"] or not vuse["launches"].get("decode")
+            or not vuse["launches"].get("first_chunk")
+            or vuse["launches"] != vuse["replays"]):
+        raise AssertionError(f"serve[{name}]: vocoder calls {vuse}: every "
+                             "worker call and first chunk must replay")
 
     layers = rt.config.model.num_hidden_layers
     short = [(i, s["bytes"], s["done"]) for i, s in enumerate(res["streams"])
@@ -1243,14 +1446,15 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         raise AssertionError(f"/generate: {res['generate_samples']} samples")
     on_cuda = rt.device.type == "cuda"
     want = {k: fn(layers, steps, passes) for k, fn in expect.items()}
-    others = [k for k in launches if k not in want and k != "K6"]
-    if on_cuda and not (steps > 0 and launches["K6"] > 0
+    want[vocoder_kernel] = UNITS_PER_CALL * vcalls
+    others = [k for k in launches if k not in want]
+    if on_cuda and not (steps > 0 and vcalls > 0
                         and all(launches[k] == n for k, n in want.items())
                         and all(launches[k] == 0 for k in others)):
         raise AssertionError(f"serve[{name}] kernel launches {launches}: "
                              f"need {want} for {layers} layers, {steps} "
-                             f"decode steps, {passes} forward passes, K6 > 0,"
-                             f" {others} == 0")
+                             f"decode steps, {passes} forward passes, "
+                             f"{vcalls} vocoder calls, {others} == 0")
     sched_metrics = res["metrics"]["scheduler"]
     if sched_metrics.get("preemptions", 0) < min_preemptions:
         raise AssertionError(f"serve[{name}]: /metrics {sched_metrics}, "
@@ -1274,13 +1478,16 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     out = {
         "ttfa_ms_p50": p50, "ttfa_ms_p95": p95,
         "ttfa_ms_per_wave": [_ttfa(w["streams"]) for w in res["waves"]],
+        "ttfa_parts_ms_per_wave": [_ttfa_parts(w["streams"])
+                                   for w in res["waves"]],
         "prefix_counts": prefix,
         "per_stream_rtf": [audio_s / s["wall_s"] for s in res["streams"]],
         "aggregate_rtf": len(res["streams"]) * audio_s / res["wave_s"],
         "wave_wall_s": res["wave_s"],
         "generate_wall_s": res.get("generate_s"),
         "decode_steps": steps, "forward_passes": passes,
-        "launches": launches,
+        "launches": launches, "vocoder_calls": vuse,
+        "vocoder_census": vocoder_census,
         "scheduler_metrics": sched_metrics,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if on_cuda else None),
@@ -1288,7 +1495,8 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     }
     print(f"serve[{name}] TTFA ms p50 {out['ttfa_ms_p50']:.1f} p95 "
           f"{out['ttfa_ms_p95']:.1f}; per wave (p50, p95) "
-          f"{[(round(a, 1), round(b, 1)) for a, b in out['ttfa_ms_per_wave']]}",
+          f"{[(round(a, 1), round(b, 1)) for a, b in out['ttfa_ms_per_wave']]}"
+          f"; parts p50 per wave {out['ttfa_parts_ms_per_wave']}",
           flush=True)
     rtf = out["per_stream_rtf"]
     print(f"serve[{name}] RTF per stream {min(rtf):.4f}..{max(rtf):.4f} "
@@ -1301,9 +1509,10 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     return {"rt": rt, **out}
 
 
-def exactness_phase(rt) -> dict:
+def exactness_phase(rt, tol: int = PCM16_TOL) -> dict:
     """One request's codes decoded once in a single batch and once through
-    the windowed lookahead (the streaming path), compared in PCM16."""
+    the windowed lookahead (the streaming path), compared in PCM16 against
+    `tol` LSB."""
     import numpy as np
 
     from tts_inference_tpu_torch import protocol
@@ -1346,10 +1555,11 @@ def exactness_phase(rt) -> dict:
     res = {"frames": len(l1), "windows": la.decode_calls,
            "max_pcm16_diff": int(diff.max()),
            "samples_differing": int((diff > 0).sum()), "samples": len(a)}
+    res["dtype"] = rt.config.snac.dtype
     print("exactness: windowed vs batch decode", json.dumps(res), flush=True)
-    if res["max_pcm16_diff"] > PCM16_TOL:
+    if res["max_pcm16_diff"] > tol:
         raise AssertionError(f"windowed decode off by {res['max_pcm16_diff']}"
-                             f" LSB > {PCM16_TOL}")
+                             f" LSB > {tol}")
     return res
 
 
@@ -1499,9 +1709,10 @@ def _tiny_check(name: str, device, flip_gap=None, quantize=False,
     return res
 
 
-def _recording_scheduler(rt, config, finished: dict):
-    """A scheduler of `config` over the runtime's weights that keeps each
-    finished request's raw token stream in `finished` (text → tokens)."""
+def _recording_scheduler(rt, config, finished: dict, vocoder=None):
+    """A scheduler of `config` over the runtime's weights (and its vocoder,
+    or `vocoder`) that keeps each finished request's raw token stream in
+    `finished` (text → tokens)."""
     from tts_inference_tpu_torch.engine import scheduler as TS
 
     class Recording(TS.Scheduler):
@@ -1511,8 +1722,8 @@ def _recording_scheduler(rt, config, finished: dict):
                 finished[st.req.text] = list(st.token_ids)
             super()._release(slot)
 
-    return Recording(rt.engine.core.params, config, rt.vocoder, rt.tokenizer,
-                     device=rt.device)
+    return Recording(rt.engine.core.params, config, vocoder or rt.vocoder,
+                     rt.tokenizer, device=rt.device)
 
 
 GRAPH_FLIP_GAP = 1e-3   # eager top-2 logit gap below which a greedy flip passes
@@ -1523,15 +1734,17 @@ def _graph_run(rt, graphs: bool) -> dict:
     stepped by hand so that both runs admit and preempt alike: six at once
     (three greedy, three seeded), two more after eight steps, beside live
     streams. graphs=False puts an eager core (``EngineCore(...,
-    graphs=False)``) under the scheduler. Returns each request's raw token
-    stream and the core's launch counts."""
+    graphs=False)``) and an eager vocoder under the scheduler. Returns each
+    request's raw token stream and PCM and the core's launch counts."""
     from tts_inference_tpu_torch import protocol
     from tts_inference_tpu_torch.config import SamplingConfig
     from tts_inference_tpu_torch.engine import scheduler as TS
     from tts_inference_tpu_torch.engine.engine import EngineCore
 
     finished = {}
-    sched = _recording_scheduler(rt, rt.config, finished)
+    sched = _recording_scheduler(
+        rt, rt.config, finished,
+        vocoder=None if graphs else _eager_vocoder(rt.vocoder))
     if not graphs:
         sched.core = EngineCore(rt.engine.core.params, rt.config.model,
                                 rt.config.engine, device=rt.device,
@@ -1561,15 +1774,20 @@ def _graph_run(rt, graphs: bool) -> dict:
     wall = time.perf_counter() - t0
     sched.drain_vocoder()
     sched.stop()
+    pcm = {}
     for r in reqs:
+        parts = []
         while True:
             kind, payload = r.events.get(timeout=60)
+            if kind == "chunk":
+                parts.append(payload.pcm)
             if kind == "done":
                 break
             if kind == "error":
                 raise AssertionError(f"{r.text}: {payload}")
+        pcm[r.text] = b"".join(parts)
     core = sched.core
-    return {"tokens": finished, "reqs": reqs, "wall_s": wall,
+    return {"tokens": finished, "pcm": pcm, "reqs": reqs, "wall_s": wall,
             "preemptions": sched.preemptions,
             "launches": dict(core.launches), "replays": dict(core.replays),
             "late_captures": core.late_captures}
@@ -1597,11 +1815,25 @@ def graph_phase(name: str, rt) -> dict:
                              f"{replayed['replays']}; eager replays "
                              f"{eager['replays']}")
     flips = []
+    pcm_diff = 0
     for r in eager["reqs"]:
         a, b = eager["tokens"][r.text], replayed["tokens"][r.text]
         if len(a) != MAX_TOKENS:
             raise AssertionError(f"graph[{name}] {r.text}: {len(a)} tokens")
         if a == b:
+            # the same tokens: the replayed vocoder calls' PCM against the
+            # eager calls'
+            import numpy as np
+
+            pa, pb = (np.frombuffer(x[r.text], np.int16).astype(np.int32)
+                      for x in (eager["pcm"], replayed["pcm"]))
+            if pa.shape != pb.shape or (
+                    len(pa) and np.abs(pa - pb).max() > PCM16_TOL):
+                raise AssertionError(
+                    f"graph[{name}] {r.text}: replayed PCM {pb.shape} vs "
+                    f"eager {pa.shape} beyond {PCM16_TOL} LSB")
+            pcm_diff = max(pcm_diff, int(np.abs(pa - pb).max()) if len(pa)
+                           else 0)
             continue
         i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
                  min(len(a), len(b)))
@@ -1619,6 +1851,7 @@ def graph_phase(name: str, rt) -> dict:
         flips.append({"request": r.text, "step": i, "gap": gap})
     res = {"requests": len(eager["reqs"]),
            "tokens_equal": not flips, "flips": flips,
+           "pcm16_max_diff_replayed_vs_eager": pcm_diff,
            "preemptions": eager["preemptions"],
            "decode_launches": replayed["launches"].get("decode", 0),
            "admission_launches": replayed["launches"].get("admission", 0),
@@ -2339,7 +2572,51 @@ SERVE_PHASES = {
     # two waves sharing an opener: the first request misses, 15 hit
     "prefix": (["serve", "--prefix-cache"], {"K1": PER_STEP},
                {"waves": 2, "opener": OPENER, "prefix_counts": (1, 15)}),
+    # the bf16 vocoder: K6-bf16 carries every residual unit
+    "vocoder_bf16": (["serve", "--vocoder-bf16"], {"K1": PER_STEP},
+                     {"vocoder_kernel": "K6-bf16"}),
 }
+
+
+def fidelity_phase() -> dict:
+    """The JAX package's gate for the bf16 vocoder, on the card: the port's
+    ``tools/vocoder_dtype_fidelity.py`` at full geometry (64 frames × 4
+    rows), f32 (K6) against bf16 (K6-bf16), within its four thresholds."""
+    from tts_inference_tpu_torch.tools import vocoder_dtype_fidelity as vdf
+
+    res = vdf.run(frames=64, batch=4, seed=0, device="cuda")
+    print("fidelity: f32 vs bf16 vocoder", json.dumps(res), flush=True)
+    if not res["pass"]:
+        raise AssertionError(f"bf16 vocoder fidelity {res}")
+    return res
+
+
+def vocoder_phase(dense=None) -> dict:
+    """The bf16 vocoder: the `vocoder_bf16` serve phase (K6-bf16 on every
+    unit of every call, every call a replay), its numbers beside the same
+    run's dense phase, windowed vs batch decode in bf16 against its bound,
+    and the fidelity gate. Prints each part's seconds."""
+    t0 = time.perf_counter()
+    ph = run_serve_phase("vocoder_bf16")
+    t1 = time.perf_counter()
+    print(f"serve[vocoder_bf16]: {t1 - t0:.1f} s", flush=True)
+    keys = ("ttfa_ms_p50", "ttfa_ms_p95", "aggregate_rtf",
+            "max_memory_allocated")
+    for tag, p in (("vocoder_bf16", ph), ("dense", dense)):
+        if p is not None:
+            rtf = sorted(p["per_stream_rtf"])
+            print(f"serve[vocoder_bf16] beside dense: {tag}",
+                  json.dumps({**{k: p[k] for k in keys},
+                              "per_stream_rtf_min": rtf[0],
+                              "per_stream_rtf_median": rtf[len(rtf) // 2],
+                              "per_stream_rtf_max": rtf[-1]}), flush=True)
+    ph["exactness"] = exactness_phase(ph["rt"], tol=PCM16_TOL_BF16)
+    t2 = time.perf_counter()
+    print(f"exactness[bf16]: {t2 - t1:.1f} s", flush=True)
+    _free(ph)
+    ph["fidelity"] = fidelity_phase()
+    print(f"fidelity: {time.perf_counter() - t2:.1f} s", flush=True)
+    return ph
 
 
 def run_serve_phase(name: str, eager: bool = False) -> dict:
@@ -2375,6 +2652,8 @@ KERNELS = (
      "tts_inference_tpu/ops/pallas/decode_attention.py:97"),
     ("K6", "fused_residual_unit", "vocoder.cu",
      "tts_inference_tpu/ops/pallas/vocoder.py:212"),
+    ("K6-bf16", "fused_residual_unit_bf16", "vocoder.cu",
+     "tts_inference_tpu/ops/pallas/vocoder.py:212"),
     ("K3a", "paged_decode_attention", "paged_attention.cu",
      "tts_inference_tpu/ops/pallas/paged_attention.py:224"),
     ("K3b", "paged_decode_attention_int8", "paged_attention.cu",
@@ -2394,7 +2673,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
                          "kernels, qmm, dense, checkpoint, paged, quant, "
-                         "prefix, compare = the serve phases eager and "
+                         "prefix, vocoder, compare = the serve phases eager and "
                          "replayed) and print no result line; the full run "
                          "takes no arguments")
     only = ap.parse_args(argv).only
@@ -2461,12 +2740,17 @@ def main(argv=None) -> int:
         print(f"reference[prefix]: {time.perf_counter() - t1:.1f} s",
               flush=True)
         _free(ph)
+    if on("vocoder"):
+        if kern is None:   # --only vocoder: K6-bf16's kernel cases too
+            k6_bf16_phase(torch.Generator(device="cuda").manual_seed(0))
+        phases["vocoder_bf16"] = vocoder_phase(phases.get("dense"))
     if only is not None:
         print(f"chip_smoke: phases {sorted(only)} passed; no result line "
               "without the full run", flush=True)
         return 0
     # each kernel's launches on the main path of the phase that runs it
-    on_path = {"K1": "dense", "K6": "dense", "K3a": "paged_bf16",
+    on_path = {"K1": "dense", "K6": "dense", "K6-bf16": "vocoder_bf16",
+               "K3a": "paged_bf16",
                "K3b": "paged_int8", "K4": "int4", "K5": "int4",
                "K2": "int8w"}
     kernels = [

@@ -349,9 +349,3 @@ def test_windowed_decode_equals_batch_decode(snac_pair, lookahead):
     pcm = lambda a: ts.to_pcm16(torch.from_numpy(a)).numpy().astype(int)  # noqa: E731
     assert np.abs(pcm(got) - pcm(full)).max() <= 1
     assert la.frames_decoded_total <= 4 * 40
-
-
-def test_bf16_vocoder_is_rejected(snac_pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SnacDecoder(snac_pair[1], dataclasses.replace(
-            port_config(TINY_SNAC), dtype="bfloat16"))

@@ -295,8 +295,7 @@ def test_cli_prefix_cache_flag():
         ["serve", "--tiny"])).engine.prefix_cache
 
 
-@pytest.mark.parametrize("flag", ["--kv-int4", "--vocoder-bf16", "--tp=2",
-                                  "--dp=2"])
+@pytest.mark.parametrize("flag", ["--kv-int4", "--tp=2", "--dp=2"])
 def test_cli_rejects_unported_configurations(flag):
     if flag == "--kv-int4":
         # ported, but only over a paged cache: the JAX package's message

@@ -19,7 +19,8 @@ them (``--paged-kv``, ``--kv-int8``, ``--kv-int4``, ``--kv-on-demand``,
 ``--prefill-buckets``, ``--max-input-len``, ``--prefix-cache``,
 ``--admission-policy``, ``--reserved-short-slots``, ``--short-tokens``);
 ``--quantize [--weight-bits 4]`` quantizes the LM weights at boot (kernels
-K2 and K4) unless the checkpoint is pre-quantized. Without ``--device`` every command
+K2 and K4) unless the checkpoint is pre-quantized; ``--vocoder-bf16`` runs
+the vocoder in bf16 (K6's bf16 kernel). Without ``--device`` every command
 but ``devices`` runs on ``cuda`` and fails when there is none; ``--device
 cpu`` asks for the CPU.
 Options of configurations that are not ported yet are accepted by the
@@ -37,7 +38,6 @@ import time
 
 # flag → the ROADMAP.md item that ports it
 UNPORTED = {
-    "vocoder_bf16": "bf16 vocoder (ROADMAP.md Queue 1 item 14)",
     "tp": "tensor parallelism (ROADMAP.md Queue 1 item 15, multi-GPU)",
     "dp": "data parallelism (ROADMAP.md Queue 1 item 15, multi-GPU)",
 }
@@ -106,7 +106,10 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
                    help="cache KV for repeated prompt prefixes (the "
                         "reference's vLLM enable_prefix_caching analog)")
     p.add_argument("--vocoder-bf16", action="store_true",
-                   help=f"not ported yet: {UNPORTED['vocoder_bf16']}")
+                   help="run the SNAC vocoder in bfloat16 (f32 sums in the "
+                        "residual units' pointwise product, f32 PCM out; "
+                        "kernel K6's bf16 variant); gate its fidelity with "
+                        "tools/vocoder_dtype_fidelity.py")
     p.add_argument("--tp", type=int, default=1,
                    help=f"not ported yet: {UNPORTED['tp']}")
     p.add_argument("--dp", type=int, default=1,
@@ -162,6 +165,9 @@ def _config(args):
     if eng_over:
         cfg = dataclasses.replace(
             cfg, engine=dataclasses.replace(cfg.engine, **eng_over))
+    if args.vocoder_bf16:
+        cfg = dataclasses.replace(
+            cfg, snac=dataclasses.replace(cfg.snac, dtype="bfloat16"))
     if not args.kv_buckets:
         # long-audio engines need window buckets past the default 4096 so
         # mid-length decodes don't read the full max_seq window

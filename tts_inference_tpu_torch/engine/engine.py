@@ -73,32 +73,15 @@ from tts_inference_tpu_torch.utils.timing import PhaseTimer
 from tts_inference_tpu_torch.models import llama
 from tts_inference_tpu_torch.ops import _build
 from tts_inference_tpu_torch.ops import sampling as S
-from tts_inference_tpu_torch.utils import copy_async, to_numpy
+from tts_inference_tpu_torch.utils import copy_async, cuda_graphs, to_numpy
 
 __all__ = ["copy_async", "GenerationResult", "EngineCore",
            "GenerationEngine"]
 
 log = logging.getLogger("tts_inference_tpu_torch.engine")
 
-# one capture at a time in the process (a rule of torch.cuda.graph): the
-# runtime's two cores could otherwise capture late from two threads
-_CAPTURE_LOCK = threading.Lock()
-
-
-class _Graph:
-    """A captured launch: the CUDA graph, its output tensors (every replay
-    overwrites them) and the kernel launches one replay stands for."""
-
-    def __init__(self, graph, outputs, launches: dict):
-        self.graph = graph
-        self.outputs = outputs
-        self.launches = launches
-
-    def replay(self):
-        self.graph.replay()
-        for counter, n in self.launches.items():
-            counter.add(n)
-        return self.outputs
+_CAPTURE_LOCK = cuda_graphs.CAPTURE_LOCK
+_Graph = cuda_graphs.Graph
 
 
 def _census_name(key) -> str:

@@ -8,7 +8,10 @@ Port of ``tts_inference_tpu/engine/scheduler.py``:
   launch (prefill + decode steps for every live slot); masked cache writes
   and restored sampling rows leave mid-generation neighbours untouched;
 - the fused admission vocode decodes every admitted slot's first chunk on
-  the device from the admission's token tensor;
+  the device from the admission's token tensor (one vocoder call: a
+  CUDA-graph replay per first-chunk geometry on the card, as the worker's
+  batched window decodes are per row and frame bucket; ``warmup``
+  captures both);
 - each tick fetches one launch's tokens (the next is already running —
   depth-2 pipelining), feeds per-request extractors and lookahead decoders,
   and hands every stream's pending window to a two-stage vocode worker
@@ -51,7 +54,9 @@ from tts_inference_tpu_torch.streaming.lookahead import \
     LookaheadStreamingDecoder
 from tts_inference_tpu_torch.streaming.pipeline import (AudioChunk,
                                                         StreamMetrics,
-                                                        first_chunk_pcm)
+                                                        first_chunk_geometry,
+                                                        first_chunk_launch,
+                                                        warmup_first_chunks)
 from tts_inference_tpu_torch.utils import copy_async, to_numpy
 
 log = logging.getLogger("tts_inference_tpu_torch.scheduler")
@@ -164,14 +169,6 @@ class _SlotState:
         self.req.events.put(("done", self.metrics.finalize()))
 
 
-def _first_chunk_geometry(scfg: StreamConfig, spf: int):
-    la = (scfg.first_chunk_lookahead
-          if scfg.first_chunk_lookahead is not None
-          else scfg.lookahead_frames)
-    nf = scfg.first_chunk_frames + la
-    return nf * protocol.FRAME_SIZE, nf, scfg.first_chunk_frames * spf
-
-
 class Scheduler:
     """Fixed-slot continuous batching over one EngineCore."""
 
@@ -215,7 +212,7 @@ class Scheduler:
         self._vocode_plock = threading.Lock()
         # the admission launch decodes enough steps to cover the default
         # first chunk, so the fused admission vocode is live under `serve`
-        first_codes, _, _ = _first_chunk_geometry(
+        first_codes, _, _ = first_chunk_geometry(
             config.stream, vocoder.cfg.samples_per_frame)
         self.admission_steps = max(2 * ecfg.decode_steps_per_call,
                                    first_codes - 1)
@@ -240,31 +237,29 @@ class Scheduler:
     def warmup(self) -> dict:
         """Capture every engine launch this scheduler can make
         (``EngineCore.warmup_graphs`` over the fused admission's step counts
-        and the decode launch's), then run the batched vocode and the fused
-        first-chunk decode once (cuDNN setup). Returns the engine's graph
-        census."""
+        and the decode launch's), and every vocoder call: the batched window
+        decode of each (row bucket, frame bucket) the vocode worker can
+        meet and the fused first-chunk decode at the core's batch (the CPU
+        runs no vocoder call here). Returns the engine's graph census and
+        the vocoder's."""
         info = self.core.warmup_graphs(
             admission_ns=[self.admission_steps,
                           self.config.engine.decode_steps_per_call])
         voc = self.vocoder
-        fb = voc.frame_buckets[0]
-        voc.decode_frames_batch(
-            [(np.zeros(fb, np.int32), np.zeros(2 * fb, np.int32),
-              np.zeros(4 * fb, np.int32))] * self.core.batch,
-            first_frames=[0] * self.core.batch,
-            noise_seeds=[0] * self.core.batch)
-        n_codes, nf, emit = _first_chunk_geometry(
-            self.config.stream, voc.cfg.samples_per_frame)
-        if n_codes <= self.admission_steps + 1:
-            toks = torch.full((self.core.batch, self.admission_steps + 1),
-                              protocol.TOKEN_AUDIO_BASE, dtype=torch.int32,
-                              device=self.core.device)
-            seeds = torch.zeros(self.core.batch, dtype=torch.int64,
-                                device=self.core.device)
-            with torch.no_grad():
-                to_numpy(first_chunk_pcm(voc, toks, n_codes, nf, emit,
-                                         seeds)[0])
-        return info
+        with torch.no_grad():
+            voc.warmup_graphs(self.core.batch)
+            warmup_first_chunks(voc, self.core.batch,
+                                self.first_chunk_geometries(),
+                                self.core.device)
+        return {**info, **voc.census()}
+
+    def first_chunk_geometries(self) -> list:
+        """The fused first chunk's geometries (n_codes, nf, emit) this
+        scheduler decodes: the default stream's, where it fits the
+        admission burst."""
+        geo = first_chunk_geometry(self.config.stream,
+                                   self.vocoder.cfg.samples_per_frame)
+        return [geo] if geo[0] <= self.admission_steps + 1 else []
 
     def start(self) -> None:
         if self._thread is not None:
@@ -365,7 +360,7 @@ class Scheduler:
         for slot, req, _ in batch:
             if not req.force_speech:
                 continue
-            g = _first_chunk_geometry(req.stream_cfg, spf)
+            g = first_chunk_geometry(req.stream_cfg, spf)
             if g[0] > toks_d.shape[1] or req.sampling.max_tokens < g[0]:
                 self._warn_geo(g, "first chunk exceeds the admission burst")
                 continue
@@ -379,10 +374,8 @@ class Scheduler:
         seeds = np.zeros(self.core.batch, np.int64)
         for slot, req, _ in batch:
             seeds[slot] = req.noise_seed & 0xFFFFFFFF
-        pcm_d, ok_d = first_chunk_pcm(
-            self.vocoder, toks_d, n_codes, nf, emit,
-            torch.from_numpy(seeds).to(self.core.device))
-        pcm_h, ok_h = copy_async(pcm_d, ok_d)
+        pcm_h, ok_h = first_chunk_launch(
+            self.vocoder, toks_d, n_codes, nf, emit, torch.from_numpy(seeds))
         return (eligible, pcm_h, ok_h, nf, emit)
 
     def _set_sp_row(self, slot: int, sp: SamplingConfig) -> None:

@@ -1,4 +1,4 @@
-"""SNAC-equivalent neural vocoder (codes → 24 kHz PCM), f32.
+"""SNAC-equivalent neural vocoder (codes → 24 kHz PCM), f32 or bf16.
 
 Port of ``tts_inference_tpu/models/snac.py``:
 
@@ -11,7 +11,19 @@ The public functions keep the JAX package's (B, T, C) layout; inside,
 ``decode_latent`` keeps activations channel-first (B, C, T) for cuDNN and
 hands the residual units to K6 (``ops.vocoder.fused_residual_unit``, which
 reads the channel-first storage through strides) — the hand-written kernel
-on CUDA for every unit, its plain version on the CPU.
+on CUDA for every unit (f32, or bf16 under ``SnacConfig.dtype="bfloat16"``),
+its plain version on the CPU. As in the JAX package, the compute dtype is
+``SnacConfig.dtype``: ``SnacDecoder`` casts every f32 parameter to it once,
+the position noise stays f32 and its product is cast back, and the PCM is
+f32 whatever the dtype.
+
+``SnacDecoder`` makes every vocoder call of the serve path — the vocode
+worker's batched window decode and the fused first-chunk decode — as one
+launch: on a CUDA device a CUDA graph per geometry (row bucket and frame
+bucket; first-chunk geometry and batch), captured at warmup or, counted as
+a late capture, on first use, the JAX package's ``jax.jit`` of the decode
+per shape. Decodes longer than ``graph_max_frames`` (whole utterances) run
+eagerly and are counted.
 
 TF32 is turned off for the whole process when this module is imported:
 ``torch.backends.cudnn.allow_tf32`` is True by default in torch, and a TF32
@@ -25,18 +37,24 @@ uint32 arithmetic is emulated in int64 masked to 32 bits.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import logging
 import math
-from typing import Dict, Optional, Sequence, Tuple
+import threading
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tts_inference_tpu_torch.config import SnacConfig
+from tts_inference_tpu_torch.ops import _build
 from tts_inference_tpu_torch.ops.vocoder import (fused_residual_unit, snake,
                                                  valid_lengths)
-from tts_inference_tpu_torch.utils import copy_async, to_numpy
+from tts_inference_tpu_torch.utils import copy_async, cuda_graphs, to_numpy
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,8 +63,13 @@ __all__ = ["conv1d", "conv_transpose1d", "snake", "position_noise",
            "codes_to_latent", "decode_latent", "decode_codes", "to_pcm16",
            "SnacDecoder"]
 
+log = logging.getLogger("tts_inference_tpu_torch.vocoder")
+
 Params = Dict
 _M32 = 0xFFFFFFFF
+# SnacConfig.dtype → the compute dtype (the JAX package's table)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +137,10 @@ def codes_to_latent(params: Params, cfg: SnacConfig,
         emb = q["codebook"][c.long()]                     # (B, n, cd)
         proj = F.conv1d(emb.transpose(1, 2), q["out_proj"]["w"],
                         q["out_proj"]["b"])               # (B, L, n)
-        if stride > 1:
-            proj = proj.repeat_interleave(stride, dim=2)
+        if stride > 1:   # nearest-neighbour upsample, device work only
+            b, d, n = proj.shape
+            proj = proj[..., None].expand(b, d, n, stride).reshape(
+                b, d, n * stride)
         z = proj if z is None else z + proj
     return z.transpose(1, 2)
 
@@ -204,31 +229,202 @@ def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
     return torch.clamp(audio * 32767.0, -32768.0, 32767.0).to(torch.int16)
 
 
+def _cast_tree(tree, dtype):
+    """Every f32 tensor of a parameter tree cast to `dtype` (ints, None and
+    other dtypes as they are)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
+        return tree.to(dtype)
+    return tree
+
+
+def _census_name(key) -> str:
+    if key[0] == "decode":
+        return f"capture_vocoder_r{key[1]}_f{key[2]}"
+    return "capture_first_chunk_b{}_c{}_f{}_e{}".format(*key[1:])
+
+
 @dataclasses.dataclass
 class SnacDecoder:
     """Decode at bucketed frame counts, several windows per device call.
 
     Buckets bound the shapes cuDNN sees (its algorithm choice is per shape)
     and match the JAX package's padding, so both decode the same windows.
+
+    Every call goes through :meth:`run`: on a CUDA device with ``graphs`` a
+    CUDA graph per key — ("decode", row bucket, frame bucket) for the
+    batched window decode up to ``graph_max_frames``, ("first_chunk",
+    batch, n_codes, nf, emit) for the fused first chunk — replayed over
+    fixed input tensors; the CPU, ``graphs=False`` and longer decodes run
+    the same bodies eagerly. A call's inputs, its replay and its output's
+    device→host copy are enqueued under one lock: the graphs share one
+    memory pool (a replay may overwrite another graph's outputs), and the
+    scheduler thread and the vocode worker both call, on one stream.
     """
 
     params: Params
     cfg: SnacConfig
     frame_buckets: Tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512, 1024)
     use_noise: Optional[bool] = None
+    graphs: bool = True
+    # the largest frame bucket a graph is kept for: the streaming window's
+    # (Runtime sets it from StreamConfig); whole-utterance decodes, up to
+    # 4608/7 frames, would need graphs of hundreds of MB each
+    graph_max_frames: int = 16
 
     def __post_init__(self):
-        if self.cfg.dtype != "float32":
-            raise NotImplementedError(
-                "the port's vocoder runs in f32 only; the bf16 vocoder is "
-                "ROADMAP.md Queue 1 item 14")
+        if self.cfg.dtype not in DTYPES:
+            raise ValueError(f"SnacConfig.dtype {self.cfg.dtype!r}: the "
+                             f"vocoder computes in one of {sorted(DTYPES)}")
+        # cast ONCE here, as the JAX package does, so the weights stay in
+        # the compute dtype in device memory (float16 has no K6 kernel on
+        # the card: the wrapper raises there)
+        self.dtype = DTYPES[self.cfg.dtype]
+        if self.dtype != torch.float32:
+            self.params = _cast_tree(self.params, self.dtype)
         self.device = self.params["quantizer"][0]["codebook"].device
+        self.use_graphs = self.graphs and self.device.type == "cuda"
+        self._graphs: Dict[tuple, cuda_graphs.Graph] = {}
+        self._static: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self._pool = None
+        self._lock = threading.Lock()
+        self._warming = False
+        # the census: name → capture ms (on the CPU, or without graphs, the
+        # first eager call's ms: the keys the card would capture)
+        self.graph_census_ms: Dict[str, float] = {}
+        self.late_captures = 0           # captured outside warmup
+        self.launches = collections.Counter()   # calls by kind
+        self.replays = collections.Counter()    # of them graph replays
+        self.eager_calls = 0   # decodes beyond graph_max_frames
 
     def bucket_frames(self, n_frames: int) -> int:
         for b in self.frame_buckets:
             if n_frames <= b:
                 return b
         return n_frames
+
+    # -- launches: CUDA-graph replay or eager ----------------------------------
+
+    def run(self, key: tuple, body: Callable, **inputs) -> tuple:
+        """One vocoder call: `body(**inputs)` → output tensors, whose
+        device→host copies are returned (``HostCopy`` each). `inputs` are
+        CPU tensors (host data) or device tensors. With graphs, the inputs
+        are copied into the key's fixed tensors (host data from pinned
+        memory, without blocking) and the key's graph replays; `body` is
+        read only when the key is captured."""
+        graphable = key[0] != "decode" or key[2] <= self.graph_max_frames
+        with self._lock:
+            self.launches[key[0]] += 1
+            if not (self.use_graphs and graphable):
+                if not graphable:
+                    self.eager_calls += 1
+                t0 = time.perf_counter()
+                outs = body(**{k: v.to(self.device)
+                               for k, v in inputs.items()})
+                name = _census_name(key)
+                if graphable and name not in self.graph_census_ms:
+                    self.graph_census_ms[name] = \
+                        (time.perf_counter() - t0) * 1e3
+                return copy_async(*outs)
+            static = self._put(key, inputs)
+            graph = self._graphs.get(key) or self._capture(key, body, static)
+            self.replays[key[0]] += 1
+            return copy_async(*graph.replay())
+
+    def _put(self, key, inputs) -> Dict[str, torch.Tensor]:
+        """Copy a call's inputs into the key's fixed tensors, in stream
+        order."""
+        static = self._static.get(key)
+        if static is None:
+            static = self._static[key] = {
+                k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                for k, v in inputs.items()}
+        for k, v in inputs.items():
+            if v.device.type == "cpu":
+                v = v.pin_memory()
+            static[k].copy_(v, non_blocking=True)
+        return static
+
+    def _capture(self, key, body, static) -> cuda_graphs.Graph:
+        """Capture `body` over the key's fixed tensors into a CUDA graph of
+        the decoder's memory pool, after one eager pass in this thread (not
+        counted: cuDNN's plans, the kernels' one-time attributes and the
+        workspace come into being outside the capture); a capture that
+        fails raises."""
+        with cuda_graphs.CAPTURE_LOCK:
+            with _build.record_launches():
+                body(**static)
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the engine's threads keep launching meanwhile
+            with _build.record_launches() as launches, torch.cuda.graph(
+                    graph, pool=self._pool,
+                    capture_error_mode="thread_local"):
+                outputs = body(**static)
+            ms = (time.perf_counter() - t0) * 1e3
+        self._graphs[key] = g = cuda_graphs.Graph(graph, outputs, launches)
+        name = _census_name(key)
+        self.graph_census_ms[name] = ms
+        if not self._warming:
+            self.late_captures += 1
+            log.warning("captured %s on first use (%.0f ms): the warmup "
+                        "did not reach it", name, ms)
+        return g
+
+    @contextlib.contextmanager
+    def warming(self):
+        """Captures inside the block are the warmup's, not late ones."""
+        prev, self._warming = self._warming, True
+        try:
+            yield
+        finally:
+            self._warming = prev
+
+    def warmup_keys(self, rows: int) -> list:
+        """The batched decode's graph keys for up to `rows` windows: every
+        row bucket (powers of two) and every frame bucket up to
+        graph_max_frames."""
+        rbs = [1]
+        while rbs[-1] < rows:
+            rbs.append(2 * rbs[-1])
+        nbs = [b for b in self.frame_buckets if b <= self.graph_max_frames]
+        return [("decode", rb, nb) for rb in rbs for nb in nbs]
+
+    def warmup_graphs(self, rows: int) -> dict:
+        """Capture the batched decode of every key of ``warmup_keys(rows)``
+        (a call of zero codes each; without graphs on the card, the call
+        runs once). The CPU has nothing to capture or set up: no call runs,
+        and its census fills as calls are made. Returns the census."""
+        if self.device.type == "cpu":
+            return self.census()
+        with self.warming():
+            for key in self.warmup_keys(rows):
+                if _census_name(key) in self.graph_census_ms:
+                    continue    # captured already (run, on the CPU)
+                _, rb, nb = key
+                self.decode_frames_batch(
+                    [(np.zeros(nb, np.int64), np.zeros(2 * nb, np.int64),
+                      np.zeros(4 * nb, np.int64))] * rb,
+                    first_frames=[0] * rb, noise_seeds=[0] * rb)
+        return self.census()
+
+    def census(self) -> dict:
+        """The vocoder's graph census under the engine census's names with
+        a ``vocoder_`` prefix, and its calls."""
+        return {"vocoder_graphs_compiled": len(self.graph_census_ms),
+                "vocoder_graph_census_ms": dict(self.graph_census_ms),
+                "vocoder_late_captures": self.late_captures,
+                "vocoder_launches": dict(self.launches),
+                "vocoder_replays": dict(self.replays),
+                "vocoder_eager_calls": self.eager_calls}
+
+    # -- the host API ------------------------------------------------------------
 
     def decode_frames(self, l1, l2, l3, *, noise_seed: int = 0,
                       first_frame: int = 0) -> np.ndarray:
@@ -248,7 +444,9 @@ class SnacDecoder:
     def decode_frames_batch_launch(self, layers, *, first_frames,
                                    noise_seeds):
         """Launch the batched decode and queue its device→host copy;
-        returns a handle for :meth:`decode_frames_batch_fetch`."""
+        returns a handle for :meth:`decode_frames_batch_fetch`. The codes,
+        noise seeds, latent offsets and valid lengths travel as ONE host
+        array of (rows, 7·frames + 3) int64."""
         n_rows = len(layers)
         ns = [int(l1.shape[-1]) for l1, _, _ in layers]
         nb = self.bucket_frames(max(ns))
@@ -256,29 +454,28 @@ class SnacDecoder:
         while rb < n_rows:
             rb *= 2
         lat = max(self.cfg.vq_strides)
-
-        def stack(idx, mult):
-            out = np.zeros((rb, mult * nb), np.int64)
-            for r, lay in enumerate(layers):
-                x = np.asarray(lay[idx], dtype=np.int64)
-                out[r, : x.shape[-1]] = x
-            return torch.from_numpy(out).to(self.device)
-
-        def pad_vec(vals):
-            out = np.zeros(rb, np.int64)
-            out[:n_rows] = vals
-            return torch.from_numpy(out).to(self.device)
-
-        codes = (stack(0, 1), stack(1, 2), stack(2, 4))
-        audio = decode_codes(
-            self.params, self.cfg, codes,
-            noise_seed=pad_vec([int(s) & _M32 for s in noise_seeds]),
-            latent_offset=pad_vec([f * lat for f in first_frames]),
-            use_noise=self.use_noise,
-            valid_latent=pad_vec([n * lat for n in ns]).to(torch.int32),
-        )
-        (host,) = copy_async(audio)
+        packed = np.zeros((rb, 7 * nb + 3), np.int64)
+        for r, lay in enumerate(layers):
+            for (lo, mult), x in zip(((0, 1), (nb, 2), (3 * nb, 4)), lay):
+                x = np.asarray(x, dtype=np.int64)
+                packed[r, lo: lo + x.shape[-1]] = x
+            packed[r, 7 * nb:] = (int(noise_seeds[r]) & _M32,
+                                  first_frames[r] * lat, ns[r] * lat)
+        (host,) = self.run(("decode", rb, nb), self._decode_body(nb),
+                           packed=torch.from_numpy(packed))
         return host, ns
+
+    def _decode_body(self, nb: int) -> Callable:
+        def body(packed):
+            meta = packed[:, 7 * nb:]
+            codes = (packed[:, :nb], packed[:, nb: 3 * nb],
+                     packed[:, 3 * nb: 7 * nb])
+            return (decode_codes(self.params, self.cfg, codes,
+                                 noise_seed=meta[:, 0],
+                                 latent_offset=meta[:, 1],
+                                 use_noise=self.use_noise,
+                                 valid_latent=meta[:, 2]),)
+        return body
 
     def decode_frames_batch_fetch(self, handle) -> list:
         """Blocking half: host audio rows for a launched batch."""

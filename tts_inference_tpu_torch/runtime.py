@@ -5,8 +5,11 @@ Port of ``tts_inference_tpu/runtime.py`` without the XLA cache or
 comes from an HF checkpoint dir (optionally with a LoRA adapter merged), a
 pre-quantized dir written by ``cli quantize`` (``params.safetensors``), or
 seeded random weights made on the target device; the vocoder from a SNAC
-dir or seeded random weights; the tokenizer from the tokenizer dir, else
-the model dir when it holds one, else ``ByteTokenizer``. The tests can also
+dir or seeded random weights (a SNAC dir's ``config.json`` gives the
+geometry; the compute dtype, ``--vocoder-bf16``, stays the caller's); the
+tokenizer from the tokenizer dir, else the model dir when it holds one, else
+``ByteTokenizer``. The warmup captures the engine's graphs and the
+single-stream pipeline's vocoder graphs. The tests can also
 pass the JAX package's parameter pytrees (numpy leaves) as ``llama_tree`` /
 ``snac_tree``.
 """
@@ -19,7 +22,6 @@ import os
 import time
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from tts_inference_tpu_torch import protocol
@@ -30,7 +32,10 @@ from tts_inference_tpu_torch import weights
 from tts_inference_tpu_torch.engine.engine import GenerationEngine
 from tts_inference_tpu_torch.models.quant import quantize_llama_params
 from tts_inference_tpu_torch.models.snac import SnacDecoder
-from tts_inference_tpu_torch.streaming.pipeline import TTSPipeline
+from tts_inference_tpu_torch.streaming.lookahead import max_window_frames
+from tts_inference_tpu_torch.streaming.pipeline import (TTSPipeline,
+                                                        first_chunk_geometry,
+                                                        warmup_first_chunks)
 
 
 def default_device() -> torch.device:
@@ -156,13 +161,23 @@ class Runtime:
                 os.path.join(snac_path, "config.json"))
             vparams, snac_cfg = load_snac_checkpoint(
                 snac_path, None if snac_has_cfg else config.snac, dev)
+            # the geometry is the checkpoint's; the compute dtype and the
+            # kernel switch are run choices and stay the caller's (the JAX
+            # package drops them here: ROADMAP.md Queue 3)
+            snac_cfg = dataclasses.replace(
+                snac_cfg, dtype=config.snac.dtype,
+                use_pallas=config.snac.use_pallas)
             config = dataclasses.replace(config, snac=snac_cfg)
         elif snac_tree is not None:
             vparams = weights.snac_params_from_jax(snac_tree, dev)
         else:
             vparams = weights.init_snac_params(config.snac, seed + 1, dev)
+        # graphs for every frame bucket a streaming window can take
         vocoder = SnacDecoder(vparams, config.snac)
+        vocoder.graph_max_frames = vocoder.bucket_frames(max_window_frames(
+            config.stream, config.engine.decode_steps_per_call))
         timings["load_snac_s"] = time.perf_counter() - t0
+        timings["snac_dtype"] = config.snac.dtype
 
         t0 = time.perf_counter()
         tok_dir = tokenizer_path
@@ -187,20 +202,16 @@ class Runtime:
         if warmup:
             t0 = time.perf_counter()
             info = engine.warmup()
-            # the vocoder's first two frame buckets, as the JAX package
-            # warms them (a dummy decode)
-            for b in vocoder.frame_buckets[:2]:
-                vocoder.decode_frames(np.zeros(b, np.int32),
-                                      np.zeros(2 * b, np.int32),
-                                      np.zeros(4 * b, np.int32))
+            # the single-stream pipeline's vocoder calls: one window per
+            # call, and the fused first chunk of the default stream
+            with torch.no_grad():
+                vocoder.warmup_graphs(1)
+                warmup_first_chunks(vocoder, 1, [first_chunk_geometry(
+                    s, config.snac.samples_per_frame)], dev)
+            info.update(vocoder.census())
             timings["warmup_s"] = time.perf_counter() - t0
-            # the graph census as the JAX package reports it: ms → s, the
-            # census itself in ms
-            timings.update({
-                k: (v / 1000.0
-                    if isinstance(v, (int, float)) and k != "graphs_compiled"
-                    else v)
-                for k, v in info.items()})
+            # the engine's graph census and the vocoder's (ms)
+            timings.update(info)
         return cls(config, pipeline, engine, vocoder, tokenizer, timings,
                    dev)
 

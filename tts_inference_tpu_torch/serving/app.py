@@ -299,6 +299,14 @@ class Server:
                 sch["prefix_hits"] = core.prefix_hits
                 sch["prefix_misses"] = core.prefix_misses
             body["scheduler"] = sch
+        # the CUDA-graph census of the engine core that serves, and the
+        # vocoder's (on the CPU: the keys the card would capture)
+        core = (self.scheduler.core if self.scheduler is not None
+                else self.rt.engine.core)
+        voc = self.rt.vocoder.census()
+        voc.pop("vocoder_graph_census_ms")
+        body["graphs"] = {"graphs_compiled": len(core.graph_census_ms),
+                          "late_captures": core.late_captures, **voc}
         if self.rt.device.type == "cuda":
             stats = torch.cuda.memory_stats(self.rt.device)
             body["device_memory"] = {

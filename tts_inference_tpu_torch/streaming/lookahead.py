@@ -24,6 +24,17 @@ from tts_inference_tpu_torch.config import StreamConfig
 from tts_inference_tpu_torch.models.snac import SnacDecoder
 
 
+def max_window_frames(scfg: StreamConfig, steps_per_launch: int = 7) -> int:
+    """The most frames one streaming window decodes: the left context, a
+    chunk, its lookahead, and what one token launch can add beyond the
+    point where the chunk became due."""
+    burst = -(-steps_per_launch // protocol.FRAME_SIZE)
+    la = max(scfg.lookahead_frames, scfg.first_chunk_lookahead or 0)
+    return (scfg.left_context_frames
+            + max(scfg.frames_per_chunk, scfg.first_chunk_frames) + la
+            + burst - 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class WindowPlan:
     """Decode frames [w0, w1); emit samples [lo, hi) of that decode."""

@@ -4,8 +4,9 @@ Port of ``tts_inference_tpu/streaming/pipeline.py``, around the windowed
 lookahead decoder and the multi-token engine. The fused first chunk is
 kept: the first chunk's extraction (audio-range check, de-interleave,
 clamp) and SNAC decode run on the device straight from the first launch's
-token tensor, with no host sync in between, and its PCM is copied back with
-the first tokens. Anything unclean (SOS/EOS/non-audio in the burst, a plan
+token tensor, with no host sync in between (one vocoder call: a CUDA graph
+per first-chunk geometry on the card), and its PCM is copied back with the
+first tokens. Anything unclean (SOS/EOS/non-audio in the burst, a plan
 mismatch) flips ``ok`` and the host path decodes the chunk instead.
 """
 
@@ -28,7 +29,7 @@ from tts_inference_tpu_torch.models.snac import (SnacDecoder, decode_codes,
                                                  to_pcm16)
 from tts_inference_tpu_torch.streaming.lookahead import \
     LookaheadStreamingDecoder
-from tts_inference_tpu_torch.utils import copy_async, to_numpy
+from tts_inference_tpu_torch.utils import to_numpy
 
 
 @dataclasses.dataclass
@@ -79,6 +80,20 @@ class StreamMetrics:
         }
 
 
+def first_chunk_geometry(scfg: StreamConfig, spf: int):
+    """(n_codes, nf, emit) of a stream's fused first chunk: the codes of its
+    first nf frames (first chunk + its lookahead) and the samples it
+    emits."""
+    la = (scfg.first_chunk_lookahead
+          if scfg.first_chunk_lookahead is not None
+          else scfg.lookahead_frames)
+    nf = scfg.first_chunk_frames + la
+    return nf * protocol.FRAME_SIZE, nf, scfg.first_chunk_frames * spf
+
+
+_OFFSETS: dict = {}   # device → protocol.POSITION_OFFSETS (made outside any capture)
+
+
 def first_chunk_pcm(vocoder: SnacDecoder, toks: torch.Tensor, n_codes: int,
                     nf: int, emit: int, noise_seeds: torch.Tensor):
     """Device-side first chunk for every row of a launch's token tensor.
@@ -86,7 +101,8 @@ def first_chunk_pcm(vocoder: SnacDecoder, toks: torch.Tensor, n_codes: int,
     toks (B, ≥ n_codes) → (pcm (B, emit) int16, ok (B,) bool). Row r is
     decoded exactly like the host path would decode its first nf frames
     (same frame bucket, valid length and noise seed); ``ok`` is False when
-    the row's first n_codes tokens are not all audio codes."""
+    the row's first n_codes tokens are not all audio codes. Device work
+    only (it runs inside a CUDA-graph capture)."""
     cfg = vocoder.cfg
     b = toks.shape[0]
     nb = vocoder.bucket_frames(nf)
@@ -95,7 +111,10 @@ def first_chunk_pcm(vocoder: SnacDecoder, toks: torch.Tensor, n_codes: int,
     dev = toks.device
     t = toks[:, :n_codes].long()
     ok = ((t >= ab) & (t < ab + protocol.AUDIO_VOCAB)).all(dim=1)
-    offs = torch.tensor(protocol.POSITION_OFFSETS, device=dev)
+    offs = _OFFSETS.get(dev)
+    if offs is None:
+        offs = _OFFSETS[dev] = torch.tensor(protocol.POSITION_OFFSETS,
+                                            device=dev)
     frames = ((t - ab).reshape(b, nf, protocol.FRAME_SIZE) - offs).clamp(
         0, cfg.codebook_size - 1)
 
@@ -104,9 +123,11 @@ def first_chunk_pcm(vocoder: SnacDecoder, toks: torch.Tensor, n_codes: int,
         out[:, : x.shape[1]] = x
         return out
 
+    # the de-interleave by slices (a list index would copy it from the host)
     l1 = frames[:, :, 0]
-    l2 = frames[:, :, [1, 4]].reshape(b, -1)
-    l3 = frames[:, :, [2, 3, 5, 6]].reshape(b, -1)
+    l2 = torch.stack([frames[:, :, i] for i in (1, 4)], dim=2).reshape(b, -1)
+    l3 = torch.stack([frames[:, :, i] for i in (2, 3, 5, 6)],
+                     dim=2).reshape(b, -1)
     audio = decode_codes(
         vocoder.params, cfg, (pad(l1, 1), pad(l2, 2), pad(l3, 4)),
         noise_seed=noise_seeds,
@@ -116,6 +137,35 @@ def first_chunk_pcm(vocoder: SnacDecoder, toks: torch.Tensor, n_codes: int,
                                 device=dev),
     )
     return to_pcm16(audio[:, :emit]), ok
+
+
+def first_chunk_launch(vocoder: SnacDecoder, toks: torch.Tensor,
+                       n_codes: int, nf: int, emit: int,
+                       noise_seeds: torch.Tensor):
+    """:func:`first_chunk_pcm` as one vocoder call (the graph of its
+    geometry at this batch on the card); `noise_seeds` (B,) int64 on the
+    host or the device. Returns the host copies (pcm, ok)."""
+    return vocoder.run(
+        ("first_chunk", toks.shape[0], n_codes, nf, emit),
+        lambda toks, seeds: first_chunk_pcm(vocoder, toks, n_codes, nf,
+                                            emit, seeds),
+        toks=toks[:, :n_codes], seeds=noise_seeds)
+
+
+def warmup_first_chunks(vocoder: SnacDecoder, batch: int, geometries,
+                        device) -> None:
+    """Capture the fused first chunk of each geometry at `batch` (a call of
+    audio-base tokens; nothing runs on the CPU, as in
+    ``SnacDecoder.warmup_graphs``)."""
+    if vocoder.device.type == "cpu":
+        return
+    with vocoder.warming(), torch.no_grad():
+        for n_codes, nf, emit in geometries:
+            toks = torch.full((batch, n_codes), protocol.TOKEN_AUDIO_BASE,
+                              dtype=torch.int32, device=device)
+            to_numpy(first_chunk_launch(
+                vocoder, toks, n_codes, nf, emit,
+                torch.zeros(batch, dtype=torch.int64))[0])
 
 
 class TTSPipeline:
@@ -166,24 +216,18 @@ class TTSPipeline:
             yield AudioChunk(pcm16_bytes(samples), chunk_index, len(samples))
 
         # first launch: tokens for the first stable chunk
-        first_la = (scfg.first_chunk_lookahead
-                    if scfg.first_chunk_lookahead is not None
-                    else scfg.lookahead_frames)
-        first_burst = (scfg.first_chunk_frames + first_la) \
-            * protocol.FRAME_SIZE
-        nf_first = first_burst // protocol.FRAME_SIZE
-        emit_first = scfg.first_chunk_frames \
-            * self.vocoder.cfg.samples_per_frame
+        first_burst, nf_first, emit_first = first_chunk_geometry(
+            scfg, self.vocoder.cfg.samples_per_frame)
         fused: dict = {}
 
         def on_first_tokens(toks_d):
             if toks_d.shape[1] < first_burst:
                 return
             seeds = torch.full((toks_d.shape[0],), noise_seed & 0xFFFFFFFF,
-                               dtype=torch.int64, device=toks_d.device)
-            pcm_d, ok_d = first_chunk_pcm(self.vocoder, toks_d, first_burst,
-                                          nf_first, emit_first, seeds)
-            fused["pcm"], fused["ok"] = copy_async(pcm_d[0], ok_d[0])
+                               dtype=torch.int64)
+            fused["pcm"], fused["ok"] = first_chunk_launch(
+                self.vocoder, toks_d, first_burst, nf_first, emit_first,
+                seeds)
 
         hook = on_first_tokens if extractor.started else None
 
@@ -211,11 +255,11 @@ class TTSPipeline:
                             and plan.hi == emit_first
                             and not extractor.finished
                             and extractor.restart_count == restarts_seen
-                            and bool(to_numpy(ok_h))):
+                            and bool(to_numpy(ok_h)[0])):
                         la.commit(plan)
                         metrics.decode_times_ms.append(
                             (time.perf_counter() - t0) * 1000.0)
-                        yield from cut(to_numpy(pcm_h))
+                        yield from cut(to_numpy(pcm_h)[0])
                         continue
                 t0 = time.perf_counter()
                 out = la.poll()

@@ -20,8 +20,11 @@ a "replayed" part; every number is per decode step.
 With ``--vocoder`` it times one vocoder call instead, as the serve path makes
 it with every slot streaming: ``--vocoder-rows`` windows of
 ``--vocoder-frames`` frames (8 rows of 14 frames, which decode in the
-16-frame bucket) through ``SnacDecoder.decode_frames_batch``, the same two
-ways; every number is per call.
+16-frame bucket) through ``SnacDecoder.decode_frames_batch``, by a decoder
+that replays the call's CUDA graph (the serve path) and one that launches
+eagerly (``--graphs`` / ``--eager``: only that one), in the vocoder's dtype
+(``--vocoder-bf16``: bf16); wall (launch to host copy), enqueue (up to the
+return of the launch) and kernels, every number per call.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ FAMILIES = (      # kernel-name fragment → family, first match wins
 
 
 VOCODER_FAMILIES = (
+    ("residual_unit_bf16_kernel", "K6-bf16 fused_residual_unit"),
     ("residual_unit_kernel", "K6 fused_residual_unit"),
     ("conv", "library convolutions"), ("cudnn", "library convolutions"),
     ("xmma", "library convolutions"), ("cutlass", "library convolutions"),
@@ -92,37 +96,57 @@ def _profile(fn, family, per: int = 1) -> dict:
 
 
 def vocoder_call(rt, args, flags) -> dict:
-    """One batched vocoder call: wall by the host clock, kernels by the
-    profiler."""
+    """One batched vocoder call, replayed and eager: wall and enqueue by the
+    host clock, kernels by the profiler."""
+    from tts_inference_tpu_torch.models.snac import SnacDecoder
+
     rng = np.random.default_rng(0)
     n, size = args.vocoder_frames, rt.config.snac.codebook_size
     layers = [tuple(rng.integers(0, size, m * n) for m in (1, 2, 4))
               for _ in range(args.vocoder_rows)]
-
-    def call():
-        return rt.vocoder.decode_frames_batch(
-            layers, first_frames=[0] * len(layers),
-            noise_seeds=list(range(len(layers))))
-
     on_card = rt.device.type == "cuda"
-    audio = call()
-    walls = []
-    for _ in range(args.launches):
-        t0 = time.perf_counter()
-        call()           # ends in the device → host copy: synchronised
-        walls.append((time.perf_counter() - t0) * 1e3)
     out = {"flags": flags, "device": str(rt.device),
-           "rows": len(layers), "frames": n,
-           "bucket_frames": rt.vocoder.bucket_frames(n),
-           "samples_per_row": int(audio[0].shape[0]),
-           "wall_ms_per_call": float(np.median(walls))}
-    if on_card:
-        prof = _profile(call, _vocoder_family)
-        out.update(kernels_per_call=prof["kernels"],
-                   device_ms_per_call=prof["device_ms"],
-                   device_ms_per_call_by_family=prof["device_ms_by_family"],
-                   kernels_per_call_by_family=prof["kernels_by_family"],
-                   card=prof["card"])
+           "dtype": rt.config.snac.dtype, "rows": len(layers), "frames": n,
+           "bucket_frames": rt.vocoder.bucket_frames(n)}
+    modes = [m for m, on in (("replayed", args.graphs), ("eager", args.eager))
+             if on] or ["replayed", "eager"]
+    for tag in modes:
+        voc = SnacDecoder(rt.vocoder.params, rt.vocoder.cfg,
+                          graphs=tag == "replayed",
+                          graph_max_frames=rt.vocoder.graph_max_frames)
+
+        def launch():
+            return voc.decode_frames_batch_launch(
+                layers, first_frames=[0] * len(layers),
+                noise_seeds=list(range(len(layers))))
+
+        with voc.warming():
+            audio = voc.decode_frames_batch_fetch(launch())
+        walls, enqueues = [], []
+        for _ in range(args.launches):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handle = launch()
+            t1 = time.perf_counter()
+            voc.decode_frames_batch_fetch(handle)   # waits for the copy
+            walls.append((time.perf_counter() - t0) * 1e3)
+            enqueues.append((t1 - t0) * 1e3)
+        row = {"samples_per_row": int(audio[0].shape[0]),
+               "wall_ms_per_call": float(np.median(walls)),
+               "enqueue_ms_per_call": float(np.median(enqueues)),
+               "replays": dict(voc.replays)}
+        if on_card:
+            prof = _profile(lambda: voc.decode_frames_batch_fetch(launch()),
+                            _vocoder_family)
+            row.update(kernels_per_call=prof["kernels"],
+                       device_ms_per_call=prof["device_ms"],
+                       device_ms_per_call_by_family=prof["device_ms_by_family"],
+                       kernels_per_call_by_family=prof["kernels_by_family"])
+            out["card"] = prof["card"]
+        out[tag] = row
+        del voc
+        gc.collect()
     return out
 
 
@@ -213,6 +237,10 @@ def main(argv=None) -> int:
                     help="profile one vocoder call instead of a decode step")
     ap.add_argument("--vocoder-rows", type=int, default=8)
     ap.add_argument("--vocoder-frames", type=int, default=14)
+    ap.add_argument("--graphs", action="store_true",
+                    help="with --vocoder: only the replayed call")
+    ap.add_argument("--eager", action="store_true",
+                    help="with --vocoder: only the eager call")
     args = ap.parse_args(argv)
     args.no_warmup = True
     flags = [a for a in (argv or sys.argv[1:])]
