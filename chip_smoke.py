@@ -7,7 +7,7 @@ no result line is printed:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build of the hand-written kernels from ``tts_inference_tpu_torch/csrc``;
-3. kernel phase: each of the eight kernels (K1, K6, K6-bf16, K3a, K3b, K5 over pools
+3. kernel phase: each of the nine kernels (K1, K6, K6-bf16, K6-f16, K3a, K3b, K5 over pools
    filled by the port's own pool writes; K4 and K2 over weights quantized
    by the port) against its plain PyTorch version on the card, at the serve
    paths' shapes: max |Δ| and its tolerance, device µs per call of both (a
@@ -26,10 +26,14 @@ no result line is printed:
    and W - 1, pos at a chunk's last and first key, a column slice of a
    wider block table; K6: T that is no multiple of a tile, T below the
    halo, valid 0 and T on different rows, channel-last input, channel
-   counts below the narrowest tile and no multiple of 4); K6-bf16, the
-   bf16 kernel, at the same 12 serve shapes against its bf16 plain version
-   (two bf16 steps of the largest output) and at K6's edges in bf16 plus
-   an odd channel count;
+   counts below the narrowest tile and no multiple of 4); K6-bf16 and
+   K6-f16, the 16-bit body in bf16 and in float16, at the same 12 serve
+   shapes and at the 12 units of the first chunk at batch 1 (one row of 8
+   frames), timed, against their plain versions in the same dtype (two
+   steps of that dtype at the largest output), and at K6's edges plus an
+   odd channel count and, at every width, the layouts the copy engine
+   cannot take (channel-first T no multiple of 8, x one element in, T
+   under the halo at dilation 9);
 4. serve phase: the full Orpheus-3B + SNAC 24 kHz geometry with seeded
    random weights behind the port's aiohttp server (``cli serve``
    defaults: 8 slots, max_seq 4608, dense bf16 KV); 8 concurrent
@@ -92,14 +96,19 @@ no result line is printed:
     dense phase's numbers, windowed vs batch decode in bf16 within
     PCM16_TOL_BF16, and the fidelity gate of
     ``tools/vocoder_dtype_fidelity.py`` at full geometry (64 frames x 4
-    rows: MSE, max |diff|, corr, std ratio);
+    rows: MSE, max |diff|, corr, std ratio); then the float16 vocoder
+    (``SnacConfig(dtype="float16")``, which no serve flag reaches): the
+    same gate for a float16 decode of the same codes, with the launch
+    counters set to 0 before it (K6-f16 12, K6 12 for the f32 decode,
+    nothing else);
 17. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
 without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
-checkpoint, paged, quant, prefix, vocoder = phase 16 with K6-bf16's kernel
-cases) runs some phases during development and prints no result line.
+checkpoint, paged, quant, prefix, vocoder = phase 16 with the 16-bit
+kernel cases) runs some phases during development and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -122,6 +131,11 @@ K6_TOL = 1e-4    # f32 with TF32 off on both sides
 # the CPU the two arithmetics differ by one bf16 step of the largest output
 # at all twelve serve shapes; the tolerance is two such steps
 K6_BF16_STEPS = 2
+# K6 in float16: the same body and the same two roundings against torch's
+# float16 sequence; the tolerance is two float16 steps (2^-10 relative) of
+# the largest output, as in bf16 (measured on the CPU against the Pallas
+# kernel and XLA: 0.5–1 step)
+K6_F16_STEPS = 2
 # K4/K2: the kernel and the plain version both accumulate in f32, in another
 # order, and round once: a bf16 output may differ by one bf16 step of the
 # largest output (2^-7 relative), an f32 output by summation order only
@@ -636,28 +650,37 @@ def _k6_unit(c: int, gen: torch.Generator, dtype=torch.float32):
     }
 
 
-def bf16_steps(want: torch.Tensor, steps: int) -> float:
-    """`steps` bf16 steps of the largest magnitude in `want` (a bf16 value
-    in [2^e, 2^(e+1)) has steps of 2^(e-7))."""
+def steps16(want: torch.Tensor, steps: int, dtype) -> float:
+    """`steps` steps of the 16-bit `dtype` at the largest magnitude in
+    `want` (a value in [2^e, 2^(e+1)) has steps of 2^(e-7) in bf16,
+    2^(e-10) in float16)."""
     import math
 
     m = want.float().abs().max().item()
-    return steps * 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+    mant = 7 if dtype == torch.bfloat16 else 10
+    return steps * 2.0 ** (math.floor(math.log2(m)) - mant) if m > 0 else 0.0
 
 
-def _k6_bf16_case(c: int, t: int, dil: int, gen: torch.Generator):
-    """One residual unit in bf16 (the ``--vocoder-bf16`` path). The plain
-    version is torch's bf16 sequence (snakes, cuDNN depthwise and pointwise
-    convolutions, add), which is also the library sequence."""
+K6_16 = {torch.bfloat16: ("K6-bf16", "bf16", K6_BF16_STEPS),
+         torch.float16: ("K6-f16", "f16", K6_F16_STEPS)}
+
+
+def _k6_16_case(c: int, t: int, dil: int, gen: torch.Generator,
+                dtype=torch.bfloat16, b: int = 8):
+    """One residual unit in 16 bits (``--vocoder-bf16``, or
+    ``SnacConfig.dtype="float16"``). The plain version is torch's sequence
+    in the dtype (snakes, depthwise and pointwise convolutions — cuDNN's,
+    or in float16 PyTorch's own — add), which is also the library
+    sequence."""
     from tts_inference_tpu_torch.ops.vocoder import (
         fused_residual_unit, fused_residual_unit_reference)
 
-    b = 8
-    p = _k6_unit(c, gen, torch.bfloat16)
-    x = torch.randn(b, c, t, generator=gen, device="cuda").bfloat16() \
+    key, tag, n_steps = K6_16[dtype]
+    p = _k6_unit(c, gen, dtype)
+    x = torch.randn(b, c, t, generator=gen, device="cuda").to(dtype) \
         .transpose(1, 2)
     valid = torch.full((b,), t, dtype=torch.int32, device="cuda")
-    valid[3] = t - 37
+    valid[min(3, b - 1)] = t - 37
     x = torch.where(torch.arange(t, device="cuda")[None, :, None]
                     < valid[:, None, None], x,
                     torch.zeros((), dtype=x.dtype, device="cuda"))
@@ -667,50 +690,62 @@ def _k6_bf16_case(c: int, t: int, dil: int, gen: torch.Generator):
     err = (got.float() - want.float()).abs().max().item()
     ms = time_ms(lambda: fused_residual_unit(x, p, dil, valid))
     plain = time_ms(lambda: fused_residual_unit_reference(x, p, dil, valid))
-    # x read and the output written once in bf16, the weights once; the
-    # pointwise product (2·C per output element) on the bf16 tensor cores,
+    # x read and the output written once in 16 bits, the weights once; the
+    # pointwise product (2·C per output element) on the 16-bit tensor cores,
     # the taps and two snakes (~30 operations an element) in f32
     elems = b * t * c
     bnd = bound(2.0 * (2 * elems + c * c + 10 * c),
                 {"bf16": 2.0 * c * elems, "f32": 30.0 * elems})
-    return _report("K6-bf16 fused_residual_unit", f"B8 C{c} T{t} dil{dil} "
-                   "bf16", err, bf16_steps(want, K6_BF16_STEPS), ms, plain,
+    return _report(f"{key} fused_residual_unit", f"B{b} C{c} T{t} dil{dil} "
+                   f"{tag}", err, steps16(want, n_steps, dtype), ms, plain,
                    bnd, plain)
 
 
-def _k6_bf16_edges(gen: torch.Generator) -> float:
-    """K6-bf16 at the edges of its tilings: K6's f32 edge cases in bf16
-    (T no multiple of a tile, T below the halo at dilation 9, valid 0 and
-    T on different rows, channel-last input, channel counts below the
-    narrowest tile and no multiple of 4), plus an odd channel count (the
-    weight read element by element). Returns the worst error in units of
-    the tolerance."""
+def _k6_16_edges(gen: torch.Generator, dtype=torch.bfloat16) -> float:
+    """The 16-bit body at the edges of its tilings and paths: K6's f32 edge
+    cases (T no multiple of a tile, T below the halo at dilation 9, valid 0
+    and T on different rows, channel-last input, channel counts below the
+    narrowest tile and no multiple of 4), an odd channel count, and at every
+    width a channel-first T that is no multiple of 8, x whose storage starts
+    one element in, and T shorter than the halo at dilation 9 — all of which
+    the copy engine cannot take (the block gathers them) — and one T that it
+    takes whole. Returns the worst error in units of the tolerance."""
     from tts_inference_tpu_torch.ops.vocoder import (
         fused_residual_unit, fused_residual_unit_reference)
 
+    key, _, n_steps = K6_16[dtype]
     dev = "cuda"
-    cases = [   # c, t, dil, channel_first
-        (512, 37, 1, True), (512, 512 + 5, 9, True), (64, 37, 3, True),
-        (64, 512 + 5, 9, True), (256, 16, 9, True), (128, 133, 9, True),
-        (512, 96, 3, False), (64, 700, 9, False), (256, 100, 1, False),
-        (32, 512, 1, True), (16, 4096, 3, True), (8, 1000, 9, True),
-        (4, 300, 9, True), (6, 77, 3, True), (6, 77, 3, False),
-        (100, 260, 9, True), (300, 70, 3, True), (7, 64, 9, True),
+    cases = [   # c, t, dil, layout
+        (512, 37, 1, "cf"), (512, 512 + 5, 9, "cf"), (64, 37, 3, "cf"),
+        (64, 512 + 5, 9, "cf"), (256, 16, 9, "cf"), (128, 133, 9, "cf"),
+        (512, 96, 3, "cl"), (64, 700, 9, "cl"), (256, 100, 1, "cl"),
+        (32, 512, 1, "cf"), (16, 4096, 3, "cf"), (8, 1000, 9, "cf"),
+        (4, 300, 9, "cf"), (6, 77, 3, "cf"), (6, 77, 3, "cl"),
+        (100, 260, 9, "cf"), (300, 70, 3, "cf"), (7, 64, 9, "cf"),
     ]
+    for c in (64, 128, 256, 512):
+        cases += [(c, 100, 3, "cf"), (c, 256, 9, "offset"), (c, 20, 9, "cf"),
+                  (c, 64, 9, "cf")]
     worst = 0.0
-    for c, t, dil, channel_first in cases:
+    for c, t, dil, layout in cases:
         b = 3
-        p = _k6_unit(c, gen, torch.bfloat16)
-        x = (torch.randn(b, c, t, generator=gen, device=dev).transpose(1, 2)
-             if channel_first
-             else torch.randn(b, t, c, generator=gen, device=dev)).bfloat16()
+        p = _k6_unit(c, gen, dtype)
+        if layout == "offset":   # a contiguous view one element in
+            flat = torch.randn(b * c * t + 1, generator=gen, device=dev)
+            x = flat.to(dtype)[1:].view(b, c, t).transpose(1, 2)
+        elif layout == "cf":
+            x = torch.randn(b, c, t, generator=gen, device=dev).to(dtype) \
+                .transpose(1, 2)
+        else:
+            x = torch.randn(b, t, c, generator=gen, device=dev).to(dtype)
         valid = torch.tensor([t, 0, max(1, t // 3)], dtype=torch.int32,
                              device=dev)
         what = (f"B{b} C{c} T{t} dil{dil} "
-                f"{'channel-first' if channel_first else 'channel-last'}")
+                + {"cf": "channel-first", "cl": "channel-last",
+                   "offset": "channel-first, one element in"}[layout])
         want = fused_residual_unit_reference(x, p, dil, valid)
-        tol = bf16_steps(want, K6_BF16_STEPS)
-        err = _edge("K6-bf16", what,
+        tol = steps16(want, n_steps, dtype)
+        err = _edge(key, what,
                     lambda: fused_residual_unit(x, p, dil, valid), want, tol)
         worst = max(worst, err / tol)
     return worst
@@ -1052,15 +1087,28 @@ def qmm_phase() -> None:
     _qmm_one_launch_check(gen)
 
 
-def k6_bf16_phase(gen: torch.Generator):
-    """K6-bf16 at the serve shapes (the 12 units of an 8-row, 16-frame
-    vocoder call: C 512 / 256 / 128 / 64 at dilations 1, 3, 9) and at its
-    edges."""
-    cases = {}
+def k6_16_phase(gen: torch.Generator, dtype=torch.bfloat16):
+    """The 16-bit body in `dtype` at the serve shapes (the 12 units of an
+    8-row, 16-frame vocoder call: C 512 / 256 / 128 / 64 at dilations 1, 3,
+    9), timed; the same 12 units of the first chunk at batch 1 (one row of
+    8 frames), timed; and its edges. Returns the serve cases, the batch-1
+    cases and the worst edge error in units of the tolerance."""
+    cases, first = {}, {}
     for c, t_frame in ((512, 32), (256, 256), (128, 1024), (64, 2048)):
         for dil in (1, 3, 9):
-            cases[(c, dil)] = _k6_bf16_case(c, 16 * t_frame, dil, gen)
-    return cases, _k6_bf16_edges(gen)
+            cases[(c, dil)] = _k6_16_case(c, 16 * t_frame, dil, gen, dtype)
+    for c, t_frame in ((512, 32), (256, 256), (128, 1024), (64, 2048)):
+        for dil in (1, 3, 9):
+            first[(c, dil)] = _k6_16_case(c, 8 * t_frame, dil, gen, dtype,
+                                          b=1)
+    key = K6_16[dtype][0]
+    for tag, cs in (("8 rows x 16 frames", cases), ("1 row x 8 frames", first)):
+        print(f"{key} 12 units, {tag}: kernel "
+              f"{sum(v['ms'] for v in cs.values()) * 1e3:.1f} us, bound "
+              f"{sum(v['bound_ms'] for v in cs.values()) * 1e3:.1f} us, plain "
+              f"{sum(v['plain_ms'] for v in cs.values()) * 1e3:.1f} us",
+              flush=True)
+    return cases, first, _k6_16_edges(gen, dtype)
 
 
 def kernel_phase() -> dict:
@@ -1095,7 +1143,8 @@ def kernel_phase() -> dict:
     k5_edge = _k5_edges(gen)
     _attention_one_launch_check(gen)
     # after every earlier draw, so that those keep their inputs
-    k6_bf16, _ = k6_bf16_phase(gen)
+    k6_bf16, _, k6_bf16_edge = k6_16_phase(gen, torch.bfloat16)
+    k6_f16, _, k6_f16_edge = k6_16_phase(gen, torch.float16)
 
     def worst(cases):
         return max(c["max_abs_err"] for c in cases.values())
@@ -1115,8 +1164,10 @@ def kernel_phase() -> dict:
         "K5": {**k5[(8, 512)], "max_abs_err": max(worst(k5), k5_edge)},
         # all 12 units of one 8-row, 16-frame vocoder call
         "K6": {**summed(k6), "max_abs_err": max(worst(k6), k6_edge)},
-        # the same in bf16 (its edge cases are checked in their own units)
+        # the same in bf16 and float16 (their edge cases are checked in
+        # their own units of tolerance, above)
         "K6-bf16": summed(k6_bf16),
+        "K6-f16": summed(k6_f16),
         # the gate / up projection of a decode step, the largest linear
         "K4": {**k4[(8, 3072, 8192)],
                "max_abs_err": max(worst(k4), qmm_edge["K4"])},
@@ -1262,7 +1313,7 @@ def _launch_counters() -> dict:
     return {"K1": decode_attention.launches, "K3a": paged_attention.launches,
             "K3b": paged_attention.launches_int8,
             "K5": paged_attention_int4.launches, "K6": vocoder.launches,
-            "K6-bf16": vocoder.launches_bf16,
+            "K6-bf16": vocoder.launches_bf16, "K6-f16": vocoder.launches_f16,
             "K4": int4_matmul.launches, "K2": int4_matmul.launches_w8}
 
 
@@ -2591,6 +2642,33 @@ def fidelity_phase() -> dict:
     return res
 
 
+def float16_phase() -> dict:
+    """The float16 vocoder (``SnacConfig(dtype="float16")``, which the JAX
+    package computes and no serve flag reaches): the fidelity tool's decode
+    of the same seeded codes (64 frames x 4 rows) in float16 against f32,
+    within its four thresholds. Every launch counter is set to 0 just
+    before and read just after: the 16-bit body in float16 (K6-f16) carries
+    the 12 residual units of the float16 decode, K6 those of the f32 one,
+    and nothing else runs a kernel."""
+    from tts_inference_tpu_torch.tools import vocoder_dtype_fidelity as vdf
+
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    res = vdf.run(frames=64, batch=4, seed=0, device="cuda", dtype="float16")
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    print("fidelity: f32 vs float16 vocoder", json.dumps(res), flush=True)
+    print("float16 decode launches:", json.dumps(launches), flush=True)
+    want = {k: 0 for k in launches}
+    want["K6-f16"] = want["K6"] = UNITS_PER_CALL
+    if launches != want:
+        raise AssertionError(f"float16 decode launches {launches} != {want}")
+    if not res["pass"]:
+        raise AssertionError(f"float16 vocoder fidelity {res}")
+    return {"launches": launches, "fidelity": res}
+
+
 def vocoder_phase(dense=None) -> dict:
     """The bf16 vocoder: the `vocoder_bf16` serve phase (K6-bf16 on every
     unit of every call, every call a replay), its numbers beside the same
@@ -2652,7 +2730,9 @@ KERNELS = (
      "tts_inference_tpu/ops/pallas/decode_attention.py:97"),
     ("K6", "fused_residual_unit", "vocoder.cu",
      "tts_inference_tpu/ops/pallas/vocoder.py:212"),
-    ("K6-bf16", "fused_residual_unit_bf16", "vocoder.cu",
+    ("K6-bf16", "fused_residual_unit_bf16", "vocoder16.cuh",
+     "tts_inference_tpu/ops/pallas/vocoder.py:212"),
+    ("K6-f16", "fused_residual_unit_f16", "vocoder16.cuh",
      "tts_inference_tpu/ops/pallas/vocoder.py:212"),
     ("K3a", "paged_decode_attention", "paged_attention.cu",
      "tts_inference_tpu/ops/pallas/paged_attention.py:224"),
@@ -2741,15 +2821,21 @@ def main(argv=None) -> int:
               flush=True)
         _free(ph)
     if on("vocoder"):
-        if kern is None:   # --only vocoder: K6-bf16's kernel cases too
-            k6_bf16_phase(torch.Generator(device="cuda").manual_seed(0))
+        if kern is None:   # --only vocoder: the 16-bit kernel cases too
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            k6_16_phase(gen, torch.bfloat16)
+            k6_16_phase(gen, torch.float16)
         phases["vocoder_bf16"] = vocoder_phase(phases.get("dense"))
+        t0 = time.perf_counter()
+        phases["vocoder_f16"] = float16_phase()
+        print(f"float16: {time.perf_counter() - t0:.1f} s", flush=True)
     if only is not None:
         print(f"chip_smoke: phases {sorted(only)} passed; no result line "
               "without the full run", flush=True)
         return 0
     # each kernel's launches on the main path of the phase that runs it
     on_path = {"K1": "dense", "K6": "dense", "K6-bf16": "vocoder_bf16",
+               "K6-f16": "vocoder_f16",
                "K3a": "paged_bf16",
                "K3b": "paged_int8", "K4": "int4", "K5": "int4",
                "K2": "int8w"}

@@ -96,20 +96,30 @@ def test_k6_bf16_plain_matches_jax(dil):
 
 
 def test_k6_bf16_wrapper_checks_and_counts():
-    """The wrapper takes f32 or bf16 with parameters of the same dtype; on
-    CPU tensors it runs the plain version and launches nothing."""
+    """The wrapper takes f32, bf16 or float16 with parameters of the same
+    dtype; on CPU tensors it runs the plain version and launches nothing
+    (float16 too, which the 16-bit body's float16 instance carries on the
+    card); a dtype the kernels lack raises."""
     p16 = _bf16_tree(torch_unit(unit_params(8, 1)))
-    n32, n16 = tvoc.launches.count, tvoc.launches_bf16.count
+    counters = (tvoc.launches, tvoc.launches_bf16, tvoc.launches_f16)
+    before = [n.count for n in counters]
     out = tvoc.fused_residual_unit(torch.zeros(1, 16, 8, dtype=torch.bfloat16),
                                    p16, 3)
     assert out.dtype == torch.bfloat16 and out.shape == (1, 16, 8)
-    assert (tvoc.launches.count, tvoc.launches_bf16.count) == (n32, n16)
     with pytest.raises(ValueError, match="bfloat16"):   # f32 parameters
         tvoc.fused_residual_unit(torch.zeros(1, 16, 8, dtype=torch.bfloat16),
                                  torch_unit(unit_params(8, 1)), 3)
-    with pytest.raises(TypeError, match="f32 and bf16"):
-        tvoc.fused_residual_unit(torch.zeros(1, 16, 8, dtype=torch.float16),
-                                 p16, 3)
+    ph = {k: ({kk: vv.half() for kk, vv in v.items()} if isinstance(v, dict)
+              else v.half()) for k, v in torch_unit(unit_params(8, 1)).items()}
+    out = tvoc.fused_residual_unit(torch.zeros(1, 16, 8, dtype=torch.float16),
+                                   ph, 3)
+    assert out.dtype == torch.float16 and out.shape == (1, 16, 8)
+    assert [n.count for n in counters] == before
+    with pytest.raises(TypeError, match="f32, bf16 and float16"):
+        tvoc.fused_residual_unit(torch.zeros(1, 16, 8, dtype=torch.float64),
+                                 {k: ({kk: vv.double() for kk, vv in v.items()}
+                                      if isinstance(v, dict) else v.double())
+                                  for k, v in p16.items()}, 3)
 
 
 # -- the bf16 decode -----------------------------------------------------------

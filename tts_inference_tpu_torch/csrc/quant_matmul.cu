@@ -125,12 +125,9 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
+#include "hopper.cuh"
 
 namespace {
 
@@ -341,51 +338,6 @@ __device__ inline void cp_async4(void* dst, const void* src, int bytes) {
 }
 
 __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
-
-// mbarriers (shared-memory addresses): the producer's cp.async requests count
-// in on a stage's `full` barrier as they land; consumers wait on its parity.
-__device__ inline void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ inline void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ inline void cp_async_mbar_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// arrive, and tell the barrier that `bytes` of the copy engine will complete on it
-__device__ inline void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// One box of a 2-d tensor map (inner coordinate c0, outer c1) to shared memory
-// by the copy engine (TMA); its bytes complete on `bar`. What lies outside
-// the tensor arrives as 0.
-__device__ inline void tma_box(void* dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(d),
-      "l"(map), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ inline void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // Thread-block clusters: every thread of every block arrives once and waits
 // once; the address of a shared-memory word of block `rank` of the cluster;
@@ -1263,59 +1215,6 @@ __global__ void __launch_bounds__(kThreads) qmm_rows(const Args a) {
 
 // Nothing: the time of a launch by itself, the floor under every call.
 __global__ void empty_kernel() {}
-
-// The tensor map of a 2-d array for the copy engine (TMA): inner length d0
-// elements, d1 rows `pitch` bytes apart, cut into boxes of b0 × b1 elements
-// whose inner side is 128 or 64 bytes; the engine XOR-swizzles the 16-byte
-// units of a box's rows in shared memory. A map is made once per array and
-// kept (encoding one costs microseconds); weights stay where they
-// are, and the allocator hands activations the same few addresses again.
-bool tensor_map(const void* base, CUtensorMapDataType type, long long d0, long long d1,
-                long long pitch, int b0, int b1, CUtensorMap* out) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  using Key = std::tuple<const void*, int, long long, long long, long long, int, int>;
-  static std::mutex mu;
-  static std::map<Key, CUtensorMap> maps;
-  static Encode encode = nullptr;
-  std::lock_guard<std::mutex> lock(mu);
-  if (encode == nullptr) {
-    // the encoder lives in libcuda, which the CUDA runtime has loaded already
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    void* fn = lib == nullptr ? nullptr : dlsym(lib, "cuTensorMapEncodeTiled");
-    if (fn == nullptr) return false;
-    encode = reinterpret_cast<Encode>(fn);
-  }
-  const Key key{base, static_cast<int>(type), d0, d1, pitch, b0, b1};
-  auto it = maps.find(key);
-  if (it != maps.end()) {
-    *out = it->second;
-    return true;
-  }
-  if (maps.size() >= 1 << 16) maps.clear();
-  const int elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32    ? 4
-                   : type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
-                                                              : 1;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1)};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(
-      &map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      b0 * elem == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : b0 * elem == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                        : CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return false;
-  maps.emplace(key, map);
-  *out = map;
-  return true;
-}
 
 template <int F, int MT>
 int launch_stream(const Args& a, int blocks, cudaStream_t s) {

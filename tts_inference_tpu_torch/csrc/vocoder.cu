@@ -1,5 +1,5 @@
-// K6: one fused SNAC residual unit, for Hopper (sm_90a): an f32 kernel and a
-// bf16 kernel (below the f32 one, `residual_unit_bf16_kernel`, with its own
+// K6: one fused SNAC residual unit, for Hopper (sm_90a): the f32 kernel, and
+// at the end the bf16 entry of the 16-bit body (vocoder16.cuh, with its own
 // note).
 //
 // Replaces tts_inference_tpu/ops/pallas/vocoder.py::fused_residual_unit
@@ -544,429 +544,25 @@ extern "C" int tts_fused_residual_unit(const void* x, const void* valid, const v
 }
 
 // ---------------------------------------------------------------------------
-// K6 in bf16: the same unit over bf16 activations and parameters, the
-// JAX package's `--vocoder-bf16` (SnacConfig.dtype "bfloat16"), where the
-// Pallas bodies compute in the dtype of x and take the pointwise product
-// with f32 accumulation (`preferred_element_type=f32`).
-//
-// Arithmetic: x and the parameters are read as bf16 and widened exactly;
-// snake1, the seven taps, their bias and snake2 run in f32 registers; y2 is
-// rounded once to bf16, the operand of the tensor cores; the C×C pointwise
-// product runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums);
-// bias, residual and the valid-length mask in f32, then one rounding to bf16
-// on the way out.
-//
-// What bounds it on the H100: the bytes (x in and out, 4 bytes an element,
-// against 2·C tensor-core operations: 256 per byte at C 512, under the
-// card's ~295) at C 64–256, and the sines of stage 1 on the CUDA cores,
-// which cost about as much as the bytes take. The design:
-//  - one block per (row, time tile) as in the f32 kernel; a tile is 16,384
-//    values of y2 (C × 32 / 64 / 128 / 256 time steps), kept in shared memory
-//    as bf16, channel-major, each channel's row padded by 16 bytes so the
-//    ldmatrix reads of the product touch eight bank groups;
-//  - stage 1 by channel groups, every warp on its own, with no block
-//    barrier: a lane loads 16 bytes (8 time steps) of x per request in
-//    channel-first storage, the next group's x is requested into registers
-//    before this group's sines run; snake1 is applied once per element on
-//    the way into the warp's f32 staging row (tile and ±3·dilation halo, the
-//    halo outside [0, T) zeros: snake(0) == 0), the taps read from there;
-//  - the product: a warp owns 32 output channels × 32 or 64 time steps; its
-//    A fragments (the weight, bf16 pairs in the fragment order) come
-//    straight from device memory through L1, one step ahead, and its B
-//    fragments from the y2 tile by ldmatrix.trans — no barrier in the loop;
-//  - the epilogue adds bias and residual to the f32 sums, masks and rounds,
-//    writing bf16 pairs.
-// Each output's sum runs over the input channels in steps of 16 in one
-// order, whatever the tile or the length T, so a windowed decode equals a
-// batch decode wherever the rest of the stack does.
+// K6 in bf16 (`--vocoder-bf16`): the 16-bit body of vocoder16.cuh, with its
+// note; vocoder_f16.cu holds its float16 instance.
 
-namespace {
+#include "vocoder16.cuh"
 
-constexpr int kTileElemsBf16 = 16384;  // y2 values of a tile: 32 KB of bf16
+// The widest dilation the 16-bit body's ring holds; it is built for SNAC's
+// dilations 1, 3 and 9 (a template parameter), and refuses the others.
+extern "C" int tts_fused_residual_unit_bf16_max_dilation(int c) { return c > 0 ? 9 : 0; }
 
-// Per padded channel count CP: the tile's time steps TT, the block's warps,
-// their grid over the product (kWarpsM × kWarpsN warps, each two m-tiles of
-// 16 output channels × kNT n-tiles of 8 time steps), the channels R a warp
-// stages per step of stage 1 and the f32 staging row XW of a warp (R rows
-// of TT + 6·dilation + 14 floats: the halo, and a start rounded down to a
-// multiple of 8 for 16-byte requests; dilation up to 9).
-template <int CP>
-struct TilingBf16 {
-  static constexpr int kTT = kTileElemsBf16 / CP;
-  static constexpr int kThreads = CP == 512 ? 512 : 256;
-  static constexpr int kWarps = kThreads / 32;
-  static constexpr int kMT = 2;
-  static constexpr int kWarpsM = CP / (16 * kMT);
-  static constexpr int kWarpsN = kWarps / kWarpsM;
-  static constexpr int kNT = kTT / (8 * kWarpsN);
-  static constexpr int kRows = CP == 512 ? 2 : 1;
-  static constexpr int kYS = kTT + 8;
-  static constexpr int kXw = (kRows * (kTT + 6 * 9 + 14) + 7) / 8 * 8;
-  static constexpr int kSlots = (kXw / 8 + 31) / 32;  // 16-byte requests a lane makes per group
-  static constexpr int kMaxDilation = (kXw / kRows - kTT - 14) / 6;
-  static constexpr int kSmemBytes =
-      CP * kYS * 2 + kWarps * kXw * 4 + kParams * CP * 4;
-  static_assert(kWarpsM * kWarpsN == kWarps && kNT % 2 == 0, "the warps tile the product");
-  static_assert(kTT % 32 == 0, "a lane owns whole columns of stage 1");
-  static_assert(kMaxDilation >= 9, "SNAC's dilations");
-};
-
-__device__ inline float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
-__device__ inline float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ inline unsigned bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ inline float bf16_at(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-__device__ inline void ldmatrix_x4_trans(unsigned addr, unsigned& r0, unsigned& r1,
-                                         unsigned& r2, unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a · b: a (16 × 16) bf16 row-major, b (16 × 8) bf16, f32 sums
-__device__ inline void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The bf16 pair pw[co][ci], pw[co][ci + 1] as one A-fragment register (the
-// first in the low half); entries outside the C×C weight are zeros.
-__device__ inline unsigned weight_pair(const __nv_bfloat16* __restrict__ pw, int c, int co,
-                                       int ci, bool vec_w) {
-  if (co >= c || ci >= c) return 0u;
-  const __nv_bfloat16* p = pw + static_cast<long long>(co) * c + ci;
-  if (vec_w) return __ldg(reinterpret_cast<const unsigned*>(p));  // c even: ci + 1 < c
-  const unsigned short lo = __ldg(reinterpret_cast<const unsigned short*>(p));
-  const unsigned short hi =
-      ci + 1 < c ? __ldg(reinterpret_cast<const unsigned short*>(p) + 1) : 0;
-  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
-}
-
-template <int CP>
-__global__ void __launch_bounds__(TilingBf16<CP>::kThreads, CP == 512 ? 1 : 2)
-residual_unit_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ valid,
-                          const __nv_bfloat16* __restrict__ alpha1,
-                          const __nv_bfloat16* __restrict__ dw,
-                          const __nv_bfloat16* __restrict__ dwb,
-                          const __nv_bfloat16* __restrict__ alpha2,
-                          const __nv_bfloat16* __restrict__ pw,
-                          const __nv_bfloat16* __restrict__ pwb, __nv_bfloat16* __restrict__ out,
-                          int t_len, int c, int dil, long long sb, long long st, long long sc,
-                          int vec_w, int vec_io) {
-  using TL = TilingBf16<CP>;
-  constexpr int THREADS = TL::kThreads;
-  constexpr int WARPS = TL::kWarps;
-  constexpr int TT = TL::kTT;
-  constexpr int R = TL::kRows;
-  constexpr int YS = TL::kYS;
-  constexpr int XW = TL::kXw;
-  constexpr int SLOTS = TL::kSlots;
-  constexpr int MT = TL::kMT;
-  constexpr int NT = TL::kNT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* y_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);      // (CP, YS): y2
-  float* x_s = reinterpret_cast<float*>(smem_raw + CP * YS * 2);        // per warp (R, rs)
-  float* a_s = x_s + WARPS * XW;                                        // (kParams, CP)
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const __nv_bfloat16* xb = x + static_cast<long long>(b) * sb;
-  __nv_bfloat16* ob = out + static_cast<long long>(b) * sb;
-  const int nk = (c + 15) / 16;  // k-steps of the product that hold channels
-
-  // a padded channel gets alpha 1 and taps and bias 0, so its y2 is 0
-  for (int ch = tid; ch < CP; ch += THREADS) {
-    const bool live = ch < c;
-    const float a1 = live ? bf16_at(alpha1 + ch) : 1.f;
-    const float a2 = live ? bf16_at(alpha2 + ch) : 1.f;
-    a_s[ch] = a1;
-    a_s[CP + ch] = 1.f / (a1 + 1e-9f);
-    a_s[2 * CP + ch] = a2;
-    a_s[3 * CP + ch] = 1.f / (a2 + 1e-9f);
-    a_s[4 * CP + ch] = live ? bf16_at(dwb + ch) : 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 7; ++kk) a_s[(5 + kk) * CP + ch] = live ? bf16_at(dw + ch * 7 + kk) : 0.f;
-  }
-  __syncthreads();
-
-  // stage 1: y2 = bf16(snake2(depthwise(snake1(x)) + dw_b)), by groups of R
-  // channels per warp. A staging row holds the columns from t_first (a
-  // multiple of 8) on, rs floats; the tile's first halo column lies at shift.
-  {
-    const int halo = 3 * dil;
-    const int shift = (t0 - halo) & 7;
-    const int t_first = t0 - halo - shift;
-    const int units = (shift + TT + 2 * halo + 7) / 8;  // 16-byte units of a row
-    const int rs = 8 * units;
-    const int ngroups = nk * 16 / R;
-    float* xs = x_s + warp * XW;
-    // request the x of `group` into raw: unit q = lane + 32·s is row q / units
-    const auto request_x = [&](int group, uint4 (&raw)[SLOTS]) {
-#pragma unroll
-      for (int s = 0; s < SLOTS; ++s) {
-        const int q = lane + 32 * s;
-        const int r = R == 2 && q >= units ? 1 : 0;
-        const int u = q - r * units;
-        const int ch = group * R + r;
-        const int t = t_first + 8 * u;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (group < ngroups && q < R * units && ch < c) {
-          if (vec_io && t >= 0 && t + 8 <= t_len) {
-            v = __ldg(reinterpret_cast<const uint4*>(xb + static_cast<long long>(ch) * sc + t));
-          } else {
-            unsigned w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int te = t + e;
-              if (te >= 0 && te < t_len) {
-                const unsigned short h = __ldg(reinterpret_cast<const unsigned short*>(
-                    xb + te * st + static_cast<long long>(ch) * sc));
-                w[e / 2] |= static_cast<unsigned>(h) << (16 * (e % 2));
-              }
-            }
-            v = make_uint4(w[0], w[1], w[2], w[3]);
-          }
-        }
-        raw[s] = v;
-      }
-    };
-    uint4 raw[SLOTS], next[SLOTS];
-    request_x(warp, raw);
-    for (int group = warp; group < ngroups; group += WARPS) {
-      request_x(group + WARPS, next);  // lands while this group's sines run
-      // snake1 on the way into the staging rows
-      {
-        float v[8 * SLOTS], a1[8 * SLOTS], i1[8 * SLOTS];
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s) {
-          const int q = lane + 32 * s;
-          const int r = R == 2 && q >= units ? 1 : 0;
-          const int ch = group * R + r;
-          const float av = a_s[ch], iv = a_s[CP + ch];
-          const unsigned w[4] = {raw[s].x, raw[s].y, raw[s].z, raw[s].w};
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            v[8 * s + e] = e % 2 ? bf16_hi(w[e / 2]) : bf16_lo(w[e / 2]);
-            a1[8 * s + e] = av;
-            i1[8 * s + e] = iv;
-          }
-        }
-        snake_many<8 * SLOTS>(v, a1, i1);
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s) {
-          const int q = lane + 32 * s;
-          if (q < R * units) {
-            const int r = R == 2 && q >= units ? 1 : 0;
-            float* dst = xs + r * rs + 8 * (q - r * units);
-            *reinterpret_cast<float4*>(dst) =
-                make_float4(v[8 * s], v[8 * s + 1], v[8 * s + 2], v[8 * s + 3]);
-            *reinterpret_cast<float4*>(dst + 4) =
-                make_float4(v[8 * s + 4], v[8 * s + 5], v[8 * s + 6], v[8 * s + 7]);
-          }
-        }
-      }
-      __syncwarp();
-      // the seven taps and snake2, lanes along time
-      {
-        constexpr int M = TT / 32;
-        float y2[R * M], a2[R * M], i2[R * M];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int ch = group * R + r;
-          float tap[7];
-#pragma unroll
-          for (int kk = 0; kk < 7; ++kk) tap[kk] = a_s[(5 + kk) * CP + ch];
-          const float bias = a_s[4 * CP + ch];
-          const float a2r = a_s[2 * CP + ch];
-          const float i2r = a_s[3 * CP + ch];
-          const float* xr = xs + r * rs + shift + lane;
-#pragma unroll
-          for (int m = 0; m < M; ++m) {
-            float acc = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < 7; ++kk) acc += tap[kk] * xr[32 * m + kk * dil];
-            y2[r * M + m] = acc + bias;
-            a2[r * M + m] = a2r;
-            i2[r * M + m] = i2r;
-          }
-        }
-        snake_many<R * M>(y2, a2, i2);
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int m = 0; m < M; ++m)
-            y_s[(group * R + r) * YS + 32 * m + lane] = __float2bfloat16_rn(
-                t0 + 32 * m + lane < t_len ? y2[r * M + m] : 0.f);
-      }
-      __syncwarp();  // the staging rows are written again in the warp's next step
-#pragma unroll
-      for (int s = 0; s < SLOTS; ++s) raw[s] = next[s];
-    }
-  }
-  __syncthreads();
-
-  // stage 2: out[co, t] = x[co, t] + (Σ_ci pw[co, ci] · y2[ci, t] + pw_b[co])
-  // on the tensor cores. Warp (wm, wn) owns output channels wm·32 + [0, 32)
-  // and time steps wn·8·NT + [0, 8·NT) of the tile.
-  const int wm = warp % TL::kWarpsM;
-  const int wn = warp / TL::kWarpsM;
-  const int co0 = wm * 16 * MT;
-  const int n0 = wn * 8 * NT;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  const auto load_a = [&](int k0, unsigned (&a)[MT][4]) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int co = co0 + 16 * mt + g;
-      const int ci = k0 + 2 * tig;
-      a[mt][0] = weight_pair(pw, c, co, ci, vec_w);
-      a[mt][1] = weight_pair(pw, c, co + 8, ci, vec_w);
-      a[mt][2] = weight_pair(pw, c, co, ci + 8, vec_w);
-      a[mt][3] = weight_pair(pw, c, co + 8, ci + 8, vec_w);
-    }
-  };
-  unsigned a_cur[MT][4], a_next[MT][4];
-  load_a(0, a_cur);
-  // lane l gives the row address of matrix l / 8: k rows 0-7 / 8-15, time
-  // columns +0 / +8 of a 16 × 16 block of y2
-  const unsigned b_base = smem_addr(y_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * YS + n0 +
-                                    (lane >> 4) * 8);
-  for (int ks = 0; ks < nk; ++ks) {
-    if (ks + 1 < nk) load_a(16 * (ks + 1), a_next);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      unsigned b0, b1, b2, b3;
-      ldmatrix_x4_trans(b_base + (ks * 16 * YS + np * 16) * 2, b0, b1, b2, b3);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(acc[mt][2 * np], a_cur[mt], b0, b1);
-        mma_bf16(acc[mt][2 * np + 1], a_cur[mt], b2, b3);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a_cur[mt][e] = a_next[mt][e];
-  }
-
-  // epilogue: bias, residual and the valid-length mask in f32, one rounding;
-  // a lane holds time steps t, t + 1 of channels co and co + 8
-  const int vlen = valid[b];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = co0 + 16 * mt + g + 8 * h;
-      if (co >= c) continue;
-      const float bias = bf16_at(pwb + co);
-      const long long row = static_cast<long long>(co) * sc;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int t = t0 + n0 + 8 * nt + 2 * tig;
-        const float s0 = acc[mt][nt][2 * h] + bias;
-        const float s1 = acc[mt][nt][2 * h + 1] + bias;
-        if (vec_io && t + 1 < t_len) {
-          const unsigned xv = *reinterpret_cast<const unsigned*>(xb + row + t);
-          *reinterpret_cast<unsigned*>(ob + row + t) =
-              bf16_pair(t < vlen ? bf16_lo(xv) + s0 : 0.f, t + 1 < vlen ? bf16_hi(xv) + s1 : 0.f);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int te = t + e;
-            if (te < t_len) {
-              const long long off = row + te * st;
-              ob[off] = __float2bfloat16_rn(te < vlen ? bf16_at(xb + off) + (e ? s1 : s0) : 0.f);
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int CP>
-int launch_unit_bf16(const __nv_bfloat16* x, const int* valid, const __nv_bfloat16* alpha1,
-                     const __nv_bfloat16* dw, const __nv_bfloat16* dwb,
-                     const __nv_bfloat16* alpha2, const __nv_bfloat16* pw,
-                     const __nv_bfloat16* pwb, __nv_bfloat16* out, int b, int t_len, int c,
-                     int dil, long long sb, long long st, long long sc, cudaStream_t stream) {
-  using TL = TilingBf16<CP>;
-  constexpr int kSmem = TL::kSmemBytes;
-  static_assert(kSmem <= 232448 && (CP == 512 || 2 * (kSmem + 1024) <= 233472),
-                "shared memory of one block at CP 512, of two on an SM below");
-  if (dil > TL::kMaxDilation) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = residual_unit_bf16_kernel<CP>;
-  {  // more than 48 KB of dynamic shared memory: allowed once per device and process
-    static bool allowed[64] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-    if (!allowed[dev]) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      allowed[dev] = true;
-    }
-  }
-  const auto aligned = [](const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
-  const int vec_w = c % 2 == 0 && aligned(pw, 4);
-  const int vec_io =
-      st == 1 && sc % 8 == 0 && sb % 8 == 0 && aligned(x, 16) && aligned(out, 16);
-  const dim3 grid((t_len + TL::kTT - 1) / TL::kTT, b);
-  kernel<<<grid, TL::kThreads, kSmem, stream>>>(x, valid, alpha1, dw, dwb, alpha2, pw, pwb, out,
-                                                t_len, c, dil, sb, st, sc, vec_w, vec_io);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int tts_fused_residual_unit_bf16_max_dilation(int c) {
-  return c <= 64    ? TilingBf16<64>::kMaxDilation
-         : c <= 128 ? TilingBf16<128>::kMaxDilation
-         : c <= 256 ? TilingBf16<256>::kMaxDilation
-                    : TilingBf16<512>::kMaxDilation;
-}
-
-// bf16 x, parameters and output; returns the launch's cudaError_t. Strides
-// are in elements, shared by x and out.
+// bf16 x, parameters and output; strides in elements, shared by x and out;
+// `seg`, `blocks`, `paths`: the wrapper's plan (ops/vocoder.py::plan16).
+// Returns the launch's cudaError_t.
 extern "C" int tts_fused_residual_unit_bf16(const void* x, const void* valid, const void* alpha1,
                                             const void* dw, const void* dwb, const void* alpha2,
                                             const void* pw, const void* pwb, void* out, int b,
                                             int t_len, int c, int dil, long long sb,
-                                            long long st, long long sc, void* stream) {
-  if (b < 1 || t_len < 1 || c < 1 || c > kMaxChannels || dil < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  using bf = __nv_bfloat16;
-  const auto launch = [&](auto fn) {
-    return fn(static_cast<const bf*>(x), static_cast<const int*>(valid),
-              static_cast<const bf*>(alpha1), static_cast<const bf*>(dw),
-              static_cast<const bf*>(dwb), static_cast<const bf*>(alpha2),
-              static_cast<const bf*>(pw), static_cast<const bf*>(pwb), static_cast<bf*>(out), b,
-              t_len, c, dil, sb, st, sc, static_cast<cudaStream_t>(stream));
-  };
-  if (c <= 64) return launch(launch_unit_bf16<64>);
-  if (c <= 128) return launch(launch_unit_bf16<128>);
-  if (c <= 256) return launch(launch_unit_bf16<256>);
-  return launch(launch_unit_bf16<512>);
+                                            long long st, long long sc, int seg, int blocks,
+                                            int paths, void* stream) {
+  return fused_residual_unit16<__nv_bfloat16>(x, valid, alpha1, dw, dwb, alpha2, pw, pwb, out, b,
+                                              t_len, c, dil, sb, st, sc, seg, blocks, paths,
+                                              stream);
 }

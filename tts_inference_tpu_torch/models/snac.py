@@ -1,4 +1,4 @@
-"""SNAC-equivalent neural vocoder (codes → 24 kHz PCM), f32 or bf16.
+"""SNAC-equivalent neural vocoder (codes → 24 kHz PCM), f32, bf16 or float16.
 
 Port of ``tts_inference_tpu/models/snac.py``:
 
@@ -11,8 +11,9 @@ The public functions keep the JAX package's (B, T, C) layout; inside,
 ``decode_latent`` keeps activations channel-first (B, C, T) for cuDNN and
 hands the residual units to K6 (``ops.vocoder.fused_residual_unit``, which
 reads the channel-first storage through strides) — the hand-written kernel
-on CUDA for every unit (f32, or bf16 under ``SnacConfig.dtype="bfloat16"``),
-its plain version on the CPU. As in the JAX package, the compute dtype is
+on CUDA for every unit (f32, or the 16-bit body under
+``SnacConfig.dtype="bfloat16"`` / ``"float16"``), its plain version on the
+CPU. As in the JAX package, the compute dtype is
 ``SnacConfig.dtype``: ``SnacDecoder`` casts every f32 parameter to it once,
 the position noise stays f32 and its product is cast back, and the PCM is
 f32 whatever the dtype.
@@ -157,6 +158,25 @@ def _mask_tail(x: torch.Tensor,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _upsample(x: torch.Tensor, up: Params, rate: int) -> torch.Tensor:
+    """A decoder block's transposed convolution, channel-first. Torch's CPU
+    float16 transposed convolution rounds by the input's length (one float16
+    step apart between a window and a whole utterance: 8 PCM16 LSB at the
+    output), so on the CPU float16 takes the same function as a convolution
+    of the input with zeros stuffed between its steps (the flipped kernel,
+    K − 1 − padding on each side), which does not."""
+    pad, out_pad = math.ceil(rate / 2), rate % 2
+    if x.dtype != torch.float16 or x.device.type != "cpu":
+        return F.conv_transpose1d(x, up["w"], up["b"], stride=rate,
+                                  padding=pad, output_padding=out_pad)
+    b, c, t = x.shape
+    k = up["w"].shape[-1]
+    z = x.new_zeros(b, c, (t - 1) * rate + 1 + out_pad)
+    z[:, :, 0:(t - 1) * rate + 1:rate] = x
+    z = F.pad(z, (k - 1 - pad, k - 1 - pad))
+    return F.conv1d(z, up["w"].transpose(0, 1).flip(-1), up["b"])
+
+
 def _snake_cf(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return snake(x.transpose(1, 2), alpha).transpose(1, 2)
 
@@ -191,9 +211,7 @@ def decode_latent(params: Params, cfg: SnacConfig, z: torch.Tensor, *,
     offset = torch.as_tensor(latent_offset, dtype=torch.int64, device=dev)
     for i, (bp, rate) in enumerate(zip(dp["blocks"], cfg.decoder_rates)):
         x = _snake_cf(x, bp["alpha"])
-        x = F.conv_transpose1d(x, bp["up"]["w"], bp["up"]["b"], stride=rate,
-                               padding=math.ceil(rate / 2),
-                               output_padding=rate % 2)
+        x = _upsample(x, bp["up"], rate)
         up_total *= rate
         valid = None if valid is None else valid * rate
         x = _mask_tail(x, valid)
@@ -280,8 +298,7 @@ class SnacDecoder:
             raise ValueError(f"SnacConfig.dtype {self.cfg.dtype!r}: the "
                              f"vocoder computes in one of {sorted(DTYPES)}")
         # cast ONCE here, as the JAX package does, so the weights stay in
-        # the compute dtype in device memory (float16 has no K6 kernel on
-        # the card: the wrapper raises there)
+        # the compute dtype in device memory
         self.dtype = DTYPES[self.cfg.dtype]
         if self.dtype != torch.float32:
             self.params = _cast_tree(self.params, self.dtype)

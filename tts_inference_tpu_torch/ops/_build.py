@@ -76,11 +76,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tts_fused_residual_unit.restype = i
     lib.tts_fused_residual_unit_max_dilation.argtypes = [i]
     lib.tts_fused_residual_unit_max_dilation.restype = i
-    lib.tts_fused_residual_unit_bf16.argtypes = [
-        p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, p]
-    lib.tts_fused_residual_unit_bf16.restype = i
-    lib.tts_fused_residual_unit_bf16_max_dilation.argtypes = [i]
-    lib.tts_fused_residual_unit_bf16_max_dilation.restype = i
+    for t16 in ("bf16", "f16"):
+        fn = getattr(lib, f"tts_fused_residual_unit_{t16}")
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll,
+                       i, i, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"tts_fused_residual_unit_{t16}_max_dilation")
+        fn.argtypes = [i]
+        fn.restype = i
     lib.tts_paged_attention_int4.argtypes = [
         p, p, p, p, p, p, ll, p, p, p, p, i, i, i, i, i, i, i,
         ctypes.c_float, i, p]

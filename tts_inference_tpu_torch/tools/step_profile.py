@@ -52,7 +52,8 @@ FAMILIES = (      # kernel-name fragment → family, first match wins
 
 
 VOCODER_FAMILIES = (
-    ("residual_unit_bf16_kernel", "K6-bf16 fused_residual_unit"),
+    ("unit16_kernel<__nv_bfloat16", "K6-bf16 fused_residual_unit"),
+    ("unit16_kernel<__half", "K6-f16 fused_residual_unit"),
     ("residual_unit_kernel", "K6 fused_residual_unit"),
     ("conv", "library convolutions"), ("cudnn", "library convolutions"),
     ("xmma", "library convolutions"), ("cutlass", "library convolutions"),

@@ -1,4 +1,4 @@
-"""bf16-vocoder fidelity bound: same codes, f32 vs bf16 conv stack.
+"""16-bit-vocoder fidelity bound: same codes, f32 vs bf16 (or float16) conv stack.
 
 Port of ``tts_inference_tpu/tools/vocoder_dtype_fidelity.py``, the gate the
 JAX package names for ``--vocoder-bf16`` (SnacConfig.dtype="bfloat16"):
@@ -6,8 +6,9 @@ its audio error must stay inside the reference's streaming-vs-batch bounds
 (MSE < 1e-3, max |diff| < 0.5, corr > 0.998, std-ratio within 0.95 —
 reference: tensorrt_tts/PIPELINE_REPORT.md:513-519). The tool decodes the
 SAME fixed-seed codes through the full-geometry decoder in float32 and in
-bfloat16 (on the card: K6's f32 and bf16 kernels) and reports those four
-metrics waveform to waveform, under the JAX tool's JSON keys.
+bfloat16 (on the card: K6's f32 kernel and the 16-bit body) and reports
+those four metrics waveform to waveform, under the JAX tool's JSON keys;
+``--dtype float16`` holds the float16 decode to the same gate.
 
 The weights are seeded random (``weights.init_snac_params``; no released
 checkpoint is in the repo), so the numbers bound the RELATIVE dtype error
@@ -50,10 +51,10 @@ def fidelity(a: np.ndarray, b: np.ndarray) -> dict:
 
 
 def run(frames: int = 64, batch: int = 4, seed: int = 0, tiny: bool = False,
-        device=None) -> dict:
+        device=None, dtype: str = "bfloat16") -> dict:
     """The report: `batch` rows of `frames` frames of seeded codes through
-    the seeded decoder in float32 and in bfloat16 on `device` (default: the
-    card)."""
+    the seeded decoder in float32 and in `dtype` (bfloat16, the JAX tool's
+    case, or float16) on `device` (default: the card)."""
     from tts_inference_tpu_torch import weights
     from tts_inference_tpu_torch.config import SnacConfig, tiny_config
     from tts_inference_tpu_torch.models import snac as snac_lib
@@ -71,15 +72,15 @@ def run(frames: int = 64, batch: int = 4, seed: int = 0, tiny: bool = False,
     ]
     outs = {}
     with torch.no_grad():
-        for dtype in ("float32", "bfloat16"):
+        for dt in ("float32", dtype):
             dec = snac_lib.SnacDecoder(
-                params, dataclasses.replace(cfg, dtype=dtype), graphs=False)
+                params, dataclasses.replace(cfg, dtype=dt), graphs=False)
             wav = snac_lib.decode_codes(
                 dec.params, dec.cfg,
                 [torch.from_numpy(c).to(dev) for c in codes], noise_seed=0)
-            outs[dtype] = wav.cpu().numpy()
+            outs[dt] = wav.cpu().numpy()
     return {"geometry": "tiny" if tiny else "full", "frames": frames,
-            "batch": batch, **fidelity(outs["float32"], outs["bfloat16"])}
+            "batch": batch, **fidelity(outs["float32"], outs[dtype])}
 
 
 def main(argv=None) -> int:
@@ -93,9 +94,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; an error when there "
                          "is none)")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16"),
+                    help="the 16-bit decode held against f32 (the JAX tool "
+                         "has bfloat16 only)")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.frames, args.batch, args.seed, args.tiny,
-                         "cpu" if args.cpu else args.device)))
+                         "cpu" if args.cpu else args.device, args.dtype)))
     return 0
 
 
