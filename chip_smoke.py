@@ -38,7 +38,9 @@ no result line is printed:
    random weights behind the port's aiohttp server (``cli serve``
    defaults: 8 slots, max_seq 4608, dense bf16 KV); 8 concurrent
    ``/ws/tts`` requests and one ``/generate``; launch counts prove K1 and
-   K6 carried the path. Every serve phase prints the CUDA-graph census of
+   K6 carried the path. Every serve phase prints each stream's worst
+   inter-chunk gap (client clock at every binary message), p50 and max over
+   the streams, and the CUDA-graph census of
    its two engine cores (graphs captured at warmup, capture seconds), and
    fails unless every decode and admission launch of the run was a graph
    replay with no capture while serving; every serve phase prints the
@@ -63,7 +65,17 @@ no result line is printed:
 8. paged int8 serve phase: ``serve --paged-kv --kv-int8 --kv-on-demand``
    with a pool too small for the 8 streams (16 blocks of 128), so streams
    are preempted and resumed; K3b carries every decode step, K1 and K3a
-   none;
+   none; the census holds the resume tier (``capture_prefill_resume_1024``
+   and ``_2048``), every resume (one per preemption, at least one) replays
+   a graph, and the phase prints the resume gap (the worst gap of the
+   preempted streams) and their RTF, and its peak memory; then the soak
+   (``tools/soak.py`` over that phase's scheduler, twice: 30 s of
+   randomized churn at 8 target streams, cancel rate 0.1; no error, no slot
+   or block leak, the vocode queue drained, every submission accounted
+   for, no capture; first at 300-900 tokens a request, where the pool must
+   preempt and every resume replay a graph, then at the JAX tool's 14-70
+   with RSS growth and TTFA drift within the tool's limits, printed beside
+   them);
 9. paged bf16 serve phase: ``serve --paged-kv`` (worst-case reservation),
    8 streams and one ``/generate``; K3a carries every decode step;
 10. paged reference: the tiny slice paged (K3a), dense int8 and paged int8
@@ -74,7 +86,11 @@ no result line is printed:
     --kv-int4``; K4 carries every layer linear of every forward pass, K5
     every decode step, K2 the head; K1, K3a, K3b none;
 12. int8 weights serve phase: ``serve --quantize``; K2 carries every linear
-    and the head, K1 every decode step;
+    and the head, K1 every decode step; then the native phase, ``serve
+    --quantize --native-protocol`` (the C++ extractor and deinterleave of
+    ``native/tts_runtime.cpp``), the same kernel counts, printed beside
+    int8w, and the tiny scheduler on the card with the native and the
+    Python extractor over the same requests: tokens and PCM byte-equal;
 13. quantized reference: the tiny slice with int4 weights + int4 KV and with
     int8 weights on the card against the same quantized leaves on the CPU;
 14. prefix serve phase: ``serve --prefix-cache`` (dense bf16 KV), two waves
@@ -106,9 +122,11 @@ no result line is printed:
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
 without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
-checkpoint, paged, quant, prefix, vocoder = phase 16 with the 16-bit
-kernel cases) runs some phases during development and prints no result
-line.
+checkpoint, paged, quant, native, prefix, vocoder = phase 16 with the 16-bit
+kernel cases; paged,soak runs the churn soak twice; gap = the paged_int8 serve
+phase alone, with ``--port-root DIR`` from another checkout, to time two
+trees in one call) runs some phases during development and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -120,6 +138,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -1228,14 +1247,14 @@ async def _drive(port: int, generate: bool, waves: int = 1,
 
         async def one(i: int) -> dict:
             t0 = time.perf_counter()
-            first = None
+            arrivals = []       # host clock at each binary message
             nbytes = 0
             done = None
             async with sess.ws_connect(base + "/ws/tts") as ws:
                 await ws.send_json(_request(i, opener))
                 async for msg in ws:
                     if msg.type == aiohttp.WSMsgType.BINARY:
-                        first = first or time.perf_counter()
+                        arrivals.append(time.perf_counter())
                         nbytes += len(msg.data)
                     elif msg.type == aiohttp.WSMsgType.TEXT:
                         data = json.loads(msg.data)
@@ -1247,10 +1266,13 @@ async def _drive(port: int, generate: bool, waves: int = 1,
                     else:
                         raise AssertionError(f"stream {i}: {msg.type}")
             wall = time.perf_counter() - t0
-            if done is None or done["bytes"] != nbytes:
+            if done is None or done["bytes"] != nbytes or not arrivals:
                 raise AssertionError(f"stream {i}: done {done}, {nbytes} B")
-            return {"ttfa_ms": (first - t0) * 1e3, "bytes": nbytes,
-                    "wall_s": wall, "done": done}
+            gaps = [(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])]
+            return {"ttfa_ms": (arrivals[0] - t0) * 1e3, "bytes": nbytes,
+                    "wall_s": wall, "done": done,
+                    "text": _request(i, opener)["text"],
+                    "worst_gap_ms": max(gaps, default=0.0)}
 
         out = {"streams": [], "waves": [], "wave_s": 0.0,
                "metrics_before": await metrics()}
@@ -1360,7 +1382,8 @@ def _vocoder_delta(voc, before: dict) -> dict:
 def serve_phase(name: str, argv, expect: dict, generate: bool = True,
                 min_preemptions: int = 0, eager: bool = False,
                 on_boot=None, waves: int = 1, opener: str = "",
-                prefix_counts=None, vocoder_kernel: str = "K6") -> dict:
+                prefix_counts=None, vocoder_kernel: str = "K6",
+                resume: bool = False) -> dict:
     """Build `cli serve` (runtime + scheduler) from `argv`, put the port's
     aiohttp app on a localhost port and drive it: `waves` waves of 8
     concurrent /ws/tts streams (texts starting with `opener`), then (with
@@ -1378,7 +1401,14 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     comparison.
     `on_boot(rt)` runs after the boot, before the requests.
     `prefix_counts` (misses, hits): what the waves must add to the
-    scheduler core's prefix-cache counters on /metrics."""
+    scheduler core's prefix-cache counters on /metrics. With `resume` the
+    scheduler core must have captured its resume tier at warmup
+    (``capture_prefill_resume_{b}``) and, on the card, replayed a graph
+    for every resume of the run (one per preemption, at least one).
+    Every phase prints each stream's worst inter-chunk gap (client clock),
+    p50 and max over the streams, and for the streams the scheduler
+    preempted (found through the in-process scheduler) their worst gaps —
+    the resume gap — and their RTF."""
     from aiohttp import web
 
     from tts_inference_tpu_torch import cli
@@ -1389,6 +1419,17 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         list(argv) + (["--no-warmup"] if eager else []))
     t0 = time.perf_counter()
     rt, scheduler = cli.build_serving(args)
+    if getattr(args, "native_protocol", False) and not scheduler.use_native:
+        raise AssertionError(f"serve[{name}]: --native-protocol, but the "
+                             "scheduler runs the Python extractor")
+    preempted = []      # texts of the requests the scheduler preempted
+    preempt = scheduler._preempt
+
+    def _recording_preempt(slot):
+        preempted.append(scheduler.slots[slot].req.text)
+        preempt(slot)
+
+    scheduler._preempt = _recording_preempt
     if eager:
         for holder in (scheduler, rt.engine):
             c = holder.core
@@ -1469,6 +1510,22 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     late = [c.late_captures - n for c, n in zip(cores, late0)]
     print(f"serve[{name}] launches and replays (scheduler, single stream):",
           json.dumps(uses), "late captures", late, flush=True)
+    if resume:
+        tier = {f"capture_prefill_resume_{b}" for b in core.resume_tier()}
+        resumes = uses[0]["launches"].get("resume", 0)
+        print(f"serve[{name}] resume tier {sorted(tier)}; resumes "
+              f"{resumes}, replayed {uses[0]['replays'].get('resume', 0)},"
+              f" preemptions {len(preempted)}", flush=True)
+        if not eager and (not tier or not tier <= set(core.graph_census_ms)):
+            raise AssertionError(f"serve[{name}]: resume tier {tier} not "
+                                 f"all in the census")
+        if resumes != len(preempted) or (
+                rt.device.type == "cuda" and not eager and (
+                    resumes < 1
+                    or uses[0]["replays"].get("resume", 0) != resumes)):
+            raise AssertionError(f"serve[{name}]: {resumes} resumes for "
+                                 f"{len(preempted)} preemptions, replays "
+                                 f"{uses[0]['replays']}")
     if rt.device.type == "cuda" and not eager and (
             any(late) or any(u["launches"] != u["replays"] for u in uses)
             or not uses[0]["replays"].get("decode")
@@ -1526,8 +1583,17 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
                                  f"{prefix_counts}")
     audio_s = PCM_BYTES / 2 / 24000
     p50, p95 = _ttfa(res["streams"])
+    gaps = sorted(st["worst_gap_ms"] for st in res["streams"])
+    resumed = [{"text": st["text"], "worst_gap_ms": st["worst_gap_ms"],
+                "rtf": audio_s / st["wall_s"]}
+               for st in res["streams"] if st["text"] in preempted]
     out = {
         "ttfa_ms_p50": p50, "ttfa_ms_p95": p95,
+        "worst_gap_ms_p50": gaps[len(gaps) // 2],
+        "worst_gap_ms_max": gaps[-1],
+        "preempted_streams": resumed,
+        "resume_gap_ms": max((r["worst_gap_ms"] for r in resumed),
+                             default=None),
         "ttfa_ms_per_wave": [_ttfa(w["streams"]) for w in res["waves"]],
         "ttfa_parts_ms_per_wave": [_ttfa_parts(w["streams"])
                                    for w in res["waves"]],
@@ -1542,6 +1608,8 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         "scheduler_metrics": sched_metrics,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if on_cuda else None),
+        "max_memory_reserved": (torch.cuda.max_memory_reserved()
+                                if on_cuda else None),
         "graphs": graphs, "graph_uses": uses,
     }
     print(f"serve[{name}] TTFA ms p50 {out['ttfa_ms_p50']:.1f} p95 "
@@ -1552,12 +1620,24 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     rtf = out["per_stream_rtf"]
     print(f"serve[{name}] RTF per stream {min(rtf):.4f}..{max(rtf):.4f} "
           f"aggregate {out['aggregate_rtf']:.3f}", flush=True)
-    print(f"serve[{name}] peak memory {out['max_memory_allocated']} bytes",
+    print(f"serve[{name}] worst inter-chunk gap per stream, ms: p50 "
+          f"{out['worst_gap_ms_p50']:.1f} max {out['worst_gap_ms_max']:.1f}",
           flush=True)
+    if resumed:
+        print(f"serve[{name}] preempted streams ({len(preempted)} "
+              f"preemptions): resume gap {out['resume_gap_ms']:.1f} ms; "
+              "worst gap ms and RTF per stream",
+              json.dumps([(r["text"][:9], round(r["worst_gap_ms"], 1),
+                           round(r["rtf"], 4)) for r in resumed]),
+              flush=True)
+    peak, held = out["max_memory_allocated"], out["max_memory_reserved"]
+    gb = f" = {peak / 1e9:.2f} GB, reserved {held / 1e9:.2f} GB" if peak \
+        else ""
+    print(f"serve[{name}] peak memory {peak} bytes{gb}", flush=True)
     print(f"serve[{name}]: {waves} x 8 x /ws/tts"
           f"{' + /generate' if generate else ''} ok:", json.dumps(out),
           flush=True)
-    return {"rt": rt, **out}
+    return {"rt": rt, "sched": scheduler, **out}
 
 
 def exactness_phase(rt, tol: int = PCM16_TOL) -> dict:
@@ -1760,7 +1840,8 @@ def _tiny_check(name: str, device, flip_gap=None, quantize=False,
     return res
 
 
-def _recording_scheduler(rt, config, finished: dict, vocoder=None):
+def _recording_scheduler(rt, config, finished: dict, vocoder=None,
+                         use_native: bool = False):
     """A scheduler of `config` over the runtime's weights (and its vocoder,
     or `vocoder`) that keeps each finished request's raw token stream in
     `finished` (text → tokens)."""
@@ -1774,7 +1855,7 @@ def _recording_scheduler(rt, config, finished: dict, vocoder=None):
             super()._release(slot)
 
     return Recording(rt.engine.core.params, config, vocoder or rt.vocoder,
-                     rt.tokenizer, device=rt.device)
+                     rt.tokenizer, device=rt.device, use_native=use_native)
 
 
 GRAPH_FLIP_GAP = 1e-3   # eager top-2 logit gap below which a greedy flip passes
@@ -2004,6 +2085,149 @@ def _preempt_run(rt, pool_tokens: int) -> dict:
     return {"tokens": finished, "pcm": pcm,
             "preemptions": sched.preemptions,
             "replays": dict(core.replays)}
+
+
+def native_reference_phase(device="cuda") -> dict:
+    """The tiny slice's scheduler on the card twice over the same requests
+    (stochastic and greedy, one admitted beside live streams), with the C++
+    extractor and deinterleave and with the Python ones: every request's
+    raw tokens and PCM byte-equal."""
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import (SamplingConfig, StreamConfig,
+                                                tiny_config)
+    from tts_inference_tpu_torch.engine import scheduler as TS
+    from tts_inference_tpu_torch.runtime import Runtime
+
+    rt = Runtime.create(tiny_config(), seed=0, device=device)
+    audio = (protocol.TOKEN_AUDIO_BASE,
+             protocol.TOKEN_AUDIO_BASE + protocol.AUDIO_VOCAB)
+    scfg = StreamConfig(frames_per_chunk=2, lookahead_frames=3,
+                        left_context_frames=4)
+    runs = {}
+    with torch.no_grad():
+        for use_native in (True, False):
+            finished = {}
+            sched = _recording_scheduler(rt, rt.config, finished,
+                                         use_native=use_native)
+            reqs = [TS.TTSRequest(
+                text=f"native probe {i}", stream_cfg=scfg, force_speech=True,
+                sampling=SamplingConfig(max_tokens=35 + 14 * i, seed=90 + i,
+                                        greedy=i == 1, token_range=audio))
+                for i in range(4)]
+            for r in reqs[:3]:
+                sched.submit(r)
+            for k in range(4000):
+                if k == 4:
+                    sched.submit(reqs[3])
+                if not sched.step() and k > 4 and sched.n_queued == 0 \
+                        and not sched.n_active:
+                    break
+            else:
+                raise AssertionError("native reference run did not drain")
+            sched.drain_vocoder()
+            sched.stop()
+            pcm = {}
+            for r in reqs:
+                parts = []
+                while True:
+                    kind, payload = r.events.get(timeout=60)
+                    if kind == "chunk":
+                        parts.append(payload.pcm)
+                    elif kind == "done":
+                        break
+                    else:
+                        raise AssertionError(f"{r.text}: {payload}")
+                pcm[r.text] = b"".join(parts)
+            runs[use_native] = (finished, pcm, sched.use_native)
+    (tok_n, pcm_n, on_n), (tok_p, pcm_p, on_p) = runs[True], runs[False]
+    if not (on_n and not on_p) or tok_n != tok_p or pcm_n != pcm_p \
+            or len(tok_n) != 4 or not all(pcm_n.values()):
+        raise AssertionError(f"native vs Python scheduler: tokens "
+                             f"{tok_n} vs {tok_p}, PCM bytes "
+                             f"{ {k: len(v) for k, v in pcm_n.items()} } vs "
+                             f"{ {k: len(v) for k, v in pcm_p.items()} }")
+    res = {"requests": len(tok_n), "tokens": [len(t) for t in tok_n.values()],
+           "pcm_bytes": [len(p) for p in pcm_n.values()],
+           "tokens_and_pcm_byte_equal": True}
+    print("reference[native]: tiny scheduler on the card, native vs Python",
+          json.dumps(res), flush=True)
+    return res
+
+
+# tools/soak.py over the paged_int8 phase's scheduler, at full geometry,
+# twice. "preempt": requests of 300-900 tokens (3-8 of the pool's 16 blocks
+# each), so that the pool preempts and resumes replay graphs, the 1024
+# resume tier's among them, while cancels and the held queue churn. "churn":
+# the JAX tool's 14-70 tokens (one block each: no preemption), whose RSS
+# growth and TTFA drift gate too: two runs after the "preempt" one, in one
+# call on the card, read 2.1 / 0.0 MB and -0.035 / -0.035 against the
+# tool's 4096 MB and 0.5 (PERF.md, section 6). No warm-up round: the serve phase warmed the
+# scheduler (every graph captured, no late capture allowed).
+SOAK = {"duration_s": 30.0, "target_streams": 8, "cancel_rate": 0.1,
+        "seed": 0, "warm_s": 0.0}
+SOAKS = {"preempt": {**SOAK, "max_tokens_range": (300, 900)},
+         "churn": SOAK}
+
+
+def soak_phase(name: str, scheduler, kind: str) -> dict:
+    """The port's ``tools/soak.py`` over a served phase's warmed scheduler:
+    randomized churn (mixed lengths and sampling, mid-stream cancels) for
+    30 s at 8 target streams, at SOAKS[kind]'s lengths. Fails on error
+    events, a slot or KV block held at the end, an undrained vocode queue,
+    a submission not accounted for, or a capture while it ran; "preempt"
+    also unless the pool preempted and every resume replayed a graph (at
+    least one), "churn" also on RSS growth or TTFA drift beyond the tool's
+    thresholds. Prints both beside the thresholds, and the preemptions
+    and resume replays of the run."""
+    from tts_inference_tpu_torch.tools import soak
+
+    t0 = time.perf_counter()
+    scheduler.start()
+    try:
+        rep = soak.run_soak(scheduler, **SOAKS[kind])
+    finally:
+        scheduler.stop()
+    rep["wall_s"] = time.perf_counter() - t0
+    tag = f"soak[{name} {kind}]"
+    print(f"{tag}:", json.dumps(rep), flush=True)
+    print(f"{tag}: RSS growth {rep['rss_growth_mb']} MB (limit "
+          f"{rep['rss_limit_mb']}), TTFA drift {rep['ttfa_drift']} (limit "
+          f"{rep['drift_limit']}{'' if kind == 'churn' else ', not gated'});"
+          f" {rep['preemptions']} preemptions, {rep['resumes']} resumes, "
+          f"{rep['resume_replays']} replayed", flush=True)
+    graphs = scheduler.core.use_graphs
+    ok = rep["ok"] if kind == "churn" else (
+        rep["hard_ok"] and rep["preemptions"] >= 1 and rep["resumes"] >= 1)
+    if not ok or (graphs and (rep["resume_replays"] != rep["resumes"]
+                              or rep["late_captures"])):
+        raise AssertionError(f"{tag}: {rep}")
+    return rep
+
+
+def gap_phase(port_root=None) -> dict:
+    """The paged_int8 serve phase alone, for timing one tree against
+    another in one call (``--only gap [--port-root DIR]``): the resume gap,
+    the worst inter-chunk gap and the per-stream RTF. Another tree's
+    resumes are timed, not checked (one from before the resume graphs
+    launches them eagerly)."""
+    argv, expect, kw = SERVE_PHASES["paged_int8"]
+    kw = {**kw, "resume": port_root is None}
+    ph = serve_phase("paged_int8", argv, expect, **kw)
+    rtf = sorted(ph["per_stream_rtf"])
+    res = {"tree": port_root or "checkout",
+           "resume_gap_ms": ph["resume_gap_ms"],
+           "preempted_streams": ph["preempted_streams"],
+           "worst_gap_ms_p50": ph["worst_gap_ms_p50"],
+           "worst_gap_ms_max": ph["worst_gap_ms_max"],
+           "per_stream_rtf_min": rtf[0], "per_stream_rtf_max": rtf[-1],
+           "aggregate_rtf": ph["aggregate_rtf"],
+           "ttfa_ms_p50": ph["ttfa_ms_p50"], "ttfa_ms_p95": ph["ttfa_ms_p95"],
+           "peak_gb": ph["max_memory_allocated"] / 1e9,
+           "reserved_gb": ph["max_memory_reserved"] / 1e9,
+           "graph_uses": ph["graph_uses"]}
+    print("gap[paged_int8]:", json.dumps(res), flush=True)
+    _free(ph)
+    return res
 
 
 def paged_reference_phase(device="cuda") -> dict:
@@ -2602,6 +2826,7 @@ def checkpoint_phase(extra=()) -> dict:
 def _free(phase: dict) -> None:
     """Drop a full-width runtime before the next one is built."""
     phase.pop("rt", None)
+    phase.pop("sched", None)
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -2613,13 +2838,18 @@ SERVE_PHASES = {
     "paged_int8": (["serve", "--paged-kv", "--kv-int8", "--kv-on-demand",
                     "--kv-block-size", "128", "--kv-pool-tokens", "2048"],
                    {"K3b": PER_STEP},
-                   {"generate": False, "min_preemptions": 1}),
+                   {"generate": False, "min_preemptions": 1,
+                    "resume": True}),
     "paged_bf16": (["serve", "--paged-kv"], {"K3a": PER_STEP}, {}),
     "int4": (["serve", "--quantize", "--weight-bits", "4", "--paged-kv",
               "--kv-int4"], {"K4": LINEARS, "K5": PER_STEP, "K2": HEAD},
              {"generate": False}),
     "int8w": (["serve", "--quantize"],
               {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, {"generate": False}),
+    # int8w with the C++ extractor and deinterleave: bench.py's default
+    # weights under `serve --native-protocol`
+    "native": (["serve", "--quantize", "--native-protocol"],
+               {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, {"generate": False}),
     # two waves sharing an opener: the first request misses, 15 hit
     "prefix": (["serve", "--prefix-cache"], {"K1": PER_STEP},
                {"waves": 2, "opener": OPENER, "prefix_counts": (1, 15)}),
@@ -2753,14 +2983,23 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
                          "kernels, qmm, dense, checkpoint, paged, quant, "
-                         "prefix, vocoder, compare = the serve phases eager and "
-                         "replayed) and print no result line; the full run "
-                         "takes no arguments")
-    only = ap.parse_args(argv).only
-    only = set(only.split(",")) if only else None
+                         "prefix, vocoder, native, compare = the serve "
+                         "phases eager and replayed, gap = the paged_int8 "
+                         "phase alone) and print no result line; the full "
+                         "run takes no arguments")
+    ap.add_argument("--port-root", default=None, metavar="DIR",
+                    help="development, with --only gap: import the port "
+                         "from DIR (a checkout of another commit), to time "
+                         "two trees in one call")
+    parsed = ap.parse_args(argv)
+    only = set(parsed.only.split(",")) if parsed.only else None
+    if parsed.port_root and only != {"gap"}:
+        ap.error("--port-root goes with --only gap")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if parsed.port_root:
+        sys.path.insert(0, str(Path(parsed.port_root).resolve()))
     # the port must be importable from here before anything is reported
     import tts_inference_tpu_torch.cli  # noqa: F401
     card = card_line()
@@ -2772,6 +3011,8 @@ def main(argv=None) -> int:
     def on(phase: str) -> bool:
         return only is None or phase in only
 
+    if only is not None and "gap" in only:
+        gap_phase(parsed.port_root)
     kern = kernel_phase() if on("kernels") else None
     if only is not None and "qmm" in only:
         qmm_phase()
@@ -2788,6 +3029,13 @@ def main(argv=None) -> int:
         phases["checkpoint"] = checkpoint_phase()
     if on("paged"):
         phases["paged_int8"] = run_serve_phase("paged_int8")
+        phases["soak_preempt"] = soak_phase(
+            "paged_int8", phases["paged_int8"]["sched"], "preempt")
+        # --only paged,soak: the churn twice, the steadiness check of its
+        # RSS and TTFA drift
+        for _ in range(2 if only is not None and "soak" in only else 1):
+            phases["soak"] = soak_phase(
+                "paged_int8", phases["paged_int8"]["sched"], "churn")
         graphs["paged_int8"] = graph_phase("paged_int8",
                                            phases["paged_int8"]["rt"])
         if graphs["paged_int8"]["preemptions"] < 1:
@@ -2806,6 +3054,23 @@ def main(argv=None) -> int:
         graphs["int8w"] = graph_phase("int8w", phases["int8w"]["rt"])
         _free(phases["int8w"])
         quant_reference_phase()
+    if on("native"):
+        t0 = time.perf_counter()
+        phases["native"] = run_serve_phase("native")
+        _free(phases["native"])
+        keys = ("ttfa_ms_p50", "ttfa_ms_p95", "aggregate_rtf",
+                "worst_gap_ms_p50", "worst_gap_ms_max",
+                "max_memory_allocated")
+        for tag in ("native", "int8w"):
+            if tag in phases:
+                rtf = sorted(phases[tag]["per_stream_rtf"])
+                print(f"serve[native] beside int8w: {tag}",
+                      json.dumps({**{k: phases[tag][k] for k in keys},
+                                  "per_stream_rtf_min": rtf[0],
+                                  "per_stream_rtf_max": rtf[-1]}),
+                      flush=True)
+        native_reference_phase()
+        print(f"native: {time.perf_counter() - t0:.1f} s", flush=True)
     if on("prefix"):
         t0 = time.perf_counter()
         ph = phases["prefix"] = run_serve_phase("prefix")

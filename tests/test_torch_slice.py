@@ -333,6 +333,23 @@ def test_cli_quantize_flags(flags, linear, embed):
     assert type(params["embed"]).__name__ == embed
 
 
+def test_cli_native_protocol_flag():
+    """`serve --native-protocol` parses and boots (warmup included) a
+    scheduler whose streams extract tokens and de-interleave windows in the
+    C++ runtime; without the flag the scheduler keeps the Python path."""
+    from tts_inference_tpu_torch.utils.native import NativeExtractor
+
+    args = cli.build_parser().parse_args(
+        ["serve", "--tiny", "--device", "cpu", "--native-protocol"])
+    rt, sched = cli.build_serving(args)
+    assert sched.use_native and sched.core.params is rt.engine.core.params
+    st = TS._SlotState(TS.TTSRequest(text="x", force_speech=True), sched)
+    assert isinstance(st.extractor, NativeExtractor) and st.extractor.started
+    assert st.lookahead.use_native
+    assert not cli.build_parser().parse_args(
+        ["serve", "--tiny"]).native_protocol
+
+
 @pytest.mark.parametrize("flags", [
     ["--paged-kv", "--kv-int8", "--kv-on-demand"],
     ["--paged-kv", "--kv-int4"],

@@ -20,9 +20,11 @@ them (``--paged-kv``, ``--kv-int8``, ``--kv-int4``, ``--kv-on-demand``,
 ``--admission-policy``, ``--reserved-short-slots``, ``--short-tokens``);
 ``--quantize [--weight-bits 4]`` quantizes the LM weights at boot (kernels
 K2 and K4) unless the checkpoint is pre-quantized; ``--vocoder-bf16`` runs
-the vocoder in bf16 (K6's bf16 kernel). Without ``--device`` every command
-but ``devices`` runs on ``cuda`` and fails when there is none; ``--device
-cpu`` asks for the CPU.
+the vocoder in bf16 (K6's bf16 kernel); ``serve --native-protocol``
+extracts tokens and de-interleaves windows in the C++ runtime built from
+``native/tts_runtime.cpp`` (an error when it cannot be built). Without
+``--device`` every command but ``devices`` runs on ``cuda`` and fails when
+there is none; ``--device cpu`` asks for the CPU.
 Options of configurations that are not ported yet are accepted by the
 parser and rejected with the ROADMAP item that ports them — the port never
 runs a different path silently.
@@ -297,7 +299,8 @@ def build_serving(args):
         from tts_inference_tpu_torch.engine.scheduler import Scheduler
 
         scheduler = Scheduler(rt.engine.core.params, rt.config, rt.vocoder,
-                              rt.tokenizer, seed=args.seed, device=rt.device)
+                              rt.tokenizer, seed=args.seed, device=rt.device,
+                              use_native=args.native_protocol)
         if not args.no_warmup:
             info = scheduler.warmup()
             # the scheduler's graph census, then the single-stream engine's
@@ -364,6 +367,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--single-stream", dest="multi_stream",
                    action="store_false",
                    help="serialized single-engine mode")
+    s.add_argument("--native-protocol", action="store_true",
+                   help="C++ token extractor + deinterleave in the "
+                        "scheduler hot path (native/tts_runtime.cpp)")
     s.set_defaults(fn=cmd_serve)
     return ap
 

@@ -50,8 +50,19 @@ the replay. The prefix pools are read the same way: the build writes the
 pool rows in place, on the stream, so an admission graph replayed after it
 reads the new entry and one replayed before it the old.
 
-Not ported yet (ROADMAP.md): meshes; the resume re-prefill
-(``prefill_slots``) runs eagerly.
+The preemption resume (``prefill_slots``, the scheduler's re-prefill of
+prompt + generated) replays a graph too: the admission graph of its bucket
+where that is a prompt bucket, else the graph of its resume-tier bucket
+(``resume_buckets`` above the largest prompt bucket, captured by
+``warmup_graphs`` on a paged on-demand core, as the JAX package compiles
+them there). A resume re-prefills one slot, so a tier graph prefills that
+one row, not the slot batch: over the batch, the prefill attention's f32
+scores grow with B × bucket² (``tools/warmup_memory.py`` on an H100 80GB:
+the 2048 graph held 14.5 GB at 8 slots and ran out of memory at 32; one
+row, 1.6 GB). Its launches are counted as resumes, apart from
+admissions.
+
+Not ported yet (ROADMAP.md): meshes.
 """
 
 from __future__ import annotations
@@ -91,12 +102,14 @@ def _census_name(key) -> str:
         return f"capture_prefill_prefix_{key[1]}"
     if key[0] == "prefix_build":
         return "capture_prefix_build"
+    if key[0] == "resume":
+        return f"capture_prefill_resume_{key[1]}"
     return f"capture_prefill_{key[1]}"
 
 
 def _launch_kind(key) -> str:
-    return {"decode": "decode", "prefix_build": "prefix_build"}.get(
-        key[0], "admission")
+    return {"decode": "decode", "prefix_build": "prefix_build",
+            "resume": "resume"}.get(key[0], "admission")
 
 
 @dataclasses.dataclass
@@ -164,8 +177,8 @@ class EngineCore:
             self._init_prefix_pool()
         # CUDA graphs on a CUDA device (graphs=False: the eager launches,
         # for comparisons on the card); key ("decode", steps, window),
-        # ("admit", bucket), ("admit_prefix", suffix bucket) or
-        # ("prefix_build",) → _Graph
+        # ("admit", bucket), ("admit_prefix", suffix bucket), ("resume",
+        # resume-tier bucket) or ("prefix_build",) → _Graph
         self.use_graphs = graphs and self.device.type == "cuda"
         self._graphs: dict = {}
         self._graph_pool = None      # one memory pool for the core's graphs
@@ -175,7 +188,8 @@ class EngineCore:
         self.graph_census_ms: dict = {}   # census name → capture ms
         self.prepare_ms = 0.0
         self.late_captures = 0       # captured outside warmup_graphs
-        # uses of each graph kind, and how many of them were replays
+        # uses of each graph kind, and how many of them were replays (the
+        # resume tier's warmup launches count as "warmup", not as resumes)
         self.launches = collections.Counter()
         self.replays = collections.Counter()
 
@@ -218,21 +232,46 @@ class EngineCore:
         )
 
     def _prefill_state(self, ss: S.SamplingState, tokens, lens, sparams,
-                       slot_mask, prefix=None):
+                       slot_mask, prefix=None, cache=None):
         """Prefill `tokens` (B, S bucket) for slots in slot_mask and sample
         their first token; other slots are untouched. Returns (tokens, the
         sampling state after). `prefix` (ptoks, plens, pidx): the prefix
-        cache's admission, see _prefix_prefill_state."""
+        cache's admission, see _prefix_prefill_state. `cache`: the core's,
+        or a view of some of its rows (_row_prefill_state)."""
+        cache = self.cache if cache is None else cache
         if prefix is not None:
             return self._prefix_prefill_state(ss, tokens, lens, *prefix,
-                                              sparams, slot_mask)
+                                              sparams, slot_mask, cache)
         seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
         logits, _ = llama.prefill(self.params, self.model_cfg, tokens, seg,
-                                  self.cache, kv_window=tokens.shape[1],
+                                  cache, kv_window=tokens.shape[1],
                                   logits_base=self.logits_base)
         marked = S.mark_prompt(ss, tokens, seg)
         tok, new = S.sample(logits, sparams, marked, base=self.logits_base)
         return tok, self._restore_rows(ss, new, slot_mask)
+
+    def _row_prefill_state(self, ss: S.SamplingState, tokens, rows, lens,
+                           sparams, slot_mask, prefix=None):
+        """_prefill_state for the slots `rows` (R,) alone, `tokens` (R, S
+        bucket): the model runs over R rows of a paged cache view (the
+        pools, the rows' block tables and lengths), the other inputs are the
+        slot batch's. Returns (the rows' tokens (R,), the slot batch's
+        sampling state after, the rows' lengths after)."""
+        c = self.cache
+        assert isinstance(c, llama.PagedKVCache)
+
+        def sub(t):
+            return t.index_select(0, rows)
+
+        view = dataclasses.replace(c, block_table=sub(c.block_table),
+                                   lengths=sub(c.lengths))
+        tok, new = self._prefill_state(
+            S.SamplingState(*map(sub, ss)), tokens, sub(lens),
+            S.SamplingParams(*map(sub, sparams)), sub(slot_mask),
+            None if prefix is None else tuple(map(sub, prefix)), view)
+        ss = S.SamplingState(*(t.index_copy(0, rows, n)
+                               for t, n in zip(ss, new)))
+        return tok, ss, view.lengths
 
     # -- the prefix cache: pools, build, injection ---------------------------
 
@@ -291,12 +330,12 @@ class EngineCore:
             for p, x in zip(pools, built):
                 p.index_copy_(0, idx, x[row])
 
-    def _inject_prefix(self, pidx, inject) -> None:
+    def _inject_prefix(self, pidx, inject, cache) -> None:
         """Copy pool rows pidx (B,) into cache positions [0, PB) of the
         slots in `inject`, in place. Dense: the other slots' rows are left
         as they are. Paged: through the block table, the other slots
         writing the trash block (row 0), like any masked paged write."""
-        cache, pb = self.cache, self.engine_cfg.prefix_len
+        pb = self.engine_cfg.prefix_len
         caches = (cache.k, cache.v, cache.k_scale, cache.v_scale)
         if isinstance(cache, llama.PagedKVCache):
             bs, b = cache.block_size, cache.block_table.shape[0]
@@ -325,7 +364,7 @@ class EngineCore:
                 c[:, :pb].copy_(torch.where(m, sel, c[:, :pb]))
 
     def _prefix_prefill_state(self, ss, tokens, lens, ptoks, plens, pidx,
-                              sparams, slot_mask):
+                              sparams, slot_mask, cache):
         """The prefix cache's prefill: inject each hit's pool row, prefill
         the suffix `tokens` (B, suffix bucket) at write_pos = plens, sample
         at the last suffix token. Slots with plens 0 (no cached prefix)
@@ -333,12 +372,12 @@ class EngineCore:
         the suffix bucket + PB."""
         zeros = torch.zeros_like(plens)
         inject = slot_mask & (plens > 0)
-        self._inject_prefix(pidx, inject)
+        self._inject_prefix(pidx, inject, cache)
         wp = torch.where(inject, plens, zeros)
         seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
         window = min(tokens.shape[1] + ptoks.shape[1], self.max_seq)
         hidden, _ = llama.forward(self.params, self.model_cfg, tokens,
-                                  self.cache, wp, seg, kv_window=window)
+                                  cache, wp, seg, kv_window=window)
         last = (seg - 1).clamp(min=0).long()
         logits = llama.compute_logits(
             self.params, self.model_cfg,
@@ -358,6 +397,19 @@ class EngineCore:
         ptok, ss = self._prefill_state(ss, tokens, lens, sparams, mask,
                                        prefix)
         S.copy_state(self.sampling_state, ss)
+        return (torch.where(mask, ptok, last_tok),
+                torch.where(mask, ptok != self.eos_id, active))
+
+    def _resume_impl(self, tokens, rows, lens, sparams, mask, last_tok,
+                     active, seeds, reseed, prefix=None):
+        """The resume tier's launch: _admit_impl for the one slot `rows`
+        (1,), `tokens` (1, tier bucket), its prefill over that row alone."""
+        ss = self._reset_state(self.sampling_state, mask, seeds, reseed)
+        rtok, ss, lengths = self._row_prefill_state(ss, tokens, rows, lens,
+                                                    sparams, mask, prefix)
+        self.cache.lengths.index_copy_(0, rows, lengths)
+        S.copy_state(self.sampling_state, ss)
+        ptok = last_tok.index_copy(0, rows, rtok)
         return (torch.where(mask, ptok, last_tok),
                 torch.where(mask, ptok != self.eos_id, active))
 
@@ -400,6 +452,9 @@ class EngineCore:
                 "lens": zeros(torch.int32), "mask": zeros(torch.bool),
                 "seeds": zeros(torch.int64), "reseed": zeros(torch.bool),
                 "tokens": {},        # prompt bucket → (B, bucket) int32
+                # the resume tier's one row: bucket → (1, bucket), its slot
+                "row_tokens": {},
+                "rows": torch.zeros(1, dtype=torch.int64, device=dev),
             }
             if self.engine_cfg.prefix_cache:
                 pb = self.engine_cfg.prefix_len
@@ -422,10 +477,10 @@ class EngineCore:
                 for dst, src in zip(st["sp"], x):
                     dst.copy_(src, non_blocking=True)
                 continue
-            if name == "tokens":
-                dst = st["tokens"].get(x.shape[1])
+            if name in ("tokens", "row_tokens"):
+                dst = st[name].get(x.shape[1])
                 if dst is None:
-                    dst = st["tokens"][x.shape[1]] = torch.zeros(
+                    dst = st[name][x.shape[1]] = torch.zeros(
                         x.shape, dtype=torch.int32, device=self.device)
             else:
                 dst = st[name]
@@ -442,21 +497,31 @@ class EngineCore:
         if key[0] == "prefix_build":
             return lambda: self._prefix_build_impl(
                 st["build_toks"], st["build_len"], st["build_idx"])
+        if key[0] == "resume":
+            # a resume-tier bucket admits as the core admits: through the
+            # prefix cache when it is on
+            prefix = ((st["ptoks"], st["plens"], st["pidx"])
+                      if self.engine_cfg.prefix_cache else None)
+            return lambda: self._resume_impl(
+                st["row_tokens"][key[1]], st["rows"], st["lens"], st["sp"],
+                st["mask"], st["last_tok"], st["active"], st["seeds"],
+                st["reseed"], prefix)
         prefix = ((st["ptoks"], st["plens"], st["pidx"])
                   if key[0] == "admit_prefix" else None)
         return lambda: self._admit_impl(
             st["tokens"][key[1]], st["lens"], st["sp"], st["mask"],
             st["last_tok"], st["active"], st["seeds"], st["reseed"], prefix)
 
-    def _launch(self, key, **inputs):
+    def _launch(self, key, kind: Optional[str] = None, **inputs):
         """Write the inputs, then replay the graph of `key` (captured on
-        first use) or, without graphs, run its body eagerly. The outputs
-        are the graph's own tensors, good until the next replay of any of
-        the core's graphs: they share one memory pool, so a graph captured
+        first use) or, without graphs, run its body eagerly; the launch
+        counts under `kind` (default: the key's). The outputs are the
+        graph's own tensors, good until the next replay of any of the
+        core's graphs: they share one memory pool, so a graph captured
         later may keep its intermediates where an earlier one keeps its
         outputs. The caller clones or copies them before that."""
         self._put(**inputs)
-        kind = _launch_kind(key)
+        kind = kind or _launch_kind(key)
         self.launches[kind] += 1
         if self.use_graphs:
             graph = self._graphs.get(key) or self._capture(key)
@@ -481,16 +546,30 @@ class EngineCore:
                        list(self.engine_cfg.kv_buckets) + [self.max_seq]
                        if w <= self.max_seq} | {self.kv_bucket(1)})
 
+    def resume_tier(self) -> List[int]:
+        """The resume-tier buckets that get graphs of their own: each
+        ``resume_buckets`` entry above the largest prompt bucket and within
+        max_seq, on a paged on-demand core (the JAX package's condition for
+        compiling them); a resume at a smaller bucket replays that prompt
+        bucket's admission graph."""
+        ecfg = self.engine_cfg
+        if not (ecfg.paged_kv and ecfg.kv_on_demand):
+            return []
+        top = max(ecfg.prefill_buckets)
+        return sorted({int(b) for b in ecfg.resume_buckets
+                       if top < b <= self.max_seq})
+
     def _prepare(self) -> None:
         """Before this thread's first capture: one eager pass over every
         shape the graphs take — a decode step at each KV window, a prefill
-        at each prompt bucket, the prefix build's prefill — with every slot
-        masked, so that it changes no state (writes land in the trash row or
-        block or the build's scratch cache, lengths stay, the sampled state
-        is dropped) and counts no launch. It does what a
-        capture must not: the kernel build, this thread's cuBLAS handles,
-        the rope table, the kernels' one-time attributes, the K4 / K2 plans,
-        and the growth of the attention / K4 workspace to every shape."""
+        at each prompt bucket, a one-row prefill at each resume-tier bucket,
+        the prefix build's prefill — with every slot masked, so that it
+        changes no state (writes land in the trash row or block or the
+        build's scratch cache, lengths stay, the sampled state is dropped)
+        and counts no launch. It does what a capture must not: the kernel
+        build, this thread's cuBLAS handles, the rope table, the kernels'
+        one-time attributes, the K4 / K2 plans, and the growth of the
+        attention / K4 workspace to every shape."""
         tid = threading.get_ident()
         if tid in self._prepared:
             return
@@ -521,6 +600,11 @@ class EngineCore:
                                      device=dev)
                 self._prefill_state(self.sampling_state, tokens, zeros, sp,
                                     none, prefix)
+            for bucket in self.resume_tier():
+                tokens = torch.zeros((1, bucket), dtype=torch.int32,
+                                     device=dev)
+                self._row_prefill_state(self.sampling_state, tokens,
+                                        st["rows"], zeros, sp, none, prefix)
         torch.cuda.synchronize(dev)
         self._prepared.add(tid)
         self.prepare_ms += (time.perf_counter() - t0) * 1e3
@@ -881,30 +965,44 @@ class EngineCore:
                       seeds: Optional[Sequence[Optional[int]]] = None,
                       bucket: Optional[int] = None) -> np.ndarray:
         """Prefill the given slots; returns their first tokens (B,) on the
-        host. Runs over the whole slot batch; other slots are untouched.
-        Paged, each slot reserves its injected prefix + bucket +
-        reserve_extra[i] tokens of blocks (default max_output_len).
-        ``bucket`` overrides the prompt's (with the prefix cache: the
-        suffix's) bucket: the preemption resume re-prefills through the
-        resume tier so."""
+        host (other slots: 0). Runs over the whole slot batch; other slots
+        are untouched. Paged, each slot reserves its injected prefix +
+        bucket + reserve_extra[i] tokens of blocks (default
+        max_output_len). ``bucket`` overrides the prompt's (with the prefix
+        cache: the suffix's) bucket: the preemption resume re-prefills
+        through the resume tier so. One launch — the slot reset with the
+        reseeds of ``reset_and_seed``, the prefill and the first sample —
+        counted as a resume: on the card a replay of the bucket's admission
+        graph or of its resume-tier graph, which takes one slot (one launch
+        a slot)."""
         assert len(prompts) == len(slots)
+        if len(slots) > 1 and bucket in self.resume_tier():
+            toks = np.zeros(self.batch, np.int32)
+            for i, (p, sl) in enumerate(zip(prompts, slots)):
+                toks[sl] = self.prefill_slots(
+                    [p], [sl], sparams,
+                    None if reserve_extra is None else [reserve_extra[i]],
+                    None if seeds is None else [seeds[i]], bucket)[sl]
+            return toks
         key, inp, bounds = self._admission(prompts, slots, bucket)
-        self.reset_and_seed(slots, seeds)
+        if key[1] in self.resume_tier() and len(slots) == 1:
+            # else the bucket's admission graph
+            key = ("resume", key[1])
+            inp["row_tokens"] = inp.pop("tokens")[list(slots)]
+            inp["rows"] = np.asarray(slots, np.int64)
+        self._reset_host(slots)
+        seed_arr, reseed = self._seed_arrays(slots, seeds)
         self._maybe_reserve(slots, key[1], reserve_extra, inp.get("plens"))
-        prefix = None
-        if key[0] == "admit_prefix":
-            prefix = (self._t(inp["ptoks"], torch.int32),
-                      self._t(inp["plens"], torch.int32),
-                      self._t(inp["pidx"], torch.int64))
-        tok, ss = self._prefill_state(
-            self.sampling_state, self._t(inp["tokens"], torch.int32),
-            self._t(inp["lens"], torch.int32), sparams,
-            self._t(inp["mask"], torch.bool), prefix)
-        S.copy_state(self.sampling_state, ss)
+        tok0, _ = self._launch(
+            key, kind="resume", sp=sparams,
+            last_tok=np.zeros(self.batch, np.int32),
+            active=np.zeros(self.batch, bool), seeds=seed_arr,
+            reseed=reseed, **inp)
+        tok = to_numpy(tok0)    # on the host before the next replay
         self.prefills += 1
         for sl, b in bounds.items():
             self._len_bounds[sl] = b
-        return to_numpy(tok)
+        return tok
 
     @torch.no_grad()
     def prefill_decode_launch(self, prompts: Sequence[Sequence[int]],
@@ -966,6 +1064,25 @@ class EngineCore:
         self._len_bounds[self._len_bounds > 0] += n
         return toks.clone(), tok.clone(), act.clone()
 
+    def _masked_resume(self, bucket: int, sp: S.SamplingParams) -> None:
+        """Launch (capture) the resume tier's graph of `bucket` with every
+        slot masked out, as the eager pass of _prepare runs: the writes land
+        in the trash block, no length and no sampled state changes, and no
+        block is reserved. The block table is read inside the graph, so the
+        one graph serves every table state. Counted as a warmup launch, not
+        as a resume."""
+        b, pb = self.batch, self.engine_cfg.prefix_len
+        inp = dict(row_tokens=np.zeros((1, bucket), np.int32),
+                   rows=np.zeros(1, np.int64),
+                   lens=np.zeros(b, np.int32), mask=np.zeros(b, bool),
+                   last_tok=np.zeros(b, np.int32), active=np.zeros(b, bool),
+                   seeds=np.zeros(b, np.int64), reseed=np.zeros(b, bool))
+        if self.engine_cfg.prefix_cache:
+            inp.update(ptoks=np.zeros((b, pb), np.int32),
+                       plens=np.zeros(b, np.int32), pidx=np.zeros(b, np.int64))
+        to_numpy(self._launch(("resume", bucket), kind="warmup", sp=sp,
+                              **inp)[0])
+
     def warmup_graphs(self, timer: Optional[PhaseTimer] = None,
                       first_bursts: Sequence[int] = (),
                       admission_ns: Optional[Sequence[int]] = None) -> dict:
@@ -975,8 +1092,11 @@ class EngineCore:
         fused (bucket, steps, window) graphs map here onto an admission
         graph and a decode graph each (the prefix cache's admission graph
         of the suffix bucket, and its build graph, with ``prefix_cache``).
-        On the CPU the same launches run eagerly, so the census names what
-        the card would capture.
+        A paged on-demand core also captures the resume tier
+        (``capture_prefill_resume_{b}``, the JAX package's
+        ``compile_prefill_resume_{b}``), every slot masked, so that no
+        block is reserved. On the CPU the same launches run eagerly, so the
+        census names what the card would capture.
 
         `first_bursts`: extra fused-launch step counts (the single-stream
         first dispatch covers the whole first audio chunk); `admission_ns`:
@@ -1050,6 +1170,11 @@ class EngineCore:
             # bounds would grow them to the whole window, which an on-demand
             # pool smaller than that cannot give (the JAX package's fault)
             self._reset_host(list(range(self.batch)))
+            for b in self.resume_tier():
+                if self._warmed(("resume", b)):
+                    continue
+                with t.phase(f"warmup_prefill_resume_{b}"):
+                    self._masked_resume(b, sp)
             for w in windows:
                 if self._warmed(("decode", n, w)):
                     continue

@@ -23,10 +23,17 @@ Port of ``tts_inference_tpu/engine/scheduler.py``:
   block growth the pool cannot cover first preempts the youngest stream,
   which later resumes by re-prefill and a restore of its sampling state —
   bit-identical to an uninterrupted run;
-- ``stagger_chunks``, cancel and the watchdog behave as in the JAX package.
+- ``stagger_chunks``, cancel and the watchdog behave as in the JAX package;
+- ``use_native`` routes each stream's token extraction and window
+  de-interleave through the C++ runtime (``utils/native.py`` over
+  ``native/tts_runtime.cpp``; ``serve --native-protocol``), and raises when
+  that library cannot be built — it never falls back to Python;
+- ``pipeline_depth`` (launches in flight, default 2) and
+  ``enable_tick_profile`` / ``tick_profile`` (wall seconds per tick phase,
+  the JAX package's six keys) are the surface ``bench.py`` drives.
 
 All threads launch on one CUDA stream, so their device work serializes.
-Not ported yet (ROADMAP.md): the native extractor, lockstep serving.
+Not ported yet (ROADMAP.md): meshes, lockstep serving.
 """
 
 from __future__ import annotations
@@ -57,13 +64,11 @@ from tts_inference_tpu_torch.streaming.pipeline import (AudioChunk,
                                                         first_chunk_geometry,
                                                         first_chunk_launch,
                                                         warmup_first_chunks)
-from tts_inference_tpu_torch.utils import copy_async, to_numpy
+from tts_inference_tpu_torch.utils import copy_async, native, to_numpy
 
 log = logging.getLogger("tts_inference_tpu_torch.scheduler")
 
 _req_counter = itertools.count(1)
-
-PIPELINE_DEPTH = 2   # launches in flight: one fetched while the next runs
 
 
 @dataclasses.dataclass
@@ -98,12 +103,17 @@ class _SlotState:
 
     def __init__(self, req: TTSRequest, scheduler: "Scheduler"):
         self.req = req
-        self.extractor = protocol.TokenExtractor(
-            restart_on_sos=(req.stream_cfg.extraction == "last_sos"))
-        if req.force_speech:
-            self.extractor.started = True
+        restart = req.stream_cfg.extraction == "last_sos"
+        if scheduler.use_native:
+            self.extractor = native.NativeExtractor(
+                restart_on_sos=restart, started=req.force_speech)
+        else:
+            self.extractor = protocol.TokenExtractor(restart_on_sos=restart)
+            if req.force_speech:
+                self.extractor.started = True
         self.lookahead = LookaheadStreamingDecoder(
-            scheduler.vocoder, req.stream_cfg, req.noise_seed)
+            scheduler.vocoder, req.stream_cfg, req.noise_seed,
+            use_native=scheduler.use_native)
         self.metrics = StreamMetrics()
         self.produced = 0
         self.chunk_index = 0
@@ -142,7 +152,7 @@ class _SlotState:
             if self.metrics.chunks == 0:
                 self.lookahead = LookaheadStreamingDecoder(
                     self.lookahead.decoder, self.req.stream_cfg,
-                    self.req.noise_seed)
+                    self.req.noise_seed, use_native=self.lookahead.use_native)
         if codes:
             self.lookahead.feed(codes)
         if self.extractor.finished:
@@ -175,8 +185,11 @@ class Scheduler:
     def __init__(self, params, config: Config, vocoder: SnacDecoder,
                  tokenizer: TokenizerProtocol, *,
                  eos_id: int = protocol.TOKEN_EOS, seed: int = 0,
-                 device=None):
+                 device=None, use_native: bool = False):
         ecfg = config.engine
+        if use_native:
+            native.load()   # raises when the library cannot be built
+        self.use_native = use_native
         self.config = config
         self.vocoder = vocoder
         self.tokenizer = tokenizer
@@ -217,6 +230,8 @@ class Scheduler:
         self.admission_steps = max(2 * ecfg.decode_steps_per_call,
                                    first_codes - 1)
         self._inflight = collections.deque()
+        # launches in flight: one fetched while the next runs
+        self.pipeline_depth = 2
         # requests that fit a free slot but not the paged-KV pool wait here,
         # ahead of the backlog, until blocks free up
         self._held = collections.deque()
@@ -226,6 +241,28 @@ class Scheduler:
         self.preemptions = 0    # kv_on_demand preempt-and-resume events
         self.watchdog_s: float = 120.0
         self._last_progress = time.perf_counter()
+        # tick-phase profile: wall seconds per step() phase, once enabled
+        self._prof: Optional[dict] = None
+
+    def enable_tick_profile(self) -> None:
+        """Accumulate wall seconds per step() phase into ``tick_profile``:
+        the fetch of a launch's tokens, the host token processing, the
+        fused first chunks' emission, the vocode planning, and the
+        admission and decode launches (``ticks``: launches fetched)."""
+        self._prof = {"fetch_s": 0.0, "host_tokens_s": 0.0,
+                      "fused_pcm_s": 0.0, "vocode_plan_s": 0.0,
+                      "admit_launch_s": 0.0, "ticks": 0}
+
+    @property
+    def tick_profile(self) -> Optional[dict]:
+        return dict(self._prof) if self._prof is not None else None
+
+    def _lap(self, key: str, t: float) -> float:
+        """Add the seconds since `t` to the profile's `key`; returns now."""
+        now = time.perf_counter()
+        if self._prof is not None:
+            self._prof[key] += now - t
+        return now
 
     # -- public API -----------------------------------------------------------
 
@@ -662,9 +699,13 @@ class Scheduler:
             return False
         (_, hosts, _, launch_ids, skip_first,
          fused_pcm) = self._inflight.popleft()
+        t = time.perf_counter()
         toks = to_numpy(hosts[0])         # overlaps the in-flight launch
         self._last_tok = to_numpy(hosts[1]).copy()
         active = to_numpy(hosts[2])
+        t = self._lap("fetch_s", t)
+        if self._prof is not None:
+            self._prof["ticks"] += 1
         finishing = []
         for slot, state in enumerate(self.slots):
             if state is None or launch_ids[slot] != state.req.id:
@@ -677,6 +718,7 @@ class Scheduler:
             finished = state.on_tokens([int(t) for t in row], self.eos_id)
             if finished or not active[slot]:
                 finishing.append(slot)
+        t = self._lap("host_tokens_s", t)
         if fused_pcm is not None:
             # emit eligible slots' first chunks from the device decode; the
             # fused decode covered EXACTLY frames [0, nf)
@@ -696,7 +738,9 @@ class Scheduler:
                 la.commit(plan)
                 state.metrics.decode_times_ms.append(0.0)
                 state._emit(pcm[sl])
+        t = self._lap("fused_pcm_s", t)
         self._vocode_tick(finishing)
+        self._lap("vocode_plan_s", t)
         for slot in finishing:
             state = self.slots[slot]
             if state is not None:
@@ -789,16 +833,18 @@ class Scheduler:
         did = self._maybe_preempt()
         while (self._inflight and self.pending.empty() and not self._backlog
                and not self._held and self._active.any()
-               and len(self._inflight) < PIPELINE_DEPTH):
+               and len(self._inflight) < self.pipeline_depth):
             (_, tok_d, act_d), _, sp_used, _, _, _ = self._inflight[-1]
             self._push_decode(sp_used, tok_d, act_d)
         did = self._consume_one() or did
+        t = time.perf_counter()
         if not self._inflight:
             did = self._admit() or did
             if not self._inflight and self._active.any():
                 self._push_decode(self._sampling_params(), self._last_tok,
                                   self._active)
                 did = True
+        self._lap("admit_launch_s", t)
         return did
 
     def fail_all(self, message: str) -> None:

@@ -56,6 +56,8 @@ class LookaheadStreamingDecoder:
     decoder: SnacDecoder
     stream_cfg: StreamConfig = dataclasses.field(default_factory=StreamConfig)
     noise_seed: int = 0
+    # window assembly through the C++ deinterleave (native/tts_runtime.cpp)
+    use_native: bool = False
     # one-time shrink of the SECOND chunk (then back to frames_per_chunk):
     # the scheduler sets slot % frames_per_chunk so concurrently admitted
     # streams chunk on different ticks; emitted bytes are unchanged
@@ -114,6 +116,11 @@ class LookaheadStreamingDecoder:
                        : plan.w1 * protocol.FRAME_SIZE],
             dtype=np.int32,
         )
+        if self.use_native:
+            from tts_inference_tpu_torch.utils.native import \
+                native_deinterleave
+
+            return native_deinterleave(flat)
         return protocol.deinterleave_frames(flat)
 
     def commit(self, plan: WindowPlan) -> None:
