@@ -14,7 +14,9 @@ no result line is printed:
    CUDA graph of the calls, replayed), the least time the card could take
    (bytes or operations), and the time of the one PyTorch call that
    computes the same function where there is one (K2: the build is asked
-   whether it has ``aten::_weight_int8pack_mm`` on CUDA); the time of an
+   whether it has ``aten::_weight_int8pack_mm`` on CUDA; K4: tinygemm's
+   ``aten::_weight_int4pack_mm`` on a repacked copy, held against K4's
+   plain version); the time of an
    empty kernel; a ``torch.profiler`` count that every K4 / K2 call, and
    every K3b / K5 call with bf16 queries, is one kernel; every kernel also
    at the edges of its tilings, correctness only, each case run twice for
@@ -62,7 +64,21 @@ no result line is printed:
    own tokenizer) and served as in 4 (K1, K6, every launch a replay);
    then ``cli quantize`` and a boot from its output with no quantization
    at boot, int8 leaves byte-equal, one request carried by K2;
-8. paged int8 serve phase: ``serve --paged-kv --kv-int8 --kv-on-demand``
+8. train phase: three LoRA steps of the tiny model on the card against
+   the CPU in f32 (TF32 off) and bf16 (every step's loss and the final A
+   and B within TRAIN_TOL); then at full width on the checkpoint phase's HF
+   dir: ``finetune train`` (LoRA r 16 on the 7 targets, 20 steps of 2 x
+   512 tokens over 16 records of text + 60 frames, a step checkpoint every
+   10: the mean loss of the last 5 steps below the first 5's, the last two
+   step dirs kept; step ms, tokens/s, TFLOP/s against the bound of the
+   operations at their type's peak, peak memory), 2 steps of
+   ``--full-finetune`` (step ms, TFLOP/s, peak memory), ``finetune
+   merge`` (seconds, write GB/s), and ``cli serve --model-path merged``
+   with the 8 streams as in 4, where the booted leaves and the greedy
+   tokens equal an in-memory merge on the card, the served PCM of those
+   tokens passes ``tools/audio_fidelity`` against their whole decode, and
+   ``tools/analyze_tokens`` finds no invalid frame in any served stream;
+9. paged int8 serve phase: ``serve --paged-kv --kv-int8 --kv-on-demand``
    with a pool too small for the 8 streams (16 blocks of 128), so streams
    are preempted and resumed; K3b carries every decode step, K1 and K3a
    none; the census holds the resume tier (``capture_prefill_resume_1024``
@@ -76,37 +92,37 @@ no result line is printed:
    preempt and every resume replay a graph, then at the JAX tool's 14-70
    with RSS growth and TTFA drift within the tool's limits, printed beside
    them);
-9. paged bf16 serve phase: ``serve --paged-kv`` (worst-case reservation),
+10. paged bf16 serve phase: ``serve --paged-kv`` (worst-case reservation),
    8 streams and one ``/generate``; K3a carries every decode step;
-10. paged reference: the tiny slice paged (K3a), dense int8 and paged int8
+11. paged reference: the tiny slice paged (K3a), dense int8 and paged int8
    (K3b) on the card against the CPU, and a preempt → resume on the card
    against the same requests served without preemption, every launch of
    both a graph replay (the scheduler's warmup captures them);
-11. int4 serve phase: ``serve --quantize --weight-bits 4 --paged-kv
+12. int4 serve phase: ``serve --quantize --weight-bits 4 --paged-kv
     --kv-int4``; K4 carries every layer linear of every forward pass, K5
     every decode step, K2 the head; K1, K3a, K3b none;
-12. int8 weights serve phase: ``serve --quantize``; K2 carries every linear
+13. int8 weights serve phase: ``serve --quantize``; K2 carries every linear
     and the head, K1 every decode step; then the native phase, ``serve
     --quantize --native-protocol`` (the C++ extractor and deinterleave of
     ``native/tts_runtime.cpp``), the same kernel counts, printed beside
     int8w, and the tiny scheduler on the card with the native and the
     Python extractor over the same requests: tokens and PCM byte-equal;
-13. quantized reference: the tiny slice with int4 weights + int4 KV and with
+14. quantized reference: the tiny slice with int4 weights + int4 KV and with
     int8 weights on the card against the same quantized leaves on the CPU;
-14. prefix serve phase: ``serve --prefix-cache`` (dense bf16 KV), two waves
+15. prefix serve phase: ``serve --prefix-cache`` (dense bf16 KV), two waves
     of 8 ``/ws/tts`` requests whose texts share a 37-byte opener, then one
     ``/generate``; the waves add exactly 1 miss and 15 hits to the
     scheduler core's prefix counters on ``/metrics`` (the warmup's probes
     missed once and hit before), every launch (the build's too) is a
     replay, K1 carries every decode step; TTFA per wave beside the dense
     phase's;
-15. prefix reference: the five KV layouts (dense bf16, dense int8, paged
+16. prefix reference: the five KV layouts (dense bf16, dense int8, paged
     bf16, paged int8 on demand, paged int4 with int4 weights) at full
     width, a prefix core against a plain core over the same weights (eager
     cores): the injected rows [0, 32) against the plain prefill's, greedy
     tokens of a miss wave and a hit wave of 8 requests, and on demand an
     admission beside a live slot at the edge of its last block;
-16. the bf16 vocoder: the `vocoder_bf16` serve phase (``serve
+17. the bf16 vocoder: the `vocoder_bf16` serve phase (``serve
     --vocoder-bf16``; K6-bf16 on every unit of every vocoder call, K6
     none, K1 every decode step, every vocoder call a replay) beside the
     dense phase's numbers, windowed vs batch decode in bf16 within
@@ -117,12 +133,12 @@ no result line is printed:
     same gate for a float16 decode of the same codes, with the launch
     counters set to 0 before it (K6-f16 12, K6 12 for the f32 decode,
     nothing else);
-17. the card line, the kernels' JSON line, and last
+18. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
 without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
-checkpoint, paged, quant, native, prefix, vocoder = phase 16 with the 16-bit
+checkpoint, train, paged, quant, native, prefix, vocoder = phase 17 with the 16-bit
 kernel cases; paged,soak runs the churn soak twice; gap = the paged_int8 serve
 phase alone, with ``--port-root DIR`` from another checkout, to time two
 trees in one call) runs some phases during development and prints no
@@ -815,12 +831,66 @@ def int8pack_mm_on_card() -> bool:
         "aten::_weight_int8pack_mm", "CUDA")
 
 
+def int4pack_mm_on_card() -> bool:
+    """Whether this build of PyTorch has a CUDA kernel for
+    ``aten::_weight_int4pack_mm`` (tinygemm: x (M, K) bf16, a weight packed
+    by ``_convert_weight_to_int4pack``, bf16 scales and zeros per group):
+    the one library call that computes K4's function."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int4pack_mm", "CUDA")
+
+
+# tinygemm's group sizes are 32 to 256: K4's groups of 512 (or 128) become
+# groups of 128 with each scale repeated
+INT4PACK_GROUP = 128
+
+
+def _int4pack_operands(q, k: int, n: int):
+    """tinygemm's operands for one K4 weight, dequantizing to K4's values:
+    tinygemm computes (u - 8) · scale + zero from unsigned nibbles u, so u =
+    q + 8 and every zero is 0; its weight is (N, K) with two nibbles a byte
+    (even k high), packed by ``_convert_weight_to_int4pack`` (8 inner K
+    tiles), its scales bf16 — K4's f32 scales rounded."""
+    from tts_inference_tpu_torch.ops.int4_matmul import unpack_int4
+
+    u = (unpack_int4(q.w_p)[:, :n] + 8).t().contiguous()      # (N, K)
+    nib = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+    packed = torch._convert_weight_to_int4pack(nib, 8)
+    rep = k // q.scale.shape[0] // INT4PACK_GROUP
+    sc = q.scale.repeat_interleave(rep, dim=0).bfloat16()
+    return packed, torch.stack([sc, torch.zeros_like(sc)], dim=2).contiguous()
+
+
+def _int4pack_library(x, qs, k: int, n: int):
+    """K4's library call over the rotating weights, held against K4's plain
+    version on the scales the call takes (bf16): the call also rounds each
+    dequantized weight to bf16 before its product, where K4 and the plain
+    version multiply in f32, so its tolerance is two bf16 steps of the
+    largest output. Returns (fn, rotating arguments, max |d|)."""
+    from tts_inference_tpu_torch.ops.int4_matmul import int4_mm_reference
+
+    def fn(x, packed, sz):
+        return torch._weight_int4pack_mm(x, packed, INT4PACK_GROUP, sz)
+
+    rotate = [(x, *_int4pack_operands(q, k, n)) for q in qs]
+    got = fn(*rotate[0])
+    want = int4_mm_reference(x, qs[0].w_p, qs[0].scale.bfloat16().float())
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 * QMM_TOL_BF16 * want.float().abs().max().item()
+    print(f"K4 library torch._weight_int4pack_mm M{x.shape[0]} K{k} N{n}: "
+          f"max|d| {err:.3e} against the plain version (tol {tol:.1e})",
+          flush=True)
+    if not err <= tol:
+        raise AssertionError(f"_weight_int4pack_mm: max|d| {err} > {tol}")
+    return fn, rotate, err
+
+
 def _qmm_finish(name, shape, x, kern, plain, rotate, out_f32, wbytes, k, n,
                 ctx_weight=None, library=None):
     """Compare one quantized matmul with its plain version and time both
-    over weights that rotate through more than the L2 holds. No PyTorch call
-    multiplies by the packed int4 format, so K4 has no library time; K2's is
-    `library` = (fn, rotating arguments) where the build has the call. The
+    over weights that rotate through more than the L2 holds. The library
+    call is `library` = (fn, rotating arguments) where the build has it:
+    ``_weight_int4pack_mm`` for K4, ``_weight_int8pack_mm`` for K2. The
     bf16 ``torch.matmul`` of the same (M, K, N) is printed as context."""
     m = x.numel() // k
     got = kern(*rotate[0])
@@ -868,11 +938,14 @@ def _k4_case(m: int, k: int, n: int, group: int, dtype,
     g = k // qs[0].scale.shape[0]
     wbytes = qs[0].w_p.shape[0] * n + qs[0].scale.numel() * 4
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    library = None
+    if context and dtype == torch.bfloat16 and int4pack_mm_on_card():
+        library = _int4pack_library(x, qs, k, n)[:2]
     return _qmm_finish(
         "K4 int4_mm", f"M{m} K{k} N{n} G{g} {dt}", x, int4_mm,
         int4_mm_reference, [(x, q.w_p, q.scale) for q in qs], False, wbytes,
         k, n, (lambda: _qmm_weight(k, n, torch.bfloat16, gen))
-        if context else None)
+        if context else None, library)
 
 
 def _k2_case(m: int, k: int, n: int, gen: torch.Generator,
@@ -1089,11 +1162,13 @@ def _qmm_cases(gen: torch.Generator):
         layer = [cases[(8, 3072, 3072)], cases[(8, 3072, 1024)],
                  cases[(8, 3072, 8192)], cases[(8, 8192, 3072)]]
         mult = (2, 2, 2, 1)     # q and o, k and v, gate and up, down
+        lib = ("none" if any(c["library_ms"] is None for c in layer) else
+               f"{sum(c['library_ms'] * f for c, f in zip(layer, mult)) * 1e3:.1f} us")
         print(f"{name} M8, the seven linears of a layer: kernel "
               f"{sum(c['ms'] * f for c, f in zip(layer, mult)) * 1e3:.1f} us"
               f" bound "
               f"{sum(c['bound_ms'] * f for c, f in zip(layer, mult)) * 1e3:.1f}"
-              " us", flush=True)
+              f" us library {lib}", flush=True)
     return k4, k2
 
 
@@ -1408,7 +1483,8 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     Every phase prints each stream's worst inter-chunk gap (client clock),
     p50 and max over the streams, and for the streams the scheduler
     preempted (found through the in-process scheduler) their worst gaps —
-    the resume gap — and their RTF."""
+    the resume gap — and their RTF. The result's `served_tokens` maps each
+    finished request's text to its prompt and generated ids."""
     from aiohttp import web
 
     from tts_inference_tpu_torch import cli
@@ -1430,6 +1506,16 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         preempt(slot)
 
     scheduler._preempt = _recording_preempt
+    served = {}         # text → prompt + generated ids of a finished request
+    release = scheduler._release
+
+    def _recording_release(slot):
+        st = scheduler.slots[slot]
+        if st is not None:
+            served[st.req.text] = list(st.prompt_ids) + list(st.token_ids)
+        release(slot)
+
+    scheduler._release = _recording_release
     if eager:
         for holder in (scheduler, rt.engine):
             c = holder.core
@@ -1637,7 +1723,7 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     print(f"serve[{name}]: {waves} x 8 x /ws/tts"
           f"{' + /generate' if generate else ''} ok:", json.dumps(out),
           flush=True)
-    return {"rt": rt, "sched": scheduler, **out}
+    return {"rt": rt, "sched": scheduler, "served_tokens": served, **out}
 
 
 def exactness_phase(rt, tol: int = PCM16_TOL) -> dict:
@@ -2678,7 +2764,7 @@ def _assert_trees_equal(got, want, path: str) -> int:
     return 1
 
 
-def checkpoint_phase(extra=()) -> dict:
+def checkpoint_phase(extra=(), keep: bool = False) -> dict:
     """Boot from checkpoint directories at full width: the dense phase's
     seeded weights (``cli serve``: LM seed 0, vocoder seed 1) written by
     ``tools/make_checkpoint.py`` as an Orpheus-3B HF dir (bf16, 2 GiB
@@ -2691,7 +2777,9 @@ def checkpoint_phase(extra=()) -> dict:
     boot from Q with no quantization at boot (``--quantize`` given and
     ignored), int8 leaves byte-equal to ``quantize_llama_params`` of the
     loaded tree, one request carried by K2. The directory is removed in
-    any case. `extra`: more ``cli serve`` flags for every boot (the CPU
+    any case, but with `keep` the phase ends with the HF and SNAC dirs in
+    place for the train phase (``res["dirs"]``; the train phase removes
+    them). `extra`: more ``cli serve`` flags for every boot (the CPU
     rehearsal: ``--tiny --device cpu --max-output-len 512``)."""
     import contextlib
     import io
@@ -2818,8 +2906,391 @@ def checkpoint_phase(extra=()) -> dict:
         print("checkpoint: boot from cli quantize's output",
               json.dumps(res["quantized_boot"]), flush=True)
         del rt
+        if keep:
+            shutil.rmtree(q_dir)
+            res["dirs"] = (model_dir, snac_dir)
+    finally:
+        if "dirs" not in res:
+            shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+# the fine-tune phase: ``train_step.CARD_*`` (LoRA r 16, alpha 32 on the 7
+# targets, two sequences of up to 512 tokens a step) over 16 records of
+# text + 60 frames (420 audio tokens, the length bench.py asks for)
+TRAIN_RECORDS, TRAIN_FRAMES = 16, 60
+TRAIN_STEPS, SAVE_EVERY, FULL_STEPS = 20, 10, 2
+# the tiny train check, card against CPU: the loss of every step (relative)
+# and the final A and B (the norm of the difference over the CPU's norm).
+# f32 with TF32 off: the sums run in another order; the JAX package against
+# the port on the CPU differs by 1.6e-7 in the loss, 7.7e-6 in B. bf16: a
+# rounding of every product's inputs and of each layer's output
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _tree_to(tree, device):
+    """A copy of a tensor tree on `device` (fresh leaves, also on the same
+    device)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return None if tree is None else tree.detach().to(device, copy=True)
+
+
+def train_reference_phase(device="cuda") -> dict:
+    """Three LoRA steps of ``tiny_config()``'s model (r 4 on the 7 targets,
+    lr 2e-4, the train step of ``training/train_step.py``) on the card and
+    on the CPU from the same base, adapters and batches, in f32 and in
+    bf16: every step's loss and the final A and B within TRAIN_TOL. In
+    bf16 the tied head's f32 product on the card is ``torch.mm(...,
+    out_dtype=float32)``, which gets its derivative from
+    ``models/quant._MmF32``; the f32 check needs TF32 off (``models/snac``
+    turns it off when imported; the phase checks)."""
+    import numpy as np
+
+    from tts_inference_tpu_torch import weights
+    from tts_inference_tpu_torch.config import tiny_config
+    from tts_inference_tpu_torch.training import data as D
+    from tts_inference_tpu_torch.training import lora as L
+    from tts_inference_tpu_torch.training import train_step as T
+    from tts_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    print(f"reference[train]: torch.backends.cuda.matmul.allow_tf32 = {tf32}",
+          flush=True)
+    if tf32:
+        raise AssertionError("reference[train]: TF32 is on; the f32 check "
+                             "needs full-precision matmuls")
+    if device != "cpu":   # why the tied head's product needs _MmF32 here
+        a = torch.ones(4, 8, device=device, dtype=torch.bfloat16,
+                       requires_grad=True)
+        try:
+            torch.mm(a, a.detach().t(), out_dtype=torch.float32).sum(
+                ).backward()
+            print("reference[train]: torch.mm(out_dtype=float32) has a "
+                  "derivative in this build", flush=True)
+        except RuntimeError as e:
+            print("reference[train]: torch.mm(out_dtype=float32) has no "
+                  f"derivative in this build: {str(e).splitlines()[0]}",
+                  flush=True)
+    recs = D.synthetic_records(np.random.default_rng(0), n=6, frames=4)
+    batches = list(D.batches(ByteTokenizer(), recs, 2, 64))[:3]
+    res = {}
+    for dtype, tol in TRAIN_TOL.items():
+        cfg = dataclasses.replace(tiny_config().model, dtype=dtype)
+        base = weights.init_llama_params(cfg, 0, "cpu")
+        ad = L.init_lora(torch.Generator().manual_seed(1), cfg, base, r=4)
+        runs = {}
+        for dev in ("cpu", device):
+            opt = T.make_optimizer(2e-4, len(batches))
+            step = T.make_train_step(cfg, opt, base_params=_tree_to(base, dev),
+                                     lora_scale=L.lora_scale(4, 32.0))
+            st = T.init_train_state(_tree_to(ad, dev), opt)
+            losses = [float(step(st, t, n)[1]) for t, n in batches]
+            runs[dev] = (losses, T.tree_leaves(_tree_to(st.params, "cpu")))
+        (l_cpu, p_cpu), (l_dev, p_dev) = runs["cpu"], runs[device]
+        row = {"loss_cpu": l_cpu, "loss_card": l_dev,
+               "loss_rel": max(abs(a - b) / abs(a)
+                               for a, b in zip(l_cpu, l_dev))}
+        for i, key in ((0, "A"), (1, "B")):   # leaves alternate A, B
+            num = sum(float((d.float() - c.float()).pow(2).sum())
+                      for d, c in zip(p_dev[i::2], p_cpu[i::2]))
+            den = sum(float(c.float().pow(2).sum()) for c in p_cpu[i::2])
+            row[f"{key}_rel"] = (num / den) ** 0.5
+        print(f"reference[train] {dtype}: {json.dumps(row)} (tol {tol})",
+              flush=True)
+        if not all(row[k] <= tol for k in ("loss_rel", "A_rel", "B_rel")) \
+                or not l_cpu[-1] < l_cpu[0]:
+            raise AssertionError(f"reference[train] {dtype}: {row}")
+        res[dtype] = row
+    return res
+
+
+def _train_flops(cfg, b: int, s: int, lora_r: int) -> dict:
+    """Operations of one training step at (B, S) by the type they run in,
+    counting what autograd computes. bf16: every layer's linears at S
+    positions and a backward of twice that (input and weight gradients:
+    LoRA differentiates the merged weights too), and the tied head's
+    forward (bf16 inputs, f32 sums). f32 (TF32 off): the attention einsums
+    over the whole S x S square (the causal mask comes after them) and
+    twice that backward; the head's backward through ``_MmF32``, the input
+    gradient always, the weight gradient only when the embedding trains
+    (full fine-tune, `lora_r` 0); with LoRA the merges' A @ B and their
+    two gradient products."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    q = cfg.num_attention_heads * cfg.head_dim
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    weights = cfg.num_hidden_layers * (2 * h * q + 2 * h * kv + 3 * h * f)
+    head = 2 * b * (s - 1) * h * cfg.vocab_size    # logits of S - 1 positions
+    attn = 4 * b * s * s * q * cfg.num_hidden_layers
+    f32 = 3.0 * attn + (head + 3.0 * 2 * lora_r * weights if lora_r
+                        else 2.0 * head)
+    return {"bf16": 3.0 * 2 * b * s * weights + head, "f32": f32}
+
+
+def _train_rates(flops: dict, step_ms: float) -> dict:
+    """TFLOP/s of a step of `step_ms`, and the operations' bound: each
+    type's count at its peak rate (PEAK_FLOPS: 989 bf16, 67 f32)."""
+    ops_ms = bound(0, flops)["bound_ms"]
+    return {"tflop": {k: n / 1e12 for k, n in flops.items()},
+            "tflops_per_s": sum(flops.values()) / step_ms * 1e3 / 1e12,
+            "ops_bound_ms": ops_ms, "share_of_ops_bound": ops_ms / step_ms}
+
+
+def _finetune(argv) -> dict:
+    """One ``finetune`` command in this process: its JSON summary, wall
+    seconds and peak device memory; its log lines are printed."""
+    import contextlib
+    import io
+
+    from tts_inference_tpu_torch.training import finetune
+
+    gc.collect()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = finetune.main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        print(f"finetune {argv[0]}: {line}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"finetune {argv}: {rc}")
+    out = json.loads(lines[-1])
+    out["wall_s"] = wall
+    if cuda:
+        out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    return out
+
+
+def train_phase(dirs=None, extra=()) -> dict:
+    """The fine-tune loop at full width, closed by serving its output:
+    the tiny card check against the CPU (``train_reference_phase``); then
+    ``finetune train --model-path D`` on the bf16 Orpheus-3B HF dir `dirs`
+    (the checkpoint phase's, or written here by ``tools/make_checkpoint``)
+    over a JSONL of TRAIN_RECORDS records (text + TRAIN_FRAMES frames),
+    TRAIN_STEPS LoRA steps of ``train_step.CARD_*``'s shape with a step
+    checkpoint every SAVE_EVERY: the mean loss of the last 5 steps below
+    that of the first 5, step ms (median), tokens/s, TFLOP/s and the
+    operations' bound (``_train_flops``, by type), peak memory, and the
+    last two step dirs kept; FULL_STEPS steps of ``--full-finetune`` (step
+    ms, TFLOP/s, peak memory); ``finetune merge`` (seconds, write GB/s);
+    and ``cli serve --model-path merged --snac-path S``, 8 /ws/tts streams
+    as in the serve phases (K1, K6, every launch a replay), where the
+    booted leaves equal an in-memory ``merge_params`` on the card, greedy
+    tokens of the served runtime equal those of an engine over that merge,
+    the served runtime's streamed PCM of them passes
+    ``tools/audio_fidelity`` against those tokens decoded whole, a greedy
+    stream of
+    the served runtime with frame-aligned decoding (``frame_protocol``)
+    has no invalid frame by ``tools/analyze_tokens``, and every served
+    stream holds its 40 frames.
+    Every directory is removed in any case. `extra`: more ``cli serve``
+    flags (the CPU rehearsal: ``--tiny --device cpu --max-output-len
+    512``)."""
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from tts_inference_tpu_torch import cli, protocol, weights
+    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.engine.engine import GenerationEngine
+    from tts_inference_tpu_torch.models.snac import to_pcm16
+    from tts_inference_tpu_torch.runtime import load_model
+    from tts_inference_tpu_torch.tools import analyze_tokens, audio_fidelity
+    from tts_inference_tpu_torch.tools.make_checkpoint import (
+        write_llama_checkpoint, write_snac_checkpoint, write_tokenizer)
+    from tts_inference_tpu_torch.training import data as D
+    from tts_inference_tpu_torch.training import lora as L
+    from tts_inference_tpu_torch.training import train_step as T
+    from tts_inference_tpu_torch.training.checkpoint import restore_params
+
+    extra = list(extra)
+    args = cli.build_parser().parse_args(["serve", *extra])
+    cfg = cli._config(args)
+    device = args.device or "cuda"
+    t_start = time.perf_counter()
+    res = {"reference": train_reference_phase(device)}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        if dirs is None:
+            model_dir, snac_dir = (os.path.join(root, n)
+                                   for n in ("model", "snac"))
+            write_llama_checkpoint(weights.init_llama_params(
+                cfg.model, args.seed, device), cfg.model, model_dir)
+            write_tokenizer(model_dir)
+            write_snac_checkpoint(weights.init_snac_params(
+                cfg.snac, args.seed + 1, device), cfg.snac, snac_dir)
+        else:
+            model_dir, snac_dir = dirs
+        data = os.path.join(root, "records.jsonl")
+        recs = D.synthetic_records(np.random.default_rng(0), TRAIN_RECORDS,
+                                   TRAIN_FRAMES)
+        with open(data, "w") as f:
+            f.write("\n".join(json.dumps(r) for r in recs) + "\n")
+        ft = (["--tiny"] if args.tiny else []) + [
+            "--device", device, "--model-path", model_dir]
+        b, s, r = T.CARD_BATCH, T.CARD_LEN, T.CARD_LORA_R
+        shape = ["--max-len", str(s), "--batch-size", str(b), "--lora-r",
+                 str(r), "--lora-alpha", str(T.CARD_LORA_ALPHA)]
+        lora_dir, full_dir, merged_dir = (os.path.join(root, n)
+                                          for n in ("lora", "full", "merged"))
+
+        # LoRA
+        lo = _finetune(["train", *ft, "--dataset", data, *shape,
+                        "--steps", str(TRAIN_STEPS), "--save-every",
+                        str(SAVE_EVERY), "--log-every", "5", "--out-dir",
+                        lora_dir])
+        first5, last5 = (statistics.fmean(lo["losses"][:5]),
+                         statistics.fmean(lo["losses"][-5:]))
+        med = statistics.median(lo["step_ms"])
+        kept = sorted(os.listdir(os.path.join(lora_dir, "ckpts")), key=int)
+        res["lora"] = {
+            "first5_mean_loss": first5, "last5_mean_loss": last5,
+            "step_ms_median": med, "step_ms_first": lo["step_ms"][0],
+            "tokens_per_s": b * s / med * 1e3,
+            "real_tokens_per_s": lo["tokens"] / sum(lo["step_ms"]) * 1e3,
+            **_train_rates(_train_flops(cfg.model, b, s, r), med),
+            "kept_steps": kept, "wall_s": lo["wall_s"],
+            "peak_allocated_gb": lo.get("peak_allocated_gb"),
+            "peak_reserved_gb": lo.get("peak_reserved_gb"),
+            "losses": lo["losses"]}
+        print("train[lora]:", json.dumps(res["lora"]), flush=True)
+        if not last5 < first5:
+            raise AssertionError(f"train[lora]: the loss did not fall: "
+                                 f"{lo['losses']}")
+        if kept != [str(TRAIN_STEPS - SAVE_EVERY), str(TRAIN_STEPS)]:
+            raise AssertionError(f"train[lora]: step dirs {kept}")
+
+        # full fine-tune: step time and memory
+        fu = _finetune(["train", *ft, "--dataset", data, *shape,
+                        "--steps", str(FULL_STEPS), "--save-every", "0",
+                        "--log-every", "1", "--full-finetune", "--out-dir",
+                        full_dir])
+        shutil.rmtree(full_dir)
+        res["full"] = {"step_ms": fu["step_ms"], "losses": fu["losses"],
+                       "wall_s": fu["wall_s"],
+                       "last_step": _train_rates(_train_flops(
+                           cfg.model, b, s, 0), fu["step_ms"][-1]),
+                       "peak_allocated_gb": fu.get("peak_allocated_gb"),
+                       "peak_reserved_gb": fu.get("peak_reserved_gb")}
+        print("train[full]:", json.dumps(res["full"]), flush=True)
+
+        # merge
+        mg = _finetune(["merge", *ft, "--adapter-dir", lora_dir,
+                        "--out-dir", merged_dir])
+        res["merge"] = {"wall_s": mg["wall_s"], "bytes": mg["bytes"],
+                        "save_s": mg["save_s"],
+                        "write_gb_per_s": mg["bytes"] / mg["save_s"] / 1e9,
+                        "peak_allocated_gb": mg.get("peak_allocated_gb")}
+        print("train[merge]:", json.dumps(res["merge"]), flush=True)
+
+        # serve the merged dir; the same merge in memory on the card
+        dev = torch.device(device)
+        base, _ = load_model(cfg, dev, model_path=model_dir)
+        adapter, meta = restore_params(os.path.join(lora_dir, "adapter"), dev)
+        with torch.no_grad():
+            merged = L.merge_params(base, adapter, L.lora_scale(
+                meta["lora_r"], meta["lora_alpha"]))
+        del base, adapter
+        check = {}
+
+        def on_boot(rt):
+            check["leaves_equal"] = _assert_trees_equal(
+                rt.engine.core.params, merged, "merged")
+            prompt = rt.pipeline.build_prompt(_request(0)["text"],
+                                              force_speech=True)
+            sampling = _tiny_sampling()
+            served = rt.engine.generate(prompt, sampling).token_ids
+            with torch.no_grad():
+                mem = GenerationEngine(merged, rt.config.model,
+                                       rt.config.engine, device=rt.device
+                                       ).generate(prompt, sampling).token_ids
+            merged.clear()
+            gc.collect()
+            if served != mem or len(served) != sampling.max_tokens:
+                raise AssertionError(f"train[serve]: greedy tokens of the "
+                                     f"served merge {served} vs in memory "
+                                     f"{mem}")
+            check["greedy_tokens_equal"] = len(served)
+            # the PCM: the served merge's stream (windowed decode) against
+            # the in-memory merge's tokens decoded whole, by audio_fidelity
+            streamed = np.frombuffer(b"".join(
+                c.pcm for c in rt.pipeline.stream(
+                    _request(0)["text"], sampling=sampling,
+                    force_speech=True)), np.int16) / 32767.0
+            ex = protocol.TokenExtractor()
+            ex.started = True
+            whole = to_pcm16(torch.from_numpy(rt.vocoder.decode_frames(
+                *protocol.deinterleave_frames(ex.feed_many(mem)),
+                noise_seed=0))).numpy() / 32767.0
+            fid = audio_fidelity.fidelity_report(whole, streamed)
+            check["pcm_fidelity"] = {k: fid[k] for k in (
+                "mse", "max_diff", "corr", "std_ratio", "mel_mse",
+                "mel_corr", "samples_a", "samples_b", "pass")}
+            if not fid["pass"] or fid["samples_a"] != fid["samples_b"] \
+                    or not fid["samples_a"]:
+                raise AssertionError(f"train[serve]: audio_fidelity of the "
+                                     f"served PCM {fid}")
+            # frame-aligned decoding (the grammar emits SOS itself, so the
+            # prompt does not force it): every frame valid, none cut
+            plain = rt.pipeline.build_prompt(_request(0)["text"])
+            rep = analyze_tokens.analyze(plain + rt.engine.generate(
+                plain, SamplingConfig(greedy=True, max_tokens=MAX_TOKENS + 1,
+                                      frame_protocol=True)).token_ids)
+            ex = rep["extraction"]
+            check["frame_protocol_stream"] = {
+                "frames": ex["frames"], "census": rep["census"]["counts"],
+                "violations": rep["offsets"]["violations"]}
+            if rep["offsets"]["violations"] or not ex["frames"] \
+                    or ex["codes"] % 7:
+                raise AssertionError(f"train[serve]: analyze_tokens {rep}")
+            print("train[serve]: booted leaves and greedy tokens equal to "
+                  "the in-memory merge", json.dumps(check), flush=True)
+
+        ph = serve_phase("train", ["serve", "--model-path", merged_dir,
+                                   "--snac-path", snac_dir, *extra],
+                         {"K1": PER_STEP}, generate=False, on_boot=on_boot)
+        # the bench request samples any audio token at any position
+        # (audio_only, no frame grammar): every stream must hold its 40
+        # frames; codes outside their position's block are counted
+        reps = [analyze_tokens.analyze(ids)
+                for ids in ph["served_tokens"].values()]
+        if len(reps) != N_STREAMS or any(
+                r["extraction"]["frames"] != MAX_TOKENS // 7
+                or r["census"]["counts"].get("audio") != MAX_TOKENS
+                for r in reps):
+            raise AssertionError(f"train[serve]: analyze_tokens {reps}")
+        res["serve"] = {**check, **{k: ph[k] for k in (
+            "ttfa_ms_p50", "ttfa_ms_p95", "aggregate_rtf", "launches",
+            "decode_steps", "worst_gap_ms_max")},
+            "per_stream_rtf_min": min(ph["per_stream_rtf"]),
+            "served_streams_frames": MAX_TOKENS // 7,
+            "served_codes_outside_their_block": sum(
+                r["offsets"]["violations"] for r in reps)}
+        print("train[serve]: analyze_tokens on the 8 served streams: "
+              f"{MAX_TOKENS // 7} frames each, "
+              f"{res['serve']['served_codes_outside_their_block']} of "
+              f"{N_STREAMS * MAX_TOKENS} codes outside their position's "
+              "block (no frame grammar in the bench request)", flush=True)
+        _free(ph)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        if dirs is not None:
+            shutil.rmtree(os.path.dirname(dirs[0]), ignore_errors=True)
+    res["wall_s"] = time.perf_counter() - t_start
+    print(f"train: {res['wall_s']:.1f} s", flush=True)
     return res
 
 
@@ -2982,8 +3453,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
-                         "kernels, qmm, dense, checkpoint, paged, quant, "
-                         "prefix, vocoder, native, compare = the serve "
+                         "kernels, qmm, dense, checkpoint, train, paged, "
+                         "quant, prefix, vocoder, native, compare = the serve "
                          "phases eager and replayed, gap = the paged_int8 "
                          "phase alone) and print no result line; the full "
                          "run takes no arguments")
@@ -3026,7 +3497,10 @@ def main(argv=None) -> int:
         reference_phase(dense["rt"])
         _free(dense)
     if on("checkpoint"):
-        phases["checkpoint"] = checkpoint_phase()
+        # the train phase fine-tunes the checkpoint phase's HF dir
+        phases["checkpoint"] = checkpoint_phase(keep=on("train"))
+    if on("train"):
+        phases["train"] = train_phase(phases.get("checkpoint", {}).get("dirs"))
     if on("paged"):
         phases["paged_int8"] = run_serve_phase("paged_int8")
         phases["soak_preempt"] = soak_phase(

@@ -156,6 +156,28 @@ def embed_rows(emb, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return emb[idx].to(dtype)
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` with a derivative, which
+    ``aten::mm.dtype`` lacks: the backward's two products run in f32 and
+    round to each input's dtype, as the CPU branch's ``a.float() @
+    b.float()`` differentiates. The train step reaches it through the tied
+    head."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] \
+            else None
+        gb = (a.float().t() @ g).to(b.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return ga, gb
+
+
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (…, K) @ b (K, N) with f32 accumulation AND an f32 result, like
     JAX's ``preferred_element_type=float32`` (a bf16 result would round the
@@ -164,7 +186,10 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a @ b
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
-    if a.is_cuda:
+    if a.is_cuda and torch.is_grad_enabled() and (a2.requires_grad
+                                                  or b.requires_grad):
+        out = _MmF32.apply(a2, b)
+    elif a.is_cuda:
         out = torch.mm(a2, b, out_dtype=torch.float32)
     else:
         out = a2.float() @ b.float()

@@ -113,6 +113,21 @@ def load_model(config: Config, dev: torch.device, *,
     return params, config
 
 
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json")
+
+
+def model_tokenizer(model_path: Optional[str] = None,
+                    tokenizer_path: Optional[str] = None):
+    """The tokenizer of `tokenizer_path`, else of the model dir when it
+    holds one, else ``ByteTokenizer``."""
+    tok_dir = tokenizer_path
+    if tok_dir is None and model_path and any(
+            os.path.exists(os.path.join(model_path, f))
+            for f in TOKENIZER_FILES):
+        tok_dir = model_path
+    return load_tokenizer(tok_dir) if tok_dir else ByteTokenizer()
+
+
 @dataclasses.dataclass
 class Runtime:
     config: Config
@@ -180,12 +195,7 @@ class Runtime:
         timings["snac_dtype"] = config.snac.dtype
 
         t0 = time.perf_counter()
-        tok_dir = tokenizer_path
-        if tok_dir is None and model_path and any(
-                os.path.exists(os.path.join(model_path, f))
-                for f in ("tokenizer.json", "tokenizer_config.json")):
-            tok_dir = model_path
-        tokenizer = load_tokenizer(tok_dir) if tok_dir else ByteTokenizer()
+        tokenizer = model_tokenizer(model_path, tokenizer_path)
         timings["load_tokenizer_s"] = time.perf_counter() - t0
 
         # first-launch burst sizes: tokens for the first stable chunk

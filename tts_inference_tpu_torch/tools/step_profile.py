@@ -1,4 +1,5 @@
-"""Where a decode step's time goes, or a vocoder call's, on the card.
+"""Where a decode step's time goes, or a vocoder call's or a train
+step's, on the card.
 
     python -m tts_inference_tpu_torch.tools.step_profile [runtime flags]
     python -m tts_inference_tpu_torch.tools.step_profile --quantize \\
@@ -16,6 +17,11 @@ launch (kernels, device time by kernel family; for the replay, the graph's
 kernels), and, for the replay, CUDA events around launches (device time of
 the replay as the stream runs it). Prints one JSON line with an "eager" and
 a "replayed" part; every number is per decode step.
+
+With ``--train`` it times LoRA steps of the fine-tune instead (``python
+-m tts_inference_tpu_torch.tools.step_profile --train``: the shape of
+``chip_smoke.py``'s train phase, ``train_step.CARD_*``; ``--tiny --device
+cpu`` runs 48-token sequences on the CPU without the profile).
 
 With ``--vocoder`` it times one vocoder call instead, as the serve path makes
 it with every slot streaming: ``--vocoder-rows`` windows of
@@ -226,6 +232,74 @@ def _family(name: str) -> str:
     return "elementwise, norms, rope, cache writes, sampling"
 
 
+TRAIN_FAMILIES = (      # kernel-name fragment → family, first match wins
+    ("multi_tensor_apply", "optimizer (AdamW)"),
+    ("softmax", "softmax, log_softmax"),
+    ("gemm", "library matmul"), ("gemv", "library matmul"),
+    ("cutlass", "library matmul"), ("nvjet", "library matmul"),
+    ("xmma", "library matmul"),
+    ("reduce_kernel", "reductions (norms, loss, casts' sums)"),
+    ("index", "gathers, scatters, cache writes"),
+    ("scatter", "gathers, scatters, cache writes"),
+    ("gather", "gathers, scatters, cache writes"),
+)
+
+
+def _train_family(name: str) -> str:
+    for frag, fam in TRAIN_FAMILIES:
+        if frag in name:
+            return fam
+    return "elementwise (casts, merges, rope, activations)"
+
+
+def train_steps(args) -> dict:
+    """LoRA steps of the fine-tune (``training/train_step.py`` at
+    ``CARD_BATCH`` sequences of ``CARD_LEN`` tokens, 48 with ``--tiny``, of
+    synthetic text + 60 frames; r ``CARD_LORA_R`` on the 7 targets) on the
+    runtime's weights: the host clock over ``--launches`` steps after two
+    warm ones (each step ends in a synchronise: the loss is read), and
+    ``torch.profiler`` over one: device ms by kernel family, kernels, and
+    the device's busy share (device ms over the median wall)."""
+    from tts_inference_tpu_torch import cli
+    from tts_inference_tpu_torch.runtime import load_model, model_tokenizer
+    from tts_inference_tpu_torch.training import data as D
+    from tts_inference_tpu_torch.training import lora as L
+    from tts_inference_tpu_torch.training import train_step as T
+
+    cfg = cli._config(args)
+    dev = torch.device(args.device or "cuda")
+    params, cfg = load_model(cfg, dev, model_path=args.model_path,
+                             seed=args.seed)
+    b, s, r = T.CARD_BATCH, 48 if args.tiny else T.CARD_LEN, T.CARD_LORA_R
+    recs = D.synthetic_records(np.random.default_rng(0), 2 * b, 60)
+    tokens, lens = next(D.batches(model_tokenizer(args.model_path), recs,
+                                  b, s))
+    ad = L.init_lora(torch.Generator(device=dev).manual_seed(1), cfg.model,
+                     params, r=r)
+    opt = T.make_optimizer(2e-4, 100)
+    step = T.make_train_step(cfg.model, opt, base_params=params,
+                             lora_scale=L.lora_scale(r, T.CARD_LORA_ALPHA))
+    state = T.init_train_state(ad, opt)
+
+    def one():
+        float(step(state, tokens, lens)[1])      # reads the loss: a sync
+
+    for _ in range(2):
+        one()
+    walls = []
+    for _ in range(args.launches):
+        t0 = time.perf_counter()
+        one()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out = {"device": str(dev), "batch": b, "len": s, "lora_r": r,
+           "step_wall_ms": float(np.median(walls)), "step_wall_ms_all": walls}
+    if dev.type == "cuda":
+        prof = _profile(one, _train_family)
+        out.update(prof, busy_share=prof["device_ms"] / out["step_wall_ms"],
+                   peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
 def main(argv=None) -> int:
     from tts_inference_tpu_torch import cli
     from tts_inference_tpu_torch.engine.engine import EngineCore
@@ -242,9 +316,14 @@ def main(argv=None) -> int:
                     help="with --vocoder: only the replayed call")
     ap.add_argument("--eager", action="store_true",
                     help="with --vocoder: only the eager call")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a LoRA train step instead")
     args = ap.parse_args(argv)
     args.no_warmup = True
     flags = [a for a in (argv or sys.argv[1:])]
+    if args.train:
+        print(json.dumps({"flags": flags, **train_steps(args)}), flush=True)
+        return 0
     with torch.no_grad():
         rt = cli._build_runtime(args)
         if args.vocoder:

@@ -6,14 +6,17 @@ holding every tensor leaf under its path in the tree (``layers.0.wq``), the
 tree's skeleton as JSON in the file's ``__metadata__``, and the same
 ``metadata.json`` sidecar (``vocab_size``, ``quantized``, ``model_config``).
 The two packages therefore cannot read each other's checkpoints.
-``CheckpointManager`` (step retention) waits for the training slice.
+``CheckpointManager`` keeps one such directory per training step, as the
+JAX package's orbax manager keeps step directories, with the same
+retention.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -85,3 +88,64 @@ def restore_params(path: str, device="cpu") -> Tuple[Dict, dict]:
 
 def is_checkpoint(path: str) -> bool:
     return os.path.exists(os.path.join(path, PARAMS_FILE))
+
+
+def _like(tree: Any, like: Any, path: str = "") -> Any:
+    """`tree` with each leaf moved to the device and dtype of `like`'s leaf
+    at the same place; a different structure raises."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
+            raise ValueError(f"checkpoint{path}: keys differ from the "
+                             "template's")
+        return {k: _like(tree[k], v, f"{path}.{k}") for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        if not isinstance(tree, list) or len(tree) != len(like):
+            raise ValueError(f"checkpoint{path}: not a list of {len(like)}")
+        return [_like(t, v, f"{path}.{i}")
+                for i, (t, v) in enumerate(zip(tree, like))]
+    if like is None or tree is None:
+        if like is not tree:
+            raise ValueError(f"checkpoint{path}: None against a tensor")
+        return None
+    return tree.to(device=like.device, dtype=like.dtype)
+
+
+class CheckpointManager:
+    """Step-indexed checkpoints with retention (HF save_steps analog): each
+    ``save(step, tree)`` writes ``<directory>/<step>/`` with
+    ``save_params`` and then removes the oldest step directories beyond
+    `max_to_keep`."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit()
+                      and is_checkpoint(os.path.join(self.directory, n)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, tree: Any) -> None:
+        save_params(os.path.join(self.directory, str(step)), tree)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def restore_latest(self, like: Optional[Any] = None) -> Tuple[int, Any]:
+        """(step, tree) of the latest step: on the CPU, or with `like` (a
+        tree of the same structure) on its leaves' devices and dtypes."""
+        step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        tree, _ = restore_params(os.path.join(self.directory, str(step)))
+        if like is not None:
+            tree = _like(tree, like)
+        return step, tree
+
+    def close(self) -> None:
+        """Nothing to wait for: ``save`` returns once the files are
+        written."""

@@ -79,6 +79,15 @@ def llama_params_from_jax(tree: Dict, device="cpu") -> Dict:
     return out
 
 
+def lora_from_jax(tree: Dict, device="cpu") -> Dict:
+    """The JAX package's LoRA adapter tree (``init_lora``'s structure,
+    numpy leaves) → the port's, the same (in, r) / (r, out) layout."""
+    return {"layers": [
+        {t: {k: tensor_from_numpy(v, device) for k, v in ab.items()}
+         for t, ab in le.items()}
+        for le in tree["layers"]]}
+
+
 def init_llama_params(cfg: ModelConfig, seed: int = 0,
                       device="cpu") -> Dict:
     """Seeded random weights with the structure of init_llama_params."""
