@@ -133,13 +133,33 @@ no result line is printed:
     same gate for a float16 decode of the same codes, with the launch
     counters set to 0 before it (K6-f16 12, K6 12 for the f32 decode,
     nothing else);
-18. the card line, the kernels' JSON line, and last
+18. tools phase: the measurement and diagnostic tools of
+    ``tts_inference_tpu_torch/tools/`` at full width. On the dense phase's
+    runtime, before it is freed: ``compare_backends`` (the engine's greedy
+    tokens against the eager twin's: equal, or the first flip at a top-2
+    logit gap within twice the model's own noise, as the prefix reference
+    bounds one) and ``lookahead_sweep`` (40 frames on its vocoder: pass at
+    lookahead 3 and 5, MSE at 0 above MSE at 3). Then ``step_bench
+    --quantize`` at B 64, W 512 (every component non-null, kv_write on a
+    paged cache only; each component's launches exactly what its chain
+    replays), ``kv_kernel_bench`` at B 64 W 512 and B 4 W 12,288 (K3a, K3b,
+    K5 beside their bounds), ``vocode_bench`` 64 × 16 in f32 and bf16 (12
+    launches of K6 / K6-bf16 a call), ``quant_ladder --full-geometry
+    --tokens 140 --utterances 1`` on the rungs bf16, int8 and int4_g128,
+    each in its own process (no rung fails; K2 and K4 launch where their
+    rungs need them), and ``sos_ablation`` and ``make_artifacts`` on the
+    tiny model on the card, under ``build/tools_phase`` (the artifact gate
+    passes); the launches of every kernel over the phase;
+19. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
 without a card. ``--only PHASES`` (kernels, qmm = K4 and K2 alone, dense,
 checkpoint, train, paged, quant, native, prefix, vocoder = phase 17 with the 16-bit
-kernel cases; paged,soak runs the churn soak twice; gap = the paged_int8 serve
+kernel cases; tools = phase 18 with ``step_bench`` also at ``--paged-kv
+--kv-int8`` and ``--quantize --weight-bits 4 --paged-kv --kv-int4`` and all
+five ladder rungs, on a runtime of its own without the dense phase;
+paged,soak runs the churn soak twice; gap = the paged_int8 serve
 phase alone, with ``--port-root DIR`` from another checkout, to time two
 trees in one call) runs some phases during development and prints no
 result line.
@@ -1403,15 +1423,9 @@ def _ttfa_parts(streams) -> dict:
 
 
 def _launch_counters() -> dict:
-    from tts_inference_tpu_torch.ops import (decode_attention, int4_matmul,
-                                             paged_attention,
-                                             paged_attention_int4, vocoder)
+    from tts_inference_tpu_torch.ops import _build
 
-    return {"K1": decode_attention.launches, "K3a": paged_attention.launches,
-            "K3b": paged_attention.launches_int8,
-            "K5": paged_attention_int4.launches, "K6": vocoder.launches,
-            "K6-bf16": vocoder.launches_bf16, "K6-f16": vocoder.launches_f16,
-            "K4": int4_matmul.launches, "K2": int4_matmul.launches_w8}
+    return _build.launch_counters()
 
 
 # launches of a kernel in a serve phase, from (layers, decode steps, forward
@@ -3425,6 +3439,317 @@ def compare_phase() -> dict:
     return out
 
 
+# ---- the tools phase: the measurement and diagnostic tools at full width ----
+
+BUILD = Path(__file__).resolve().parent / "build"
+# step_bench flag sets at B 64, W 512 (bench.py's geometry): the full run
+# takes bench.py's default weights; --only tools all three
+STEP_BENCH = {"int8w": ["--quantize"],
+              "paged_int8": ["--paged-kv", "--kv-int8"],
+              "int4": ["--quantize", "--weight-bits", "4", "--paged-kv",
+                       "--kv-int4"]}
+STEP_KEYS = ("full_us_per_step", "matmuls_us_per_step",
+             "attention_us_per_step", "head_sample_us_per_step",
+             "kv_write_us_per_step", "residual_us_per_step")
+# the ladder's rungs in the full run (--only tools: all five)
+LADDER_RUNGS = ("bf16", "int8", "int4_g128")
+# the kernels a rung must launch (K1: decode, K6: the vocoder) and must not
+LADDER_KERNELS = {"bf16": ({"K1", "K6"}, {"K2", "K4"}),
+                  "int8": ({"K1", "K2", "K6"}, {"K4"}),
+                  "int8+kv8": ({"K1", "K2", "K6"}, {"K4"}),
+                  "int4_g512": ({"K1", "K2", "K4", "K6"}, set()),
+                  "int4_g128": ({"K1", "K2", "K4", "K6"}, set())}
+
+
+def _check_launches(what: str, got: dict, want: dict) -> None:
+    want = {k: v for k, v in want.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got} != {want}")
+
+
+def _step_bench_launches(args, rep: dict) -> dict:
+    """What each step_bench component must launch: every replay of a chain
+    adds the chain's launches; the full step's first run (the capture) runs
+    too. An attention kernel runs once per layer and step, the 7 linears
+    of a layer once per layer and forward, the head once per forward."""
+    from tts_inference_tpu_torch.config import ModelConfig
+
+    nl, n = ModelConfig().num_hidden_layers, 7
+    att = ("K5" if args.kv_int4 else "K3b" if args.kv_int8 else "K3a") \
+        if args.paged_kv else "K1"
+    lin = ("K4" if args.weight_bits == 4 else "K2") if args.quantize else None
+    head = "K2" if args.quantize else None
+    runs = (args.iters + 1) * max(args.steps // n, 1) * n   # decode steps
+    want = {"full": {att: runs * nl}, "write": {}}
+    if lin:
+        want["full"][lin] = want["full"].get(lin, 0) + runs * 7 * nl
+    if head:
+        want["full"][head] = want["full"].get(head, 0) + runs
+    nl_run = rep["component_layers"]
+    want["matmuls"] = {lin: args.iters * args.reps * 7 * nl_run} if lin \
+        else {}
+    want["attention"] = {att: args.iters * max(args.reps // 8, 4) * nl_run}
+    want["sample"] = {head: args.iters * max(args.reps // 4, 8)} if head \
+        else {}
+    return want
+
+
+def step_bench_phase(name: str) -> dict:
+    """``tools/step_bench.py`` at B 64, W 512 with the flags of `name`:
+    every component non-null (kv_write: on a paged cache), each component's
+    kernel launches exactly what its chain replays."""
+    from tts_inference_tpu_torch.tools import step_bench as SB
+
+    t0 = time.perf_counter()
+    args = SB._parser().parse_args(["--batch", "64", "--window", "512",
+                                    *STEP_BENCH[name]])
+    rep = SB.measure(args)
+    print(f"tools[step_bench {name}]:", json.dumps(rep), flush=True)
+    for k in STEP_KEYS:
+        if rep.get(k) is None and (args.paged_kv
+                                   or k != "kv_write_us_per_step"):
+            raise AssertionError(f"step_bench {name}: {k} is null")
+    for comp, want in _step_bench_launches(args, rep).items():
+        _check_launches(f"step_bench {name} {comp}", rep["launches"][comp],
+                        want)
+    gc.collect()
+    torch.cuda.empty_cache()      # the engine's KV cache and graphs
+    rep["wall_s"] = time.perf_counter() - t0
+    print(f"tools[step_bench {name}]: {rep['wall_s']:.1f} s", flush=True)
+    return rep
+
+
+# kv bytes a key of one kv head costs (K and V rows together, scales
+# included): bf16, int8 + two f32 scales, int4 (half a byte a value) + two
+KV_BYTES_PER_KEY = {"bf16": lambda d: 4 * d, "int8": lambda d: 2 * d + 8,
+                    "int4": lambda d: d + 8}
+KV_KERNEL_OF = {"bf16": "K3a", "int8": "K3b", "int4": "K5"}
+
+
+def kv_bench_phase() -> dict:
+    """``tools/kv_kernel_bench.py`` at the 64-slot shape (B 64, W 512) and
+    the long-audio one (B 4, W 12,288): K3a, K3b and K5, each timed by its
+    chain's replays, beside the bound of the keys they read."""
+    from tts_inference_tpu_torch.tools import kv_kernel_bench as KB
+
+    out = {}
+    for b, wb in ((64, 4), (4, 96)):
+        args = KB._parser().parse_args(["--b", str(b), "--wb", str(wb)])
+        rep = KB.measure(args)
+        _check_launches(f"kv_kernel_bench B{b}", rep["launches"],
+                        {k: KB.ITERS * args.reps
+                         for k in KV_KERNEL_OF.values()})
+        pos = torch.full((b,), rep["w"] - 1)
+        rep["bound_us"] = {
+            kind: _attention_bound(pos, args.hkv, args.g, args.d,
+                                   KV_BYTES_PER_KEY[kind](args.d),
+                                   2)["bound_ms"] * 1e3
+            for kind in KV_KERNEL_OF}
+        print(f"tools[kv_kernel_bench B{b} W{rep['w']}]:", json.dumps(rep),
+              flush=True)
+        out[f"B{b}_W{rep['w']}"] = rep
+    return out
+
+
+def vocode_bench_phase() -> dict:
+    """``tools/vocode_bench.py`` at the scheduler's 64 × 16 bucket, f32 and
+    bf16: 12 launches of K6 / K6-bf16 a call."""
+    from tts_inference_tpu_torch.tools import vocode_bench as VB
+
+    out = {}
+    for dtype, flags, kern in (("float32", [], "K6"),
+                               ("bfloat16", ["--bf16"], "K6-bf16")):
+        rep = VB.measure(VB._parser().parse_args(
+            ["--rows", "64", "--frames", "16", *flags]))
+        print(f"tools[vocode_bench {dtype}]:", json.dumps(rep), flush=True)
+        _check_launches(f"vocode_bench {dtype}", rep["launches"],
+                        {kern: UNITS_PER_CALL * rep["calls"]})
+        out[dtype] = rep
+    return out
+
+
+def ladder_phase(rungs) -> dict:
+    """``tools/quant_ladder.py --full-geometry --tokens 140 --utterances
+    1`` on `rungs`, each in its own process: no rung fails, each launches
+    its kernels (K2 on the int8 rungs, K4 on the int4 ones) and none of
+    another rung's; prints each rung's teacher-forced agreement and logit
+    RMS."""
+    from tts_inference_tpu_torch.tools import quant_ladder as QL
+
+    t0 = time.perf_counter()
+    out = QL.run_ladder(tiny=False, tokens=140, utterances=1, seed=0,
+                        rungs=tuple((n, o) for n, o in QL.LADDER
+                                    if n in rungs),
+                        subprocess_rungs=True, device="cuda")
+    for name, e in out["rungs"].items():
+        if "error" in e:
+            raise AssertionError(f"quant_ladder {name}: {e['error']}")
+        must, must_not = LADDER_KERNELS[name]
+        ran = set(e["launches"])
+        if not must <= ran or ran & must_not:
+            raise AssertionError(f"quant_ladder {name}: launches "
+                                 f"{e['launches']}")
+        print(f"tools[quant_ladder {name}]:", json.dumps(
+            {k: v for k, v in e.items() if k != "utterances"}), flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"tools[quant_ladder]: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def tools_runtime_phase(rt) -> dict:
+    """``compare_backends`` and ``lookahead_sweep`` on a full-width serving
+    runtime (the dense phase's): the engine's greedy tokens equal the eager
+    twin's, or the first differs where the twin's top-2 logit gap is
+    within twice the model's own noise (``_own_noise``: the logits' change
+    under a widened window and a split prefill), as the prefix reference
+    bounds a flip; the lookahead sweep of 40 frames on the runtime's
+    vocoder passes at lookahead 3 and 5, with MSE at 0 above MSE at 3."""
+    import numpy as np
+
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.ops import _build
+    from tts_inference_tpu_torch.tools import compare_backends as CB
+    from tts_inference_tpu_torch.tools import lookahead_sweep as LS
+
+    t0 = time.perf_counter()
+    before = _build.launch_counts()
+    text, voice = "parity check", "tara"
+    rep = CB.compare(rt, text, voice, 48)
+    print("tools[compare_backends]:", json.dumps(
+        {k: v for k, v in rep.items() if not k.endswith("_tokens")}),
+        flush=True)
+    if not rep["match"]:
+        core = rt.engine.core
+        sampling = SamplingConfig(
+            greedy=True, repetition_penalty=1.0,
+            token_range=(core.logits_base, rt.config.model.vocab_size))
+        prompt = rt.pipeline.build_prompt(text, voice)
+        eager, i = rep["eager_tokens"], rep["first_mismatch"]
+        noise, _ = _own_noise(rt, [list(prompt) + eager[:i]], sampling,
+                              len(prompt) // 2, False)
+        gap = _top2_gap(rt, prompt, eager, i, sampling)
+        rep["flip"] = {"step": i, "gap": gap, "noise": noise}
+        print(f"tools[compare_backends]: first token difference at step {i}:"
+              f" eager top-2 logit gap {gap}, own noise {noise} (bound "
+              f"{2 * noise})", flush=True)
+        if not noise <= PREFIX_NOISE_MAX or not gap <= 2 * noise:
+            raise AssertionError(f"compare_backends: {rep['flip']}")
+    rng = np.random.default_rng(0)
+    codes = [int(rng.integers(0, rt.config.snac.codebook_size))
+             + protocol.POSITION_OFFSETS[p]
+             for _ in range(40) for p in range(protocol.FRAME_SIZE)]
+    table = LS.sweep(rt.vocoder, codes)
+    print("tools[lookahead_sweep]:", json.dumps(table), flush=True)
+    if not (table[3]["pass"] and table[5]["pass"]
+            and table[0]["mse"] > table[3]["mse"]):
+        raise AssertionError(f"lookahead_sweep: {table}")
+    res = {"compare_backends": rep, "lookahead_sweep": table,
+           "launches": _build.launches_since(before),
+           "wall_s": time.perf_counter() - t0}
+    if not {"K1", "K6"} <= set(res["launches"]):
+        raise AssertionError(f"compare_backends / lookahead_sweep: launches "
+                             f"{res['launches']}")
+    print(f"tools[runtime]: {res['wall_s']:.1f} s; launches",
+          json.dumps(res["launches"]), flush=True)
+    return res
+
+
+def tools_tiny_phase() -> dict:
+    """``sos_ablation`` and ``make_artifacts`` on the tiny model on the card,
+    writing under ``build/tools_phase``: the ablation finds 6 frames after
+    the first SOS and 3 after the last of a two-segment stream and writes
+    both WAVs; the artifact gate passes."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from tts_inference_tpu_torch import protocol as P
+    from tts_inference_tpu_torch.tools import make_artifacts, sos_ablation
+
+    root = BUILD / "tools_phase"
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+
+    def frames(k):
+        return [int(rng.integers(0, P.CODEBOOK_SIZE)) + P.POSITION_OFFSETS[p]
+                + P.TOKEN_AUDIO_BASE for _ in range(k)
+                for p in range(P.FRAME_SIZE)]
+
+    toks = ([P.TOKEN_SOH, 100, P.TOKEN_EOT, P.TOKEN_EOH, P.TOKEN_SOS]
+            + frames(3) + [P.TOKEN_DELIMITER, P.TOKEN_SOS] + frames(3)
+            + [P.TOKEN_EOS])
+    (root / "tokens.json").write_text(json.dumps({"token_ids": toks}))
+    out = {}
+    for name, main, argv in (
+            ("sos_ablation", sos_ablation.main,
+             ["--tokens-json", str(root / "tokens.json"), "--tiny",
+              "--device", "cuda", "--out-dir", str(root / "ablation")]),
+            ("make_artifacts", make_artifacts.main,
+             ["--device", "cuda", "--out", str(root / "artifacts")])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        rep = json.loads(buf.getvalue()[buf.getvalue().index("{"):])
+        print(f"tools[{name}]: rc {rc}", json.dumps(rep), flush=True)
+        if rc != 0:
+            raise AssertionError(f"{name}: rc {rc}")
+        out[name] = rep
+    abl = out["sos_ablation"]
+    if (abl["first_sos"]["frames"], abl["last_sos"]["frames"]) != (6, 3) \
+            or not all(Path(abl[s]["wav"]).is_file()
+                       for s in ("first_sos", "last_sos")):
+        raise AssertionError(f"sos_ablation: {abl}")
+    art = out["make_artifacts"]
+    if not art["passed"] or not Path(art["stream_wav"]).is_file():
+        raise AssertionError(f"make_artifacts: {art}")
+    return out
+
+
+def tools_phase(full: bool, runtime_part=None) -> dict:
+    """The measurement and diagnostic tools at full width: ``step_bench``
+    (--quantize; with `full` also paged int8 and int4), ``kv_kernel_bench``
+    at both shapes, ``vocode_bench`` f32 and bf16, ``quant_ladder``
+    (LADDER_RUNGS; with `full` all five), ``sos_ablation`` and
+    ``make_artifacts``; `runtime_part` is ``tools_runtime_phase``'s result
+    (compare_backends, lookahead_sweep), run on the dense phase's runtime
+    before it was freed. Prints the launches of every kernel over the
+    phase (the ladder's rungs counted in their own processes)."""
+    import collections
+
+    from tts_inference_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    before = _build.launch_counts()
+    res = {"step_bench": {name: step_bench_phase(name)
+                          for name in (STEP_BENCH if full else ["int8w"])}}
+    t1 = time.perf_counter()
+    res["kv_kernel_bench"] = kv_bench_phase()
+    res["vocode_bench"] = vocode_bench_phase()
+    t2 = time.perf_counter()
+    res["quant_ladder"] = ladder_phase(
+        [n for n in dict(LADDER_KERNELS) if full or n in LADDER_RUNGS])
+    t3 = time.perf_counter()
+    res.update(tools_tiny_phase())
+    launches = collections.Counter(_build.launches_since(before))
+    for e in res["quant_ladder"]["rungs"].values():
+        launches.update(e["launches"])
+    if runtime_part is not None:
+        launches.update(runtime_part["launches"])
+    res["launches"] = dict(launches)
+    missing = {"K1", "K2", "K3a", "K3b", "K4", "K5", "K6", "K6-bf16"} \
+        - set(launches)
+    if missing:
+        raise AssertionError(f"tools: {sorted(missing)} never launched")
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"tools: {res['wall_s']:.1f} s (step_bench {t1 - t0:.1f}, kv + "
+          f"vocode {t2 - t1:.1f}, ladder {t3 - t2:.1f}, tiny "
+          f"{time.perf_counter() - t3:.1f}); launches",
+          json.dumps(res["launches"]), flush=True)
+    return res
+
+
 KERNELS = (
     # key, name, source under tts_inference_tpu_torch/csrc, the TPU kernel
     ("K1", "decode_attention", "decode_attention.cu",
@@ -3454,7 +3779,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="development: run only these phases (comma list of "
                          "kernels, qmm, dense, checkpoint, train, paged, "
-                         "quant, prefix, vocoder, native, compare = the serve "
+                         "quant, prefix, vocoder, native, tools = the "
+                         "measurement and diagnostic tools with every flag "
+                         "set and rung, compare = the serve "
                          "phases eager and replayed, gap = the paged_int8 "
                          "phase alone) and print no result line; the full "
                          "run takes no arguments")
@@ -3495,6 +3822,8 @@ def main(argv=None) -> int:
         graphs["dense"] = graph_phase("dense", dense["rt"])
         exactness_phase(dense["rt"])
         reference_phase(dense["rt"])
+        if on("tools"):
+            phases["tools_runtime"] = tools_runtime_phase(dense["rt"])
         _free(dense)
     if on("checkpoint"):
         # the train phase fine-tunes the checkpoint phase's HF dir
@@ -3568,6 +3897,17 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phases["vocoder_f16"] = float16_phase()
         print(f"float16: {time.perf_counter() - t0:.1f} s", flush=True)
+    if on("tools"):
+        if "tools_runtime" not in phases:      # --only tools: boot one
+            from tts_inference_tpu_torch.config import Config
+            from tts_inference_tpu_torch.runtime import Runtime
+
+            rt = {"rt": Runtime.create(Config(), seed=0, device="cuda",
+                                       warmup=True)}
+            phases["tools_runtime"] = tools_runtime_phase(rt["rt"])
+            _free(rt)
+        phases["tools"] = tools_phase(only is not None,
+                                      phases["tools_runtime"])
     if only is not None:
         print(f"chip_smoke: phases {sorted(only)} passed; no result line "
               "without the full run", flush=True)

@@ -21,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tts_kernels"
@@ -179,6 +179,31 @@ class LaunchCounter:
     @property
     def count(self) -> int:
         return self._n
+
+
+def launch_counters() -> Dict[str, LaunchCounter]:
+    """Every kernel wrapper's launch counter, by the kernel's name in the
+    port's kernel table."""
+    from tts_inference_tpu_torch.ops import (decode_attention, int4_matmul,
+                                             paged_attention,
+                                             paged_attention_int4, vocoder)
+
+    return {"K1": decode_attention.launches, "K3a": paged_attention.launches,
+            "K3b": paged_attention.launches_int8,
+            "K5": paged_attention_int4.launches, "K6": vocoder.launches,
+            "K6-bf16": vocoder.launches_bf16, "K6-f16": vocoder.launches_f16,
+            "K4": int4_matmul.launches, "K2": int4_matmul.launches_w8}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: c.count for k, c in launch_counters().items()}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The kernels launched since `before` (a ``launch_counts()``), those
+    that ran only."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
 @contextlib.contextmanager

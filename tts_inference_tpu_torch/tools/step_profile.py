@@ -16,7 +16,16 @@ and up to the return of the launch (enqueue), ``torch.profiler`` over one
 launch (kernels, device time by kernel family; for the replay, the graph's
 kernels), and, for the replay, CUDA events around launches (device time of
 the replay as the stream runs it). Prints one JSON line with an "eager" and
-a "replayed" part; every number is per decode step.
+a "replayed" part; every number is per decode step. ``--prefill-len n``
+admits n tokens instead of the short prompt, which sets the KV window the
+decode runs at.
+
+It takes the place of the JAX package's ``tools/profile_decode.py``: its
+``--steps`` are ``--launches`` × 7, its ``--batch`` is ``--max-batch-size``,
+its ``--prefill-len``, ``--quantize``, ``--weight-bits``, ``--paged-kv``,
+``--kv-int8``, ``--kv-int4`` and ``--tiny`` keep their names, its ``--cpu``
+is ``--device cpu``; its ``--trace-dir`` has no counterpart (the profile is
+read in process and summed by kernel family).
 
 With ``--train`` it times LoRA steps of the fine-tune instead (``python
 -m tts_inference_tpu_torch.tools.step_profile --train``: the shape of
@@ -43,6 +52,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -157,16 +167,19 @@ def vocoder_call(rt, args, flags) -> dict:
     return out
 
 
-def decode_launches(rt, core, launches: int) -> dict:
-    """Admit a prompt into every slot of `core`, then time `launches`
-    decode launches; per decode step."""
+def decode_launches(rt, core, launches: int,
+                    prefill_len: Optional[int] = None) -> dict:
+    """Admit a prompt into every slot of `core` (`prefill_len` tokens of id
+    1 when given: it sets the cache depth, so the KV window the decode
+    runs at), then time `launches` decode launches; per decode step."""
     from tts_inference_tpu_torch.config import SamplingConfig
     from tts_inference_tpu_torch.ops import sampling as S
 
     sp = S.SamplingParams.from_config(
         SamplingConfig(greedy=True), core.batch, device=core.device)
-    prompt = rt.pipeline.build_prompt("Where does the time go?",
-                                      force_speech=True)
+    prompt = ([1] * prefill_len if prefill_len else
+              rt.pipeline.build_prompt("Where does the time go?",
+                                       force_speech=True))
     n = rt.config.engine.decode_steps_per_call
     _, tok, act = core.prefill_decode_launch(
         [prompt] * core.batch, list(range(core.batch)), sp,
@@ -318,6 +331,10 @@ def main(argv=None) -> int:
                     help="with --vocoder: only the eager call")
     ap.add_argument("--train", action="store_true",
                     help="profile a LoRA train step instead")
+    ap.add_argument("--prefill-len", type=int, default=None,
+                    help="decode profile: prompt length per slot (default: "
+                         "the envelope of a short sentence); sets the cache "
+                         "depth, and so the KV window the decode runs at")
     args = ap.parse_args(argv)
     args.no_warmup = True
     flags = [a for a in (argv or sys.argv[1:])]
@@ -337,7 +354,8 @@ def main(argv=None) -> int:
             core = EngineCore(rt.engine.core.params, rt.config.model,
                               rt.config.engine, device=rt.device,
                               graphs=graphs)
-            out[tag] = decode_launches(rt, core, args.launches)
+            out[tag] = decode_launches(rt, core, args.launches,
+                                       args.prefill_len)
             del core
             gc.collect()
         if on_card:
