@@ -150,7 +150,27 @@ no result line is printed:
     rungs need them), and ``sos_ablation`` and ``make_artifacts`` on the
     tiny model on the card, under ``build/tools_phase`` (the artifact gate
     passes); the launches of every kernel over the phase;
-19. the card line, the kernels' JSON line, and last
+19. multigpu phase: the sharded serving path (``parallel/``) on the one
+    card — the card count stays 1 and no number is a multi-GPU speed. Its
+    kernel cases run in the kernel phase, after all the others: K1 at Hkv 4
+    and 2 (tp 2 and 4), K3b at Hkv 4, K5 at 2 and 1 head pairs, K2 on the
+    tp-2 shards of the seven linears and the 14,470-row head shard, K4 on
+    those linears at group 128, each against its plain version and timed.
+    Then, at full Orpheus-3B width with int8 weights and a small engine (4
+    slots): an NCCL group of one (``Mesh(dp=1, tp=1)`` given explicitly, so
+    every collective is a real NCCL call) whose scheduler captures its
+    graphs at warmup with the collectives inside and serves four greedy
+    requests with every launch a replay and no capture, its tokens equal to
+    the plain core's; two tp ranks sharing the card over gloo (eager: gloo
+    cannot be captured), rank 0's mirrored scheduler serving four greedy
+    requests dense and paged int8 — the shard shapes held, K1 / K3b and K2
+    launched on both ranks, the tokens equal to the unsharded engine's up
+    to a first flip within twice the model's own noise, the streamed PCM
+    equal to the whole decode of its tokens within PCM16_TOL, per-rank peak
+    memory — and rank 1 killed mid-stream, after which rank 0's stream ends
+    with "engine down"; ``tools/lockstep_overhead.py`` (the µs of mirroring
+    a decode launch);
+20. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
@@ -159,6 +179,7 @@ checkpoint, train, paged, quant, native, prefix, vocoder = phase 17 with the 16-
 kernel cases; tools = phase 18 with ``step_bench`` also at ``--paged-kv
 --kv-int8`` and ``--quantize --weight-bits 4 --paged-kv --kv-int4`` and all
 five ladder rungs, on a runtime of its own without the dense phase;
+multigpu = phase 19 with its kernel cases;
 paged,soak runs the churn soak twice; gap = the paged_int8 serve
 phase alone, with ``--port-root DIR`` from another checkout, to time two
 trees in one call) runs some phases during development and prints no
@@ -297,13 +318,13 @@ def _attention_bound(pos, hkv: int, g: int, d: int, kv_bytes_per_key: float,
     return bound(nbytes, 4.0 * g * d * keys * hkv, "bf16")
 
 
-def _k1_case(w: int, gen: torch.Generator):
+def _k1_case(w: int, gen: torch.Generator, hkv: int = 8):
     import torch.nn.functional as F
 
     from tts_inference_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
 
-    b, hkv, g, d, max_seq = 8, 8, 3, 128, 4608
+    b, g, d, max_seq = 8, 3, 128, 4608
     dev = "cuda"
     q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
     # the main path reads a window slice of the (B, max_seq, Hkv, D) cache
@@ -327,8 +348,8 @@ def _k1_case(w: int, gen: torch.Generator):
             <= pos[:, None])[:, None, None, :]
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask, enable_gqa=True))
-    return _report("K1 decode_attention", f"B8 Hkv8 G3 D128 bf16 W{w}", err,
-                   K1_TOL, ms, plain,
+    return _report("K1 decode_attention", f"B8 Hkv{hkv} G3 D128 bf16 W{w}",
+                   err, K1_TOL, ms, plain,
                    _attention_bound(pos, hkv, g, d, 2 * d * 2, 2), lib)
 
 
@@ -603,13 +624,13 @@ def _k6_edges(gen: torch.Generator) -> float:
     return worst
 
 
-def _paged_case_inputs(b: int, w: int, gen: torch.Generator):
-    """Random paged-attention inputs at the serve path's Hkv 8, G 3, D 128
-    and block 128: each slot holds a random number of blocks at random pool
-    rows (slot 0 the whole window, slot 1 one block), its table row is 0
-    past its last block, and the kernels read a column slice of a wider
-    table, as the engine hands it."""
-    hkv, g, d, bs = 8, 3, 128, 128
+def _paged_case_inputs(b: int, w: int, gen: torch.Generator, hkv: int = 8):
+    """Random paged-attention inputs at the serve path's Hkv 8 (a tp
+    shard's `hkv`), G 3, D 128 and block 128: each slot holds a random
+    number of blocks at random pool rows (slot 0 the whole window, slot 1
+    one block), its table row is 0 past its last block, and the kernels
+    read a column slice of a wider table, as the engine hands it."""
+    g, d, bs = 3, 128, 128
     dev = "cuda"
     wb = w // bs
     nb = torch.randint(1, wb + 1, (b,), generator=gen, device=dev)
@@ -631,7 +652,8 @@ def _paged_case_inputs(b: int, w: int, gen: torch.Generator):
     return n, table[:, :wb], pos, rows, offs, q, kv
 
 
-def _k3_case(kind: str, b: int, w: int, gen: torch.Generator):
+def _k3_case(kind: str, b: int, w: int, gen: torch.Generator,
+             hkv: int = 8):
     """K3a (bf16 pools), K3b (int8 pools) or K5 (int4 pools packed by head
     pair) at (B, W). Pools are written by the port's own pool_scatter and
     quantizers from random bf16 K/V. No PyTorch call computes attention
@@ -640,9 +662,9 @@ def _k3_case(kind: str, b: int, w: int, gen: torch.Generator):
     from tts_inference_tpu_torch.ops import paged_attention as pa
     from tts_inference_tpu_torch.ops import paged_attention_int4 as pa4
 
-    hkv, g, d, bs = 8, 3, 128, 128
+    g, d, bs = 3, 128, 128
     dev = "cuda"
-    n, table, pos, rows, offs, q, kv = _paged_case_inputs(b, w, gen)
+    n, table, pos, rows, offs, q, kv = _paged_case_inputs(b, w, gen, hkv)
     if kind == "K5":
         pools = [torch.zeros(n, hkv // 2, bs, d, dtype=torch.int8, device=dev)
                  for _ in range(2)]
@@ -685,8 +707,8 @@ def _k3_case(kind: str, b: int, w: int, gen: torch.Generator):
     err = (got.float() - want.float()).abs().max().item()
     ms = time_ms(lambda: kern(*args))
     plain_ms = time_ms(lambda: plain(*args))
-    return _report(name, f"B{b} Hkv8 G3 D128 bs128 {what} W{w}", err, K3_TOL,
-                   ms, plain_ms,
+    return _report(name, f"B{b} Hkv{hkv} G3 D128 bs128 {what} W{w}", err,
+                   K3_TOL, ms, plain_ms,
                    _attention_bound(pos, hkv, g, d, key_bytes, 2))
 
 
@@ -991,14 +1013,17 @@ def _k2_case(m: int, k: int, n: int, gen: torch.Generator,
         library)
 
 
-def _k2_head_case(gen: torch.Generator):
+def _k2_head_case(gen: torch.Generator, tp: int = 1):
     """The tied head: the last 28,940 rows of a (156,940, 3072) int8
-    embedding, read in place as a row slice, f32 logits."""
-    from tts_inference_tpu_torch import protocol
+    embedding, read in place as a row slice, f32 logits; under tp a rank's
+    block of the vocabulary partition (its text rows, then its 28,940 / tp
+    rows of the sliced head) and the head slice of it."""
     from tts_inference_tpu_torch.models.quant import QuantEmbed
     from tts_inference_tpu_torch.ops.int4_matmul import w8_mm, w8_mm_reference
+    from tts_inference_tpu_torch.parallel.mesh import vocab_shards
 
-    v, h, base, m = 156940, 3072, protocol.HEAD_SLICE_BASE, 8
+    vs = vocab_shards(156940, tp)
+    v, h, base, m = vs.rows, 3072, vs.tc, 8
     emb = QuantEmbed(
         torch.randint(-127, 128, (v, h), generator=gen, device="cuda",
                       dtype=torch.int8),
@@ -1225,6 +1250,35 @@ def k6_16_phase(gen: torch.Generator, dtype=torch.bfloat16):
     return cases, first, _k6_16_edges(gen, dtype)
 
 
+# per-rank (K, N) of the Orpheus-3B layer linears under tp 2: q, k and v,
+# gate and up column shards; o and down row shards
+TP2_LINEARS = {"q": (3072, 1536), "k/v": (3072, 512), "o": (1536, 3072),
+               "gate/up": (3072, 4096), "down": (4096, 3072)}
+
+
+def shard_kernel_cases(gen: torch.Generator) -> dict:
+    """The kernels at the per-rank shapes of a sharded Orpheus-3B, against
+    their plain versions with the tolerances of the cases above, timed:
+    K1 at Hkv 4 and 2 (tp 2, tp 4; G 3), K3b at Hkv 4, K5 at 2 and 1 head
+    pairs, K2 on the tp-2 shards of the seven linears and the tp-2 block of
+    the vocabulary (14,470 rows of the sliced head), K4 on those linears at
+    group 128 (K/tp is then whole groups in each packed half)."""
+    res = {}
+    for tp in (2, 4):
+        res[f"K1 tp{tp}"] = _k1_case(512, gen, hkv=8 // tp)
+    res["K3b tp2"] = _k3_case("K3b", 8, 512, gen, hkv=4)
+    for tp in (2, 4):
+        res[f"K5 tp{tp}"] = _k3_case("K5", 8, 512, gen, hkv=8 // tp)
+    for name, (k, n) in TP2_LINEARS.items():
+        res[f"K2 {name} tp2"] = _k2_case(8, k, n, gen)
+        res[f"K4 {name} tp2"] = _k4_case(8, k, n, 128, torch.bfloat16, gen)
+    res["K2 head tp2"] = _k2_head_case(gen, tp=2)
+    print(f"multigpu shard shapes [{card_line()}]:", json.dumps(
+        {k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+         for k, v in res.items()}), flush=True)
+    return res
+
+
 def kernel_phase() -> dict:
     """Each kernel against its plain version at the serve paths' shapes."""
     # the vocoder's f32 parity needs full-precision cuDNN and matmuls
@@ -1259,6 +1313,7 @@ def kernel_phase() -> dict:
     # after every earlier draw, so that those keep their inputs
     k6_bf16, _, k6_bf16_edge = k6_16_phase(gen, torch.bfloat16)
     k6_f16, _, k6_f16_edge = k6_16_phase(gen, torch.float16)
+    shard_kernel_cases(gen)
 
     def worst(cases):
         return max(c["max_abs_err"] for c in cases.values())
@@ -1941,10 +1996,11 @@ def _tiny_check(name: str, device, flip_gap=None, quantize=False,
 
 
 def _recording_scheduler(rt, config, finished: dict, vocoder=None,
-                         use_native: bool = False):
-    """A scheduler of `config` over the runtime's weights (and its vocoder,
-    or `vocoder`) that keeps each finished request's raw token stream in
-    `finished` (text → tokens)."""
+                         use_native: bool = False, params=None, **kw):
+    """A scheduler of `config` over the runtime's weights (or `params`: a
+    mesh rank's shard, with mesh= and the other Scheduler keywords in `kw`)
+    and its vocoder, or `vocoder`, that keeps each finished request's raw
+    token stream in `finished` (text → tokens)."""
     from tts_inference_tpu_torch.engine import scheduler as TS
 
     class Recording(TS.Scheduler):
@@ -1954,8 +2010,9 @@ def _recording_scheduler(rt, config, finished: dict, vocoder=None,
                 finished[st.req.text] = list(st.token_ids)
             super()._release(slot)
 
-    return Recording(rt.engine.core.params, config, vocoder or rt.vocoder,
-                     rt.tokenizer, device=rt.device, use_native=use_native)
+    return Recording(rt.engine.core.params if params is None else params,
+                     config, vocoder or rt.vocoder, rt.tokenizer,
+                     device=rt.device, use_native=use_native, **kw)
 
 
 GRAPH_FLIP_GAP = 1e-3   # eager top-2 logit gap below which a greedy flip passes
@@ -3750,6 +3807,424 @@ def tools_phase(full: bool, runtime_part=None) -> dict:
     return res
 
 
+# ---- multigpu: tensor- and data-parallel serving on one card -------------------
+# The card's machine has one H100, and NCCL refuses two ranks on one device:
+# this phase shows the sharded path (an NCCL group of one with its
+# collectives inside the captured graphs; two tp ranks sharing the card over
+# gloo at full Orpheus-3B width), not a multi-GPU speed.
+
+MG_ENGINE = dict(max_batch_size=4, max_input_len=128, max_output_len=256,
+                 prefill_buckets=(128,), kv_buckets=(256,))
+MG_TOKENS = 70                      # 10 frames a request
+MG_DIR = Path(__file__).resolve().parent / "build" / "multigpu"
+
+
+def _mg_config(**engine_over):
+    """Orpheus-3B at full width with a small engine (4 slots, one prompt
+    bucket, KV windows 256 and 384): the phase shows the sharded path, not
+    the serve phases' geometry."""
+    from tts_inference_tpu_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, **MG_ENGINE, **engine_over))
+
+
+def _mg_requests(n: int = 4, max_tokens: int = MG_TOKENS, tag: str = ""):
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.engine.scheduler import TTSRequest
+
+    audio = (protocol.TOKEN_AUDIO_BASE,
+             protocol.TOKEN_AUDIO_BASE + protocol.AUDIO_VOCAB)
+    return [TTSRequest(
+        text=f"Shard probe {tag}{i}: the quick brown fox jumps over it.",
+        force_speech=True,
+        sampling=SamplingConfig(greedy=True, max_tokens=max_tokens,
+                                token_range=audio)) for i in range(n)]
+
+
+def _mg_serve(sched, reqs) -> dict:
+    """Step the scheduler by hand until the requests drain; each request's
+    PCM (errors raise)."""
+    for r in reqs:
+        sched.submit(r)
+    with torch.no_grad():
+        for _ in range(20000):
+            if not sched.step() and sched.n_queued == 0 \
+                    and not sched.n_active:
+                break
+        else:
+            raise AssertionError("multigpu: the scheduler did not drain")
+    sched.drain_vocoder()
+    pcm = {}
+    for r in reqs:
+        parts = []
+        while True:
+            kind, payload = r.events.get(timeout=120)
+            if kind == "chunk":
+                parts.append(payload.pcm)
+            elif kind == "done":
+                break
+            else:
+                raise AssertionError(f"{r.text}: {payload}")
+        pcm[r.text] = b"".join(parts)
+    return pcm
+
+
+def _mg_graph_run(rt, cfg, params=None, mesh=None) -> dict:
+    """Four greedy requests through a scheduler over `params` (a mesh
+    rank's shard) or the runtime's: engine graphs captured at warmup, then
+    served with every launch counted."""
+    from tts_inference_tpu_torch.ops import _build
+
+    finished = {}
+    sched = _recording_scheduler(rt, cfg, finished, params=params,
+                                 mesh=mesh)
+    core = sched.core
+    t0 = time.perf_counter()
+    core.warmup_graphs(admission_ns=[sched.admission_steps,
+                                     cfg.engine.decode_steps_per_call])
+    warm = time.perf_counter() - t0
+    census = dict(core.graph_census_ms)
+    launches, replays = dict(core.launches), dict(core.replays)
+    before = _build.launch_counts()
+    _mg_serve(sched, _mg_requests())
+    sched.stop()
+    served = {k: core.launches[k] - launches.get(k, 0)
+              for k in core.launches}
+    replayed = {k: core.replays[k] - replays.get(k, 0) for k in core.replays}
+    return {"tokens": finished, "census": census, "warmup_s": warm,
+            "late_captures": core.late_captures, "served": served,
+            "replayed": replayed, "kernels": _build.launches_since(before)}
+
+
+def nccl_one_phase(rt, cfg) -> dict:
+    """The sharded path on an NCCL group of one on cuda:0, Mesh(tp=1,
+    dp=1) passed explicitly, so every collective (the row sums, the
+    masked-embedding sum, the logits' and the token rows' gathers) is a real
+    NCCL call: a --quantize scheduler captures its graphs at warmup with the
+    collectives inside, serves four requests with every launch a replay and
+    no capture, and its greedy tokens equal the plain core's (same card,
+    same weights, graphs too)."""
+    import torch.distributed as dist
+
+    from tts_inference_tpu_torch import weights
+    from tts_inference_tpu_torch.config import MeshConfig
+    from tts_inference_tpu_torch.parallel import mesh as M
+    from tts_inference_tpu_torch.parallel.multihost import init_multihost
+
+    t0 = time.perf_counter()
+    plain = _mg_graph_run(rt, cfg)
+    dev = init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda:0",
+                         timeout_s=120)
+    try:
+        mesh = M.make_mesh(MeshConfig(dp=1, tp=1), device=dev)
+        if mesh.backend != "nccl":
+            raise AssertionError(f"multigpu[nccl]: backend {mesh.backend}")
+        shard = weights.shard_params(rt.engine.core.params, cfg.model, mesh)
+        got = _mg_graph_run(rt, cfg, params=shard, mesh=mesh)
+        del shard
+    finally:
+        dist.destroy_process_group()
+    res = {"graphs_captured": len(got["census"]),
+           "capture_s": round(sum(got["census"].values()) / 1e3, 3),
+           "plain_graphs": len(plain["census"]), "warmup_s": got["warmup_s"],
+           "late_captures": got["late_captures"], "launches": got["served"],
+           "replays": got["replayed"], "kernels": got["kernels"],
+           "wall_s": time.perf_counter() - t0}
+    print(f"multigpu[nccl group of one] [{card_line()}]:", json.dumps(res),
+          flush=True)
+    print("multigpu[nccl] census (ms):", json.dumps(got["census"]),
+          flush=True)
+    if got["late_captures"] or got["served"] != got["replayed"] \
+            or not got["served"].get("decode"):
+        raise AssertionError(f"multigpu[nccl]: a launch was not a replay of "
+                             f"a warmup graph: {res}")
+    if not {"K1", "K2"} <= set(got["kernels"]):
+        raise AssertionError(f"multigpu[nccl]: kernels {got['kernels']}")
+    if got["tokens"] != plain["tokens"]:
+        raise AssertionError("multigpu[nccl]: greedy tokens differ from the "
+                             "plain core's")
+    return res
+
+
+def _stop_follower(socks) -> None:
+    """End the followers' replay of one core without closing the channel
+    (the next run replays into a new core)."""
+    import pickle
+
+    from tts_inference_tpu_torch.parallel import lockstep as LS
+
+    for s in socks:
+        LS._send(s, pickle.dumps((LS._STOP, (), {})))
+
+
+MG_RUNS = (("dense", {}),
+           ("paged_int8", {"paged_kv": True, "kv_cache_int8": True,
+                           "kv_block_size": 128}))
+
+
+def _tp_rank(rank: int, port: int, lport: int) -> None:
+    """One of two tp ranks sharing cuda:0 over gloo: full-width int8
+    weights, made from the seed on the card and cut to this rank's shard;
+    rank 0 serves four greedy requests per MG_RUNS configuration through a
+    mirrored, eager scheduler, rank 1 replays; then rank 0 kills rank 1 in
+    the middle of a stream. Each rank writes its results under MG_DIR."""
+    import os
+    import signal
+
+    from tts_inference_tpu_torch import weights
+    from tts_inference_tpu_torch.config import MeshConfig
+    from tts_inference_tpu_torch.engine.engine import EngineCore
+    from tts_inference_tpu_torch.models.quant import quantize_llama_params
+    from tts_inference_tpu_torch.ops import _build
+    from tts_inference_tpu_torch.parallel import lockstep as LS
+    from tts_inference_tpu_torch.parallel import mesh as M
+    from tts_inference_tpu_torch.parallel.multihost import init_multihost
+    from tts_inference_tpu_torch.runtime import Runtime
+
+    t0 = time.perf_counter()
+    out = {"rank": rank, "pid": os.getpid()}
+    (MG_DIR / f"rank{rank}.pid").write_text(str(os.getpid()))
+    dev = init_multihost(f"127.0.0.1:{port}", 2, rank, device="cuda:0",
+                         backend="gloo", timeout_s=120)
+    mesh = M.make_mesh(MeshConfig(dp=1, tp=2), device=dev)
+    cfg = _mg_config()
+    rt = None
+    if rank == 0:
+        rt = Runtime.create(cfg, seed=0, device=dev, quantize=True)
+        full = rt.engine.core.params
+    else:
+        full = quantize_llama_params(weights.init_llama_params(
+            cfg.model, 0, dev), bits=8, free_source=True)
+    shard = weights.shard_params(full, cfg.model, mesh)
+    del full
+    lp = shard["layers"][0]
+    out["shapes"] = {k: list(lp[k].w_i8.shape) for k in
+                     ("wq", "wk", "wo", "w_gate", "w_down")}
+    out["shapes"]["embed"] = list(shard["embed"].w_i8.shape)
+    out["boot_s"] = time.perf_counter() - t0
+    if rank == 1:
+        sock = LS.follower_channel("127.0.0.1", lport, process_id=1)
+        for name, over in MG_RUNS + (("kill", {}),):
+            c = dataclasses.replace(cfg, engine=dataclasses.replace(
+                cfg.engine, **over))
+            core = EngineCore(shard, c.model, c.engine, device=dev,
+                              mesh=mesh, graphs=False)
+            before = _build.launch_counts()
+            out[name] = {"replayed": LS.follower_loop(core, sock),
+                         "kernels": _build.launches_since(before)}
+            out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+            (MG_DIR / "rank1.json").write_text(json.dumps(out))
+            del core
+        return
+    socks = LS.coordinator_channel(lport, 1)
+    for name, over in MG_RUNS:
+        c = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, **over))
+        finished = {}
+        sched = _recording_scheduler(
+            rt, c, finished, params=shard, mesh=mesh, graphs=False,
+            wrap_core=lambda core: LS.MirroredCore(core, socks))
+        before = _build.launch_counts()
+        t1 = time.perf_counter()
+        pcm = _mg_serve(sched, _mg_requests(tag=name))
+        sched.stop()
+        out[name] = {"tokens": finished, "serve_s": time.perf_counter() - t1,
+                     "kernels": _build.launches_since(before),
+                     "pcm": {k: _pcm_vs_whole(rt, v, finished[k])
+                             for k, v in pcm.items()}}
+        _stop_follower(socks)
+    # a follower lost mid-stream: the stream ends with "engine down"
+    sched = _recording_scheduler(
+        rt, cfg, {}, params=shard, mesh=mesh, graphs=False,
+        wrap_core=lambda core: LS.MirroredCore(core, socks))
+    req = _mg_requests(1, 250, "kill")[0]
+    sched.submit(req)
+    sched.start()
+    events, t1, killed = [], time.perf_counter(), False
+    while time.perf_counter() - t1 < 120:
+        kind, payload = req.events.get(timeout=120)
+        events.append(kind)
+        if kind == "chunk" and not killed:
+            os.kill(int((MG_DIR / "rank1.pid").read_text()), signal.SIGKILL)
+            killed = True
+        if kind in ("done", "error"):
+            out["kill"] = {"last": [kind, str(payload)[:200]],
+                           "chunks": events.count("chunk"),
+                           "fatal": sched.fatal,
+                           "seconds": time.perf_counter() - t1}
+            break
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    (MG_DIR / "rank0.json").write_text(json.dumps(out))
+    # the group lost a member: leave without tearing it down
+    os._exit(0)
+
+
+def _pcm_vs_whole(rt, pcm: bytes, tokens) -> dict:
+    """A stream's served PCM against one whole decode of its tokens."""
+    import numpy as np
+
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.models.snac import to_pcm16
+
+    ex = protocol.TokenExtractor()
+    ex.started = True
+    l1, l2, l3 = protocol.deinterleave_frames(ex.feed_many(tokens))
+    whole = to_pcm16(torch.from_numpy(rt.vocoder.decode_frames(
+        l1, l2, l3, noise_seed=0))).numpy().astype(np.int32)
+    got = np.frombuffer(pcm, np.int16).astype(np.int32)
+    if got.shape != whole.shape:
+        return {"samples": int(got.size), "whole": int(whole.size),
+                "max_pcm16_diff": None}
+    return {"samples": int(got.size),
+            "max_pcm16_diff": int(np.abs(got - whole).max())}
+
+
+def two_rank_phase(rt, cfg) -> dict:
+    """Two tp ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), eager (gloo cannot be captured): the kernels run at the shard
+    shapes no other phase launches (12 query / 4 kv heads a rank; q
+    3072→1536, kv 3072→512, o 1536→3072, gate/up 3072→4096, down 4096→3072;
+    the 14,470-row head shard), dense and paged int8. Rank 0's greedy
+    tokens equal the unsharded engine's (eager, this process, same weights)
+    up to a first flip whose top-2 logit gap is within twice the model's own
+    noise (the bf16 row-parallel sums add in another order); its streamed
+    PCM equals the whole decode of its tokens within PCM16_TOL; K1 (dense)
+    or K3b (paged) and K2 launch on both ranks; killing rank 1 mid-stream
+    ends rank 0's stream with "engine down"."""
+    import multiprocessing as mp
+
+    from tts_inference_tpu_torch.config import SamplingConfig
+
+    t0 = time.perf_counter()
+    MG_DIR.mkdir(parents=True, exist_ok=True)
+    for f in MG_DIR.glob("rank*"):
+        f.unlink()
+    ctx = mp.get_context("spawn")
+    port, lport = _free_port(), _free_port()
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, lport))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    # the unsharded references, on this process, while the ranks boot
+    refs = {}
+    for name, over in MG_RUNS:
+        c = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, **over))
+        finished = {}
+        sched = _recording_scheduler(rt, c, finished, graphs=False)
+        _mg_serve(sched, _mg_requests(tag=name))
+        sched.stop()
+        refs[name] = (c, finished)
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            raise AssertionError("multigpu[two ranks]: a rank hung")
+    if procs[0].exitcode != 0 or procs[1].exitcode != -9:
+        raise AssertionError(f"multigpu[two ranks]: rank exit codes "
+                             f"{[p.exitcode for p in procs]} (want 0, -9)")
+    r0, r1 = (json.loads((MG_DIR / f"rank{r}.json").read_text())
+              for r in range(2))
+    want = {"wq": [3072, 1536], "wk": [3072, 512], "wo": [1536, 3072],
+            "w_gate": [3072, 4096], "w_down": [4096, 3072],
+            "embed": [78470, 3072]}
+    if r0["shapes"] != want or r1["shapes"] != want:
+        raise AssertionError(f"multigpu: shard shapes {r0['shapes']}")
+    sampling = SamplingConfig(greedy=True, max_tokens=MG_TOKENS,
+                              token_range=_mg_requests(1)[0]
+                              .sampling.token_range)
+    res = {"peak_memory_gb": [round(r["peak_memory_bytes"] / 1e9, 3)
+                              for r in (r0, r1)],
+           "boot_s": [round(r["boot_s"], 1) for r in (r0, r1)]}
+    for name, _ in MG_RUNS:
+        c, plain = refs[name]
+        attn = "K3b" if name == "paged_int8" else "K1"
+        for who, r in (("rank0", r0), ("rank1", r1)):
+            if not (r[name]["kernels"].get(attn) and
+                    r[name]["kernels"].get("K2")):
+                raise AssertionError(f"multigpu[{name}]: {who} launched "
+                                     f"{r[name]['kernels']}")
+        shim = dataclasses.replace(rt, config=c)
+        flips = []
+        for text, got in r0[name]["tokens"].items():
+            w = plain[text]
+            if got == w:
+                continue
+            i = next(k for k, (a, b) in enumerate(zip(got, w)) if a != b)
+            prompt = rt.pipeline.build_prompt(text, force_speech=True)
+            noise, _ = _own_noise(shim, [list(prompt) + w[:i]], sampling,
+                                  len(prompt) // 2, False)
+            gap = _top2_gap(shim, prompt, w, i, sampling)
+            flips.append({"step": i, "gap": gap, "noise": noise})
+            if not noise <= PREFIX_NOISE_MAX or not gap <= 2 * noise:
+                raise AssertionError(f"multigpu[{name}]: {text}: tokens "
+                                     f"differ at step {i}, top-2 gap {gap}"
+                                     f", own noise {noise}")
+        pcm = r0[name]["pcm"]
+        worst = [v["max_pcm16_diff"] for v in pcm.values()]
+        if None in worst or max(worst) > PCM16_TOL:
+            raise AssertionError(f"multigpu[{name}]: served PCM vs whole "
+                                 f"decode {pcm}")
+        res[name] = {"equal_streams": len(plain) - len(flips),
+                     "flips": flips, "serve_s": r0[name]["serve_s"],
+                     "max_pcm16_diff": max(worst),
+                     "kernels_rank0": r0[name]["kernels"],
+                     "kernels_rank1": r1[name]["kernels"]}
+    kill = r0["kill"]
+    res["kill"] = kill
+    if kill["last"][0] != "error" or "engine down" not in kill["last"][1] \
+            or not kill["fatal"]:
+        raise AssertionError(f"multigpu[kill]: {kill}")
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"multigpu[two tp ranks on one card, gloo] [{card_line()}]:",
+          json.dumps(res), flush=True)
+    return res
+
+
+def lockstep_overhead_phase() -> dict:
+    """``tools/lockstep_overhead.py`` at full width on the card: the µs the
+    mirror adds under its lock per decode launch, and the interleaved A/B
+    of a plain core against a MirroredCore (the follower a drained
+    socketpair)."""
+    import contextlib
+    import io
+
+    from tts_inference_tpu_torch.tools import lockstep_overhead as LO
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = LO.main(["--iters", "50"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"multigpu[lockstep_overhead] [{card_line()}]:", json.dumps(line),
+          flush=True)
+    if rc != 0 or not line["mirror_cost_us_per_call"] > 0:
+        raise AssertionError(f"lockstep_overhead: rc {rc}, {line}")
+    return line
+
+
+def multigpu_phase() -> dict:
+    """The sharded serving path on the one card: an NCCL group of one, two
+    tp ranks over gloo, the cost of the lockstep mirror. The card count
+    stays 1; no number here is a multi-GPU speed."""
+    from tts_inference_tpu_torch.runtime import Runtime
+
+    t0 = time.perf_counter()
+    cfg = _mg_config()
+    rt = {"rt": Runtime.create(cfg, seed=0, device="cuda", quantize=True)}
+    res = {"nccl": nccl_one_phase(rt["rt"], cfg),
+           "two_ranks": two_rank_phase(rt["rt"], cfg)}
+    _free(rt)
+    res["lockstep_overhead"] = lockstep_overhead_phase()
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"multigpu: {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
 KERNELS = (
     # key, name, source under tts_inference_tpu_torch/csrc, the TPU kernel
     ("K1", "decode_attention", "decode_attention.cu",
@@ -3781,7 +4256,8 @@ def main(argv=None) -> int:
                          "kernels, qmm, dense, checkpoint, train, paged, "
                          "quant, prefix, vocoder, native, tools = the "
                          "measurement and diagnostic tools with every flag "
-                         "set and rung, compare = the serve "
+                         "set and rung, multigpu = the sharded serving path "
+                         "and its kernel shapes, compare = the serve "
                          "phases eager and replayed, gap = the paged_int8 "
                          "phase alone) and print no result line; the full "
                          "run takes no arguments")
@@ -3908,6 +4384,10 @@ def main(argv=None) -> int:
             _free(rt)
         phases["tools"] = tools_phase(only is not None,
                                       phases["tools_runtime"])
+    if on("multigpu"):
+        if kern is None:    # --only multigpu: the shard-shape kernel cases
+            shard_kernel_cases(torch.Generator(device="cuda").manual_seed(0))
+        phases["multigpu"] = multigpu_phase()
     if only is not None:
         print(f"chip_smoke: phases {sorted(only)} passed; no result line "
               "without the full run", flush=True)

@@ -295,7 +295,7 @@ def test_cli_prefix_cache_flag():
         ["serve", "--tiny"])).engine.prefix_cache
 
 
-@pytest.mark.parametrize("flag", ["--kv-int4", "--tp=2", "--dp=2"])
+@pytest.mark.parametrize("flag", ["--kv-int4", "--tp=3", "--dp=2,--tp=3"])
 def test_cli_rejects_unported_configurations(flag):
     if flag == "--kv-int4":
         # ported, but only over a paged cache: the JAX package's message
@@ -304,11 +304,13 @@ def test_cli_rejects_unported_configurations(flag):
             cli.main(["serve", "--tiny", "--device", "cpu", "--no-warmup",
                       flag])
         return
-    with pytest.raises(SystemExit) as e:
-        cli.main(["serve", "--tiny", "--device", "cpu", flag])
-    msg = str(e.value.code)
-    assert "not ported" in msg and "ROADMAP.md Queue 1 item" in msg
-    assert flag.split("=")[0] in msg
+    # --tp / --dp are ported (serve over a mesh of processes): a tp the
+    # tiny model's 2 kv heads cannot split is refused by validate_tp, with
+    # the JAX package's message, before any process starts
+    with pytest.raises(ValueError, match="num_key_value_heads=2 not "
+                                         "divisible by tp=3"):
+        cli.main(["serve", "--tiny", "--device", "cpu", "--no-warmup",
+                  *flag.split(",")])
 
 
 @pytest.mark.parametrize("flags,linear,embed", [

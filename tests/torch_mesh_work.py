@@ -1,0 +1,305 @@
+"""The port's side of the sharded tests, run on every rank of a gloo pool
+(``tests/torch_gloo_pool.py``) or, with ``dp=None``, unsharded in the test
+process. Imports torch and the port only (and the numpy weight helpers),
+never jax. Each function returns picklable results; ranks outside the mesh
+return None."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tests.torch_port_helpers import numpy_llama_tree
+from tts_inference_tpu_torch import protocol as P
+from tts_inference_tpu_torch import weights
+from tts_inference_tpu_torch.config import (MeshConfig, SamplingConfig,
+                                            StreamConfig, tiny_config)
+from tts_inference_tpu_torch.engine.engine import EngineCore
+from tts_inference_tpu_torch.models import llama
+from tts_inference_tpu_torch.models.quant import quantize_llama_params
+from tts_inference_tpu_torch.ops import sampling as S
+from tts_inference_tpu_torch.parallel import collectives as C
+from tts_inference_tpu_torch.parallel import lockstep as LS
+from tts_inference_tpu_torch.parallel import mesh as M
+
+AUDIO_RANGE = (P.TOKEN_AUDIO_BASE, P.TOKEN_AUDIO_BASE + P.AUDIO_VOCAB)
+SCFG = StreamConfig(frames_per_chunk=2, lookahead_frames=3,
+                    left_context_frames=4)
+
+
+def _mesh(dp, tp):
+    """(member, mesh): every rank takes part in building it; unsharded
+    (dp None) is a member with no mesh."""
+    if dp is None:
+        return True, None
+    mesh = M.make_mesh(MeshConfig(dp=dp, tp=tp))
+    return mesh is not None, mesh
+
+
+# int4 group of the sharded tests: a row shard must be whole groups in each
+# packed half of its K (64 at tp 2 → group 32)
+I4_GROUP = 32
+
+
+def _params(cfg, seed: int, bits: int = 0, mesh=None):
+    p = weights.llama_params_from_jax(numpy_llama_tree(cfg, seed))
+    if bits:
+        p = quantize_llama_params(p, bits=bits, group=I4_GROUP)
+    return p if mesh is None else weights.shard_params(p, cfg, mesh)
+
+
+def forward_logits(cfg, tokens, lens, dp=None, tp=None, seed=0):
+    """Prefill logits (B, S, V) of the whole batch: each dp rank runs its
+    rows of `tokens`, and the rows are gathered over dp."""
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    p = _params(cfg, seed, mesh=mesh)
+    t, ln = torch.from_numpy(tokens), torch.from_numpy(lens)
+    local = cfg
+    if mesh is not None:
+        rows = t.shape[0] // mesh.dp
+        r0 = mesh.dp_rank * rows
+        t, ln = t[r0:r0 + rows], ln[r0:r0 + rows]
+        local = M.local_model_config(cfg, mesh.tp)
+    cache = llama.init_kv_cache(local, t.shape[0], 32)
+    with torch.no_grad():
+        hidden, _ = llama.forward(p, cfg, t, cache,
+                                  torch.zeros_like(ln), ln, mesh=mesh)
+        logits = llama.compute_logits(p, cfg, hidden, mesh=mesh)
+        return C.all_gather_dp(logits, mesh).numpy()
+
+
+def _np(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _tick(core):
+    """Admission of two prompts (+3 decode steps), then a decode launch."""
+    sp = S.SamplingParams.from_config(SamplingConfig(greedy=True), core.batch)
+    core.reset_and_seed([0, 1], [1, 2])
+    t0, tok, act = core.prefill_decode_launch(
+        [[7, 8, 9, 10], [11, 12, 13]], [0, 1], sp,
+        np.zeros(core.batch, np.int32), np.zeros(core.batch, bool), n=3)
+    t1, _, _ = core.decode_steps_launch(sp, tok, act)
+    return np.concatenate([_np(t0), _np(t1)], axis=1)
+
+
+def _first(core):
+    """prefill_slots of one prompt into slot 0, then a decode launch."""
+    sp = S.SamplingParams.from_config(SamplingConfig(greedy=True), core.batch)
+    first = core.prefill_slots([[7, 8, 9]], [0], sp)
+    active = np.zeros(core.batch, bool)
+    active[0] = True
+    toks, _, _ = core.decode_steps_launch(sp, first, active)
+    return np.concatenate([first[:1, None], _np(toks)[:1]], axis=1)
+
+
+def _prefix(core):
+    """A prefix miss wave, a decode launch, a reset, a prefix hit wave."""
+    sp = S.SamplingParams.from_config(SamplingConfig(greedy=True), core.batch)
+    prompts = [[9] * 6 + [7, 8, 9, 10], [9] * 6 + [13, 14]]
+    core.reset_and_seed([0, 1], [1, 2])
+    t0, tok, act = core.prefill_decode_launch(
+        prompts, [0, 1], sp, np.zeros(core.batch, np.int32),
+        np.zeros(core.batch, bool), n=3)
+    t1, _, _ = core.decode_steps_launch(sp, tok, act)
+    core.reset_and_seed([0, 1])
+    t2, tok, act = core.prefill_decode_launch(prompts, [0, 1], sp, tok, act,
+                                              n=3)
+    return np.concatenate([_np(t0)[:2], _np(t1)[:2], _np(t2)[:2]],
+                          axis=1), core.prefix_hits
+
+
+def _paged(core):
+    """test_paged_kv / test_int4_kv's engine_tokens: two prompts, seeded,
+    with token budgets, then two decode launches."""
+    sp = S.SamplingParams.from_config(SamplingConfig(greedy=True), core.batch)
+    core.reset_and_seed([0, 1], [7, 7])
+    t0, tok, act = core.prefill_decode_launch(
+        [[7, 8, 9, 10], [13, 14]], [0, 1], sp,
+        np.zeros(core.batch, np.int32), np.zeros(core.batch, bool), n=3,
+        reserve_extra=[24, 24])
+    t1, tok, act = core.decode_steps_launch(sp, tok, act)
+    t2, _, _ = core.decode_steps_launch(sp, tok, act)
+    return np.concatenate([_np(t0), _np(t1), _np(t2)], axis=1)[:2]
+
+
+SCRIPTS = {"tick": _tick, "first": _first, "prefix": _prefix,
+           "paged": _paged}
+
+
+def engine_run(cfg, ecfg, script, dp=None, tp=None, bits=0, seed=0):
+    """One of SCRIPTS over an EngineCore of the numpy weights of `seed`
+    (quantized to `bits` when nonzero), sharded over (dp, tp)."""
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    core = EngineCore(_params(cfg, seed, bits, mesh), cfg, ecfg, eos_id=5,
+                      mesh=mesh)
+    with torch.no_grad():
+        return SCRIPTS[script](core)
+
+
+def int4_kv_pairs_raise(cfg, ecfg, dp, tp):
+    """EngineCore's message when tp does not divide the int4 head pairs."""
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    try:
+        EngineCore(_params(cfg, 0), cfg, ecfg, eos_id=5, mesh=mesh)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def gloo_graphs_raise(cfg, ecfg, dp, tp):
+    """A core on a CUDA device over a gloo mesh, graphs asked for: the
+    error raised before anything is allocated."""
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    params = {"final_norm": torch.zeros(1), "layers": []}
+    try:
+        EngineCore(params, cfg, ecfg, device="cuda", mesh=mesh)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def head_slice(vocab, hidden, tp, seed=0):
+    """The vocabulary partition at `tp` (mesh (1, tp)): each rank's
+    (text rows, audio rows), the sliced and the whole logits gathered, and
+    the embedding lookup of every kind of token summed over tp."""
+    member, mesh = _mesh(1, tp)
+    if not member:
+        return None
+    cfg = dataclasses.replace(tiny_config().model, vocab_size=vocab,
+                              hidden_size=hidden, num_attention_heads=tp,
+                              num_key_value_heads=tp, dtype="float32")
+    rng = np.random.default_rng(seed)
+    emb = torch.from_numpy(rng.standard_normal((vocab, hidden),
+                                               dtype=np.float32))
+    h = torch.from_numpy(rng.standard_normal((3, hidden), dtype=np.float32))
+    shard = M.shard_tree({"embed": emb}, {"embed": ("tp_vocab", None)}, mesh)
+    vs = M.vocab_shards(vocab, tp)
+    toks = torch.tensor([[0, P.HEAD_SLICE_BASE - 1, P.HEAD_SLICE_BASE,
+                          P.TOKEN_AUDIO_BASE + 5, vocab - 1]])
+    with torch.no_grad():
+        return {"rows": (vs.text[mesh.tp_rank][1], vs.audio[mesh.tp_rank][1]),
+                "local_rows": shard["embed"].shape[0],
+                "sliced": llama.compute_logits(shard, cfg, h,
+                                               P.HEAD_SLICE_BASE,
+                                               mesh).numpy(),
+                "whole": llama.compute_logits(shard, cfg, h, 0,
+                                              mesh).numpy(),
+                "embed": llama.embed(shard, cfg, toks, mesh).numpy(),
+                "want_sliced": (h @ emb[P.HEAD_SLICE_BASE:].t()).numpy(),
+                "want_whole": (h @ emb.t()).numpy(),
+                "want_embed": emb[toks].numpy()}
+
+
+def _requests(specs):
+    """Greedy requests: the CPU's kernels round the same sums differently
+    at another batch size (a dp rank's rows) or another order of a sum (a
+    tp split), so a sampled token can flip where its noise lands at the
+    edge of a token's share — the unsharded port flips the same way
+    between a batch of 4 and one of 2. A greedy token flips only at a
+    top-2 tie."""
+    from tts_inference_tpu_torch.engine.scheduler import TTSRequest
+
+    return [TTSRequest(text=text, force_speech=True, stream_cfg=SCFG,
+                       sampling=SamplingConfig(max_tokens=n, seed=seed,
+                                               greedy=True,
+                                               token_range=AUDIO_RANGE))
+            for text, seed, n in specs]
+
+
+def _drain(req, timeout=300):
+    chunks = []
+    while True:
+        kind, payload = req.events.get(timeout=timeout)
+        if kind == "chunk":
+            chunks.append(payload.pcm)
+        elif kind == "done":
+            return b"".join(chunks), payload
+        else:
+            raise AssertionError(payload)
+
+
+def scheduler_run(specs, dp=None, tp=None, lport=0, admission_steps=None,
+                  seed=0, engine=None, stagger=False):
+    """Stream `specs` [(text, seed, max_tokens)] through a Scheduler over
+    the tiny runtime's weights of `seed` (`engine`: EngineConfig fields
+    over tiny_config's; `stagger`: one step between the first request and
+    the others): unsharded, or sharded with the scheduler on rank 0 and its
+    core mirrored to the other ranks over the lockstep side channel at
+    `lport`. Rank 0 returns {"streams": [(pcm, token ids, first decode
+    ms)] per request (the first is 0.0 where the fused admission vocode
+    emitted the first chunk), "preemptions": n}; followers return their
+    replayed call count."""
+    from tts_inference_tpu_torch.engine import scheduler as SC
+    from tts_inference_tpu_torch.engine.scheduler import Scheduler
+    from tts_inference_tpu_torch.models.snac import SnacDecoder
+    from tts_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    cfg = tiny_config()
+    if engine:
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, **engine))
+    params = weights.init_llama_params(cfg.model, seed)
+    if mesh is not None:
+        params = weights.shard_params(params, cfg.model, mesh)
+        if mesh.rank:
+            sock = LS.follower_channel("127.0.0.1", lport,
+                                       process_id=mesh.rank)
+            core = EngineCore(params, cfg.model, cfg.engine,
+                              eos_id=P.TOKEN_EOS, seed=seed, mesh=mesh)
+            return LS.follower_loop(core, sock)
+    mirrors = []
+
+    def wrap(core):
+        socks = LS.coordinator_channel(lport, mesh.world - 1)
+        mirrors.append(LS.MirroredCore(core, socks))
+        return mirrors[0]
+
+    voc = SnacDecoder(weights.init_snac_params(cfg.snac, seed + 1), cfg.snac)
+    s = Scheduler(params, cfg, voc, ByteTokenizer(), seed=seed, mesh=mesh,
+                  wrap_core=wrap if mesh is not None else None)
+    if admission_steps:
+        s.admission_steps = admission_steps
+    reqs = _requests(specs)
+    tokens = {}
+    finish = SC._SlotState.finish
+
+    def keep(state):      # a stream's raw token ids, at its finish
+        tokens[state.req.id] = list(state.token_ids)
+        finish(state)
+
+    SC._SlotState.finish = keep
+    try:
+        with torch.no_grad():
+            for i, r in enumerate(reqs):
+                s.submit(r)
+                if stagger and i == 0:
+                    s.step()      # the first is admitted alone: the oldest
+            for _ in range(4000):
+                if not s.step() and s.n_queued == 0:
+                    break
+        s.drain_vocoder()
+    finally:
+        SC._SlotState.finish = finish
+    out = []
+    for r in reqs:
+        pcm, m = _drain(r)
+        out.append((pcm, tokens[r.id], m.decode_times_ms[:1]))
+    s.stop()
+    for m in mirrors:
+        m.close()
+    return {"streams": out, "preemptions": s.preemptions}
+

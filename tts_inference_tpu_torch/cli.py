@@ -25,6 +25,16 @@ extracts tokens and de-interleaves windows in the C++ runtime built from
 ``native/tts_runtime.cpp`` (an error when it cannot be built). Without
 ``--device`` every command but ``devices`` runs on ``cuda`` and fails when
 there is none; ``--device cpu`` asks for the CPU.
+
+``serve --tp T --dp D`` serves one engine sharded over T·D devices, one
+process each (``parallel/``): without ``--coordinator`` this process
+starts the T·D − 1 followers itself (the same command with ``--coordinator
+127.0.0.1:<free port> --process-id i``) and exits nonzero when any of them
+dies; with ``--coordinator HOST:PORT --num-processes N --process-id I``
+each process of a multi-host group is started by hand. Process 0 serves
+the API and mirrors every engine launch to the others over the lockstep
+side channel (``--lockstep-port``, ``--lockstep-bind``). NCCL on cards,
+gloo on the CPU.
 Options of configurations that are not ported yet are accepted by the
 parser and rejected with the ROADMAP item that ports them — the port never
 runs a different path silently.
@@ -35,13 +45,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import socket
+import subprocess
 import sys
+import threading
 import time
 
-# flag → the ROADMAP.md item that ports it
+# command → the ROADMAP.md item that ports it under --tp/--dp > 1 (serve
+# runs sharded since the multi-GPU slice)
 UNPORTED = {
-    "tp": "tensor parallelism (ROADMAP.md Queue 1 item 15, multi-GPU)",
-    "dp": "data parallelism (ROADMAP.md Queue 1 item 15, multi-GPU)",
+    "generate": "single-stream commands under a mesh (ROADMAP.md Queue 1 "
+                "item 8)",
+    "dump-tokens": "single-stream commands under a mesh (ROADMAP.md Queue 1 "
+                   "item 8)",
+    "quantize": "a sharded checkpoint writer (ROADMAP.md Queue 1 item 8)",
 }
 
 
@@ -113,19 +131,20 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "kernel K6's bf16 variant); gate its fidelity with "
                         "tools/vocoder_dtype_fidelity.py")
     p.add_argument("--tp", type=int, default=1,
-                   help=f"not ported yet: {UNPORTED['tp']}")
+                   help="tensor-parallel degree (mesh tp axis, one process "
+                        "per device; serve)")
     p.add_argument("--dp", type=int, default=1,
-                   help=f"not ported yet: {UNPORTED['dp']}")
+                   help="data-parallel degree (request slots over replicas; "
+                        "serve)")
 
 
 def check_ported(args) -> None:
     """Reject options whose configuration is not ported yet."""
-    for flag, item in UNPORTED.items():
-        val = getattr(args, flag, None)
-        if (flag in ("tp", "dp") and val not in (None, 1)) or val is True:
-            opt = "--" + flag.replace("_", "-")
-            raise SystemExit(f"{opt} is not ported to tts_inference_tpu_torch "
-                             f"yet: {item}")
+    item = UNPORTED.get(getattr(args, "cmd", None))
+    if item and (args.tp, args.dp) != (1, 1):
+        opt = "--tp" if args.tp != 1 else "--dp"
+        raise SystemExit(f"{opt} with {args.cmd} is not ported to "
+                         f"tts_inference_tpu_torch yet: {item}")
 
 
 def _config(args):
@@ -176,6 +195,16 @@ def _config(args):
         cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
             cfg.engine, kv_buckets=extended_kv_buckets(
                 cfg.engine.kv_buckets, cfg.engine.max_seq_len)))
+    if (args.tp, args.dp) != (1, 1):
+        from tts_inference_tpu_torch.config import MeshConfig
+        from tts_inference_tpu_torch.parallel.mesh import validate_tp
+
+        validate_tp(cfg.model, args.tp)
+        if cfg.engine.max_batch_size % args.dp:
+            raise ValueError(f"batch {cfg.engine.max_batch_size} not "
+                             f"divisible by dp={args.dp}")
+        cfg = dataclasses.replace(cfg, mesh=MeshConfig(dp=args.dp,
+                                                       tp=args.tp))
     return cfg
 
 
@@ -314,8 +343,169 @@ def build_serving(args):
 def cmd_serve(args) -> int:
     from tts_inference_tpu_torch.serving.app import run_app
 
+    if args.coordinator or (args.tp, args.dp) != (1, 1):
+        return _serve_sharded(args)
     rt, scheduler = build_serving(args)
     return run_app(rt, host=args.host, port=args.port, scheduler=scheduler)
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _start_followers(args, n: int) -> list:
+    """The one-process-per-device form of a single-host mesh: start the
+    n − 1 followers (this command with a local coordinator) and point this
+    process's arguments at it as process 0."""
+    args.coordinator = f"127.0.0.1:{_free_port()}"
+    args.num_processes, args.process_id = n, 0
+    args.lockstep_port = _free_port()
+    base = [sys.executable, "-m", "tts_inference_tpu_torch.cli",
+            *args.argv, "--coordinator", args.coordinator,
+            "--num-processes", str(n), "--lockstep-port",
+            str(args.lockstep_port)]
+    return [subprocess.Popen(base + ["--process-id", str(i)])
+            for i in range(1, n)]
+
+
+def _watch_followers(children: list, mirror: list,
+                     stopping: threading.Event) -> None:
+    """When a follower exits while this process serves: fail the mirror, so
+    that the next mirrored call raises at once and the scheduler's fatal
+    path ends every stream with "engine down" and the server with rc 13;
+    an idle server (no call to fail) exits 14 after a grace period."""
+    def watch():
+        while not stopping.is_set():
+            for i, c in enumerate(children, start=1):
+                rc = c.poll()
+                if rc is None:
+                    continue
+                msg = f"follower process {i} exited rc={rc}"
+                if mirror:
+                    mirror[0]._fail(RuntimeError(msg))
+                    if stopping.wait(5.0):
+                        return
+                print(f"fatal: {msg}", flush=True)
+                os._exit(14)
+            time.sleep(0.2)
+
+    threading.Thread(target=watch, daemon=True,
+                     name="follower-watch").start()
+
+
+def _serve_sharded(args) -> int:
+    """`serve` over a (dp, tp) mesh of processes (parallel/lockstep.py):
+    process 0 serves the API with a mirrored scheduler, the others replay
+    its engine calls."""
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.engine.engine import EngineCore
+    from tts_inference_tpu_torch.engine.scheduler import Scheduler
+    from tts_inference_tpu_torch.parallel import lockstep as LS
+    from tts_inference_tpu_torch.parallel.multihost import (init_multihost,
+                                                            make_global_mesh)
+    from tts_inference_tpu_torch.runtime import Runtime
+    from tts_inference_tpu_torch.serving.app import run_app
+
+    if not args.multi_stream:
+        raise SystemExit("lockstep serving requires the scheduler (drop "
+                         "--single-stream)")
+    n = args.tp * args.dp
+    cfg = _config(args)     # validate_tp and dp | batch before any process
+    children: list = []
+    mirror: list = []
+    stopping = threading.Event()
+    if not args.coordinator:
+        if not str(args.device).startswith("cpu"):
+            import torch
+
+            if torch.cuda.device_count() < n:
+                raise SystemExit(
+                    f"--tp {args.tp} --dp {args.dp} needs {n} cards on this "
+                    f"host, found {torch.cuda.device_count()} (one process "
+                    "per card: NCCL refuses two ranks on one device)")
+        children = _start_followers(args, n)
+        print(json.dumps({"lockstep_followers": [c.pid for c in children]}),
+              flush=True)
+        _watch_followers(children, mirror, stopping)
+    elif args.num_processes < 2:
+        raise SystemExit("--coordinator requires --num-processes >= 2")
+    if args.num_processes % args.tp or (
+            args.dp != 1 and args.num_processes != n):
+        raise SystemExit(f"--tp {args.tp} --dp {args.dp} does not lay out "
+                         f"over {args.num_processes} processes")
+    try:
+        dev = init_multihost(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+        mesh = make_global_mesh(tp=args.tp, device=dev)
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, dp=mesh.dp, tp=mesh.tp))
+        # the single-stream engine's launches are not mirrored: no runtime
+        # warmup (the scheduler's, mirrored, covers every launch it makes)
+        rt = Runtime.create(cfg, model_path=args.model_path,
+                            snac_path=args.snac_path,
+                            lora_path=args.lora_path,
+                            tokenizer_path=args.tokenizer_path,
+                            seed=args.seed, device=dev, warmup=False,
+                            quantize=args.quantize,
+                            weight_bits=args.weight_bits, mesh=mesh)
+        graphs = not mesh.gather_by_sum     # gloo cannot be captured
+        host = args.coordinator.rsplit(":", 1)[0]
+        if args.process_id != 0:
+            sock = LS.follower_channel(host, args.lockstep_port,
+                                       process_id=args.process_id)
+            print(json.dumps({"lockstep_follower": args.process_id,
+                              "status": "connected"}), flush=True)
+            core = EngineCore(rt.engine.core.params, rt.config.model,
+                              rt.config.engine, eos_id=protocol.TOKEN_EOS,
+                              seed=args.seed, device=dev, mesh=mesh,
+                              graphs=graphs)
+            try:
+                n_calls = LS.follower_loop(core, sock)
+            except ConnectionError as e:
+                # the coordinator died: exit nonzero, for a supervisor to
+                # restart the whole group
+                print(json.dumps({"lockstep_follower": args.process_id,
+                                  "error": str(e)}), flush=True)
+                return 1
+            print(json.dumps({"lockstep_follower": args.process_id,
+                              "replayed_calls": n_calls}), flush=True)
+            return 0
+        # the side channel on the coordinator's own interface by default,
+        # never 0.0.0.0 unless asked
+        socks = LS.coordinator_channel(args.lockstep_port,
+                                       args.num_processes - 1,
+                                       bind=args.lockstep_bind or host)
+
+        def wrap(core):
+            mirror.append(LS.MirroredCore(core, socks))
+            return mirror[0]
+
+        scheduler = Scheduler(rt.engine.core.params, rt.config, rt.vocoder,
+                              rt.tokenizer, seed=args.seed, device=dev,
+                              use_native=args.native_protocol, mesh=mesh,
+                              wrap_core=wrap, graphs=graphs)
+        if not args.no_warmup:
+            info = scheduler.warmup()
+            print(json.dumps({"warmup": info}), flush=True)
+        try:
+            return run_app(rt, host=args.host, port=args.port,
+                           scheduler=scheduler, lockstep=True)
+        finally:
+            mirror[0].close()
+    finally:
+        stopping.set()
+        for c in children:
+            if c.poll() is None:
+                c.terminate()
+        for c in children:
+            try:
+                c.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                c.kill()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -370,12 +560,33 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--native-protocol", action="store_true",
                    help="C++ token extractor + deinterleave in the "
                         "scheduler hot path (native/tts_runtime.cpp)")
+    s.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="lockstep multi-process serving: the process "
+                        "group's TCP rendezvous (served by process 0); one "
+                        "logical engine spans all processes, process 0 "
+                        "serves the API (parallel/lockstep.py). Without it, "
+                        "--tp/--dp > 1 start their followers on this host")
+    s.add_argument("--num-processes", type=int, default=1,
+                   help="total processes in the lockstep group")
+    s.add_argument("--process-id", type=int, default=0,
+                   help="this process's index (0 = API owner)")
+    s.add_argument("--lockstep-port", type=int, default=18765,
+                   help="TCP side-channel port on the coordinator host for "
+                        "mirrored EngineCore calls")
+    s.add_argument("--lockstep-bind", default=None,
+                   help="interface the coordinator binds the side channel "
+                        "to (default: the --coordinator host). The channel "
+                        "carries pickled descriptors — keep it on a trusted "
+                        "private network and set TTS_LOCKSTEP_TOKEN on all "
+                        "processes (shared-token handshake)")
     s.set_defaults(fn=cmd_serve)
     return ap
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
     return args.fn(args)
 
 

@@ -2,12 +2,11 @@
 
 The port's own copy of ``tts_inference_tpu/config.py``: the same
 dataclasses, field names and defaults, so a config translates between the
-two packages field by field (``dataclasses.asdict``). A field the port does
-not honour yet keeps its name and is rejected where it is read (the mesh
-axes and the bf16 vocoder, in ``cli.py``) or has no
-effect because the port has no such switch (``use_pallas_attention``,
-``use_pallas``, ``compilation_cache_dir``: the port's kernels always run on
-a CUDA tensor and eager PyTorch compiles nothing).
+two packages field by field (``dataclasses.asdict``). A field the port has
+no such switch for keeps its name and has no effect
+(``use_pallas_attention``, ``use_pallas``, ``compilation_cache_dir``: the
+port's kernels always run on a CUDA tensor and eager PyTorch compiles
+nothing).
 """
 
 from __future__ import annotations
@@ -303,8 +302,8 @@ class StreamConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh axes (SURVEY.md §5.8). The port serves on one card and
-    rejects any other value."""
+    """Device-mesh axes (SURVEY.md §5.8): one process per device
+    (``parallel/mesh.py``); ``cli serve --tp/--dp`` sets them."""
 
     dp: int = 1     # data parallel (replica) axis
     tp: int = 1     # tensor parallel axis (heads / ffn sharding)

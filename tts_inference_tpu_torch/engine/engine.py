@@ -62,12 +62,27 @@ the 2048 graph held 14.5 GB at 8 slots and ran out of memory at 32; one
 row, 1.6 GB). Its launches are counted as resumes, apart from
 admissions.
 
-Not ported yet (ROADMAP.md): meshes.
+Under a (dp, tp) mesh (``parallel/mesh.py``, one process per device) the
+core holds this rank's shard: the parameters and the KV heads of its tp
+rank, and of every slot tensor the rows [r·B/dp, (r+1)·B/dp) of its dp
+rank r. The host API stays the whole slot batch's: every launch copies its
+rank's rows of the inputs in, runs over them, and gathers each output over
+dp inside the launch, so every rank returns what the unsharded core
+returns (the JAX package's ``replicate_token_outs``, always on here). The
+host state — the length bounds, the block allocator and its table, the
+prefix map — is the whole batch's on every rank; each dp rank holds the
+whole block pool (the JAX package replicates the pool over dp) and writes
+only its own slots' blocks. On NCCL every launch is captured with its
+collectives inside the graph, as on one card; gloo cannot be captured, so
+on a gloo group a CUDA core needs ``graphs=False`` and raises without it.
+All ranks must make the same calls in the same order
+(``parallel/lockstep.py``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -84,6 +99,7 @@ from tts_inference_tpu_torch.utils.timing import PhaseTimer
 from tts_inference_tpu_torch.models import llama
 from tts_inference_tpu_torch.ops import _build
 from tts_inference_tpu_torch.ops import sampling as S
+from tts_inference_tpu_torch.parallel import collectives
 from tts_inference_tpu_torch.utils import copy_async, cuda_graphs, to_numpy
 
 __all__ = ["copy_async", "GenerationResult", "EngineCore",
@@ -112,6 +128,11 @@ def _launch_kind(key) -> str:
             "resume": "resume"}.get(key[0], "admission")
 
 
+# launch inputs with a slot axis first: a dp rank copies its rows of them
+_SLOT_INPUTS = frozenset(("last_tok", "active", "lens", "mask", "seeds",
+                          "reseed", "tokens", "ptoks", "plens", "pidx", "sp"))
+
+
 @dataclasses.dataclass
 class GenerationResult:
     token_ids: List[int]
@@ -126,7 +147,7 @@ class EngineCore:
     def __init__(self, params, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, *, batch_size: Optional[int] = None,
                  eos_id: int = protocol.TOKEN_EOS, seed: int = 0,
-                 device=None, graphs: bool = True):
+                 device=None, graphs: bool = True, mesh=None):
         self.params = params
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
@@ -135,6 +156,27 @@ class EngineCore:
             else params["final_norm"].device
         self.batch = batch_size or engine_cfg.max_batch_size
         self.max_seq = engine_cfg.max_seq_len
+        self.mesh = mesh
+        # this rank's slot rows [row0, row0 + rows) of the slot batch
+        self.rows, self.row0 = self.batch, 0
+        local_cfg = model_cfg
+        if mesh is not None:
+            from tts_inference_tpu_torch.parallel import mesh as M
+
+            M.validate_tp(model_cfg, mesh.tp)
+            if self.batch % mesh.dp:
+                raise ValueError(
+                    f"batch {self.batch} not divisible by dp={mesh.dp}")
+            if engine_cfg.kv_cache_int4:
+                M.validate_kv_int4(model_cfg, mesh.tp)
+            if graphs and self.device.type == "cuda" and mesh.gather_by_sum:
+                raise ValueError(
+                    f"CUDA graphs cannot capture {mesh.backend} collectives: "
+                    "build the core with graphs=False on this group")
+            local_cfg = M.local_model_config(model_cfg, mesh.tp)
+            self.rows = self.batch // mesh.dp
+            self.row0 = mesh.dp_rank * self.rows
+        self._local_cfg = local_cfg
         # sliced LM head: every emittable token has id >= HEAD_SLICE_BASE
         self.logits_base = (
             protocol.HEAD_SLICE_BASE
@@ -152,7 +194,7 @@ class EngineCore:
                 self.max_seq, self.batch * self.max_seq // 2)
             num_blocks = 1 + max(1, pool_tokens // bs_blk)  # +1 trash block
             self.cache = llama.init_paged_kv_cache(
-                model_cfg, self.batch, self.max_seq, num_blocks=num_blocks,
+                local_cfg, self.rows, self.max_seq, num_blocks=num_blocks,
                 block_size=bs_blk, int8=engine_cfg.kv_cache_int8,
                 int4=engine_cfg.kv_cache_int4, device=self.device)
             # host-side block allocator: block 0 is the trash block
@@ -162,10 +204,13 @@ class EngineCore:
                 (self.batch, self.max_seq // bs_blk), np.int32)
         else:
             self.cache = llama.init_kv_cache(
-                model_cfg, self.batch, self.max_seq, device=self.device,
+                local_cfg, self.rows, self.max_seq, device=self.device,
                 int8=engine_cfg.kv_cache_int8)
-        self.sampling_state = S.init_sampling_state(
-            self.batch, model_cfg.vocab_size, seed, device=self.device)
+        # every slot's noise seed is its index's in the whole batch
+        ss = S.init_sampling_state(self.batch, model_cfg.vocab_size, seed,
+                                   device=self.device)
+        self.sampling_state = ss if mesh is None else S.SamplingState(
+            *(t[self.row0:self.row0 + self.rows].clone() for t in ss))
         # host-side upper bounds on per-slot lengths: the KV window bucket
         # is picked without a device sync
         self._len_bounds = np.zeros(self.batch, np.int64)
@@ -245,7 +290,8 @@ class EngineCore:
         seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
         logits, _ = llama.prefill(self.params, self.model_cfg, tokens, seg,
                                   cache, kv_window=tokens.shape[1],
-                                  logits_base=self.logits_base)
+                                  logits_base=self.logits_base,
+                                  mesh=self.mesh)
         marked = S.mark_prompt(ss, tokens, seg)
         tok, new = S.sample(logits, sparams, marked, base=self.logits_base)
         return tok, self._restore_rows(ss, new, slot_mask)
@@ -285,7 +331,7 @@ class EngineCore:
         of PB, block 1; 0 stays the trash block). Layer > 0 K/V depend on
         the quantized reads of the layers below, so only a build in the
         serving precision reproduces a plain prefill's cache bytes."""
-        ecfg, cfg, dev = self.engine_cfg, self.model_cfg, self.device
+        ecfg, cfg, dev = self.engine_cfg, self._local_cfg, self.device
         pb, n = ecfg.prefix_len, ecfg.prefix_entries
         hkv, hd = cfg.num_key_value_heads, cfg.head_dim
         self._prefix_map: collections.OrderedDict = collections.OrderedDict()
@@ -316,7 +362,8 @@ class EngineCore:
         c = self._build_cache
         c.lengths.zero_()
         llama.forward(self.params, self.model_cfg, ptoks, c,
-                      torch.zeros_like(plen), plen, kv_window=ptoks.shape[1])
+                      torch.zeros_like(plen), plen, kv_window=ptoks.shape[1],
+                      mesh=self.mesh)
 
     def _prefix_build_impl(self, ptoks, plen, idx) -> None:
         """The build launch: the prefix's KV into the scratch cache, then
@@ -377,12 +424,13 @@ class EngineCore:
         seg = torch.where(slot_mask, lens, torch.zeros_like(lens))
         window = min(tokens.shape[1] + ptoks.shape[1], self.max_seq)
         hidden, _ = llama.forward(self.params, self.model_cfg, tokens,
-                                  cache, wp, seg, kv_window=window)
+                                  cache, wp, seg, kv_window=window,
+                                  mesh=self.mesh)
         last = (seg - 1).clamp(min=0).long()
         logits = llama.compute_logits(
             self.params, self.model_cfg,
             hidden[torch.arange(tokens.shape[0], device=self.device), last],
-            self.logits_base)
+            self.logits_base, self.mesh)
         marked = S.mark_prompt(S.mark_prompt(ss, ptoks, wp), tokens, seg)
         tok, new = S.sample(logits, sparams, marked, base=self.logits_base)
         return tok, self._restore_rows(ss, new, slot_mask)
@@ -422,7 +470,8 @@ class EngineCore:
         for _ in range(n_steps):
             logits, _ = llama.decode_one(
                 self.params, self.model_cfg, tok, self.cache, act,
-                kv_window=kv_window, logits_base=self.logits_base)
+                kv_window=kv_window, logits_base=self.logits_base,
+                mesh=self.mesh)
             new_tok, ss = S.sample(logits, sparams, ss,
                                    base=self.logits_base)
             new_tok = torch.where(act, new_tok,
@@ -440,7 +489,7 @@ class EngineCore:
         """The launches' input tensors, written before every launch (the
         graphs read them where they were captured)."""
         if self._static is None:
-            b, dev = self.batch, self.device
+            b, dev = self.rows, self.device
 
             def zeros(dtype):
                 return torch.zeros(b, dtype=dtype, device=dev)
@@ -467,12 +516,27 @@ class EngineCore:
                     build_idx=torch.zeros(1, dtype=torch.int64, device=dev))
         return self._static
 
+    def _local(self, x):
+        """This rank's slot rows of a whole-batch host array or tensor."""
+        if self.mesh is None:
+            return x
+        return x[self.row0:self.row0 + self.rows]
+
     def _put(self, **inputs) -> None:
         """Copy a launch's inputs (host arrays or device tensors) into the
-        input tensors, in stream order. A host array is pageable memory,
-        which the CUDA driver stages before the copy call returns."""
+        input tensors, in stream order — under a mesh, this rank's slot rows
+        of them; the resume row as this rank's index of the slot (0 where
+        another dp rank holds it: the sliced mask masks it). A host array is
+        pageable memory, which the CUDA driver stages before the copy call
+        returns."""
         st = self._static_inputs()
         for name, x in inputs.items():
+            if name in _SLOT_INPUTS:
+                x = (type(x)(*map(self._local, x)) if name == "sp"
+                     else self._local(x))
+            elif name == "rows" and self.mesh is not None:
+                x = [r - self.row0 if 0 <= r - self.row0 < self.rows else 0
+                     for r in np.asarray(x).tolist()]
             if name == "sp":
                 for dst, src in zip(st["sp"], x):
                     dst.copy_(src, non_blocking=True)
@@ -488,8 +552,29 @@ class EngineCore:
                 x = torch.from_numpy(np.asarray(x)).to(dst.dtype)
             dst.copy_(x, non_blocking=True)
 
+    def _gather_rows(self, out):
+        """A launch's outputs, each with this rank's slot rows first, gathered
+        over dp into whole-batch tensors: packed into one int32 tensor, one
+        collective (inside the launch, so a graph captures it)."""
+        cols = [t.to(torch.int32).reshape(self.rows, -1) for t in out]
+        whole = collectives.all_gather_dp(torch.cat(cols, dim=1), self.mesh)
+        res, at = [], 0
+        for t, c in zip(out, cols):
+            part = whole[:, at:at + c.shape[1]].reshape(
+                (self.batch,) + tuple(t.shape[1:]))
+            res.append(part != 0 if t.dtype == torch.bool else part)
+            at += c.shape[1]
+        return tuple(res)
+
     def _body(self, key) -> Callable:
-        """The launch of `key` over the input tensors."""
+        """The launch of `key` over the input tensors; under a mesh its
+        outputs gathered over dp."""
+        fn = self._body_local(key)
+        if self.mesh is None or key[0] == "prefix_build":
+            return fn
+        return lambda: self._gather_rows(fn())
+
+    def _body_local(self, key) -> Callable:
         st = self._static_inputs()
         if key[0] == "decode":
             return lambda: self._decode_impl(key[1], key[2], st["sp"],
@@ -569,12 +654,16 @@ class EngineCore:
         and counts no launch. It does what a capture must not: the kernel
         build, this thread's cuBLAS handles, the rope table, the kernels'
         one-time attributes, the K4 / K2 plans, and the growth of the
-        attention / K4 workspace to every shape."""
+        attention / K4 workspace to every shape. Under a mesh the first pass
+        also sets up the groups' communicators (a dp gather included), and a
+        later thread's pass runs its collectives locally
+        (``collectives.local_only``): only this rank takes it, where the
+        other ranks take none."""
         tid = threading.get_ident()
         if tid in self._prepared:
             return
         t0 = time.perf_counter()
-        b, dev = self.batch, self.device
+        b, dev = self.rows, self.device
         none = torch.zeros(b, dtype=torch.bool, device=dev)
         zeros = torch.zeros(b, dtype=torch.int32, device=dev)
         st = self._static_inputs()
@@ -582,7 +671,11 @@ class EngineCore:
         buckets = sorted(set(self.engine_cfg.prefill_buckets)
                          | {self.engine_cfg.max_input_len})
         prefix = None
-        with _build.record_launches():
+        alone = (collectives.local_only() if self.mesh is not None
+                 and self._prepared else contextlib.nullcontext())
+        with _build.record_launches(), alone:
+            if self.mesh is not None:
+                self._gather_rows((zeros, none))
             if self.engine_cfg.prefix_cache:
                 # the build's prefill into its scratch cache (no pool write)
                 self._build_forward(torch.zeros_like(st["build_toks"]),
@@ -592,7 +685,8 @@ class EngineCore:
             for w in self._graph_windows():
                 logits, _ = llama.decode_one(
                     self.params, self.model_cfg, zeros, self.cache, none,
-                    kv_window=w, logits_base=self.logits_base)
+                    kv_window=w, logits_base=self.logits_base,
+                    mesh=self.mesh)
                 S.sample(logits, sp, self.sampling_state,
                          base=self.logits_base)
             for bucket in buckets:
@@ -685,8 +779,9 @@ class EngineCore:
         launches after it the new one. The source is pageable host memory,
         which the CUDA driver stages before the copy call returns, so the
         host table may change again at once."""
-        self.cache.block_table.copy_(torch.from_numpy(self._table_host),
-                                     non_blocking=True)
+        self.cache.block_table.copy_(
+            torch.from_numpy(self._local(self._table_host)),
+            non_blocking=True)
 
     def _reserve_blocks(self, slots: Sequence[int],
                         totals: Sequence[int]) -> None:
@@ -775,18 +870,35 @@ class EngineCore:
         (seed AND step — the noise of step t is a hash of both), repetition
         presence and speech-protocol position. Taken at preemption after
         the scheduler drained its launches; ``restore_slot`` is the
-        inverse, and together they make preempt → resume bit-identical."""
+        inverse, and together they make preempt → resume bit-identical.
+        Under a mesh the row is gathered over dp from the rank that holds
+        it: every rank must make the call."""
         ss = self.sampling_state
+        if self.mesh is not None:
+            li = self._local_row(slot)
+            ss = S.SamplingState(*(collectives.all_gather_dp(
+                t[li:li + 1] if li is not None else t[:1], self.mesh)
+                for t in ss))
+            slot = slot // self.rows
         return {"presence": to_numpy(ss.presence[slot]).copy(),
                 "seed": int(ss.seed[slot]), "step": int(ss.step[slot]),
                 "in_speech": bool(ss.in_speech[slot]),
                 "frame_pos": int(ss.frame_pos[slot])}
 
+    def _local_row(self, slot: int) -> Optional[int]:
+        """This rank's row of `slot`, None where another dp rank holds it."""
+        li = slot - self.row0
+        return li if 0 <= li < self.rows else None
+
     def restore_slot(self, slot: int, snap: dict) -> None:
         """Write a snapshot_slot dict back into the slot's sampling state
         (after the resume re-prefill, whose reset and first sample
-        clobbered it), in place on the stream."""
+        clobbered it), in place on the stream; under a mesh only by the rank
+        that holds the slot."""
         ss = self.sampling_state
+        slot = self._local_row(slot)
+        if slot is None:
+            return
         ss.presence[slot] = torch.from_numpy(snap["presence"]).to(self.device)
         ss.seed[slot] = snap["seed"]
         ss.step[slot] = snap["step"]
@@ -855,8 +967,10 @@ class EngineCore:
         self._reset_host(slots)
         seed_arr, reseed = self._seed_arrays(slots, seeds)
         S.copy_state(self.sampling_state, self._reset_state(
-            self.sampling_state, self._t(self._mask(slots), torch.bool),
-            self._t(seed_arr, torch.int64), self._t(reseed, torch.bool)))
+            self.sampling_state,
+            self._t(self._local(self._mask(slots)), torch.bool),
+            self._t(self._local(seed_arr), torch.int64),
+            self._t(self._local(reseed), torch.bool)))
 
     def _prompt_batch(self, prompts, slots, bucket):
         """Host arrays (tokens (B, bucket), lens (B,), mask (B,))."""
@@ -1202,11 +1316,16 @@ class GenerationEngine:
     def __init__(self, params, model_cfg: ModelConfig,
                  engine_cfg: Optional[EngineConfig] = None, *,
                  eos_id: int = protocol.TOKEN_EOS, seed: int = 0,
-                 device=None, first_bursts: Sequence[int] = ()):
+                 device=None, first_bursts: Sequence[int] = (), mesh=None,
+                 graphs: bool = True):
         self.engine_cfg = engine_cfg or EngineConfig()
+        # slot 0 serves; under a dp > 1 mesh the batch is padded to dp so
+        # that the slot axis shards evenly (the other rows are dummies, as
+        # in the JAX package)
         self.core = EngineCore(params, model_cfg, self.engine_cfg,
-                               batch_size=1, eos_id=eos_id, seed=seed,
-                               device=device)
+                               batch_size=1 if mesh is None else mesh.dp,
+                               eos_id=eos_id, seed=seed, device=device,
+                               mesh=mesh, graphs=graphs)
         self.eos_id = eos_id
         # registered first-dispatch burst sizes (tokens): the first launch
         # covers the whole first audio chunk when the caller's need matches

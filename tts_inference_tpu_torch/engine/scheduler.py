@@ -32,8 +32,16 @@ Port of ``tts_inference_tpu/engine/scheduler.py``:
   ``enable_tick_profile`` / ``tick_profile`` (wall seconds per tick phase,
   the JAX package's six keys) are the surface ``bench.py`` drives.
 
+Under a (dp, tp) mesh the core is this rank's shard (``mesh=``), and
+lockstep serving wraps it (``wrap_core=``, ``parallel/lockstep.py``): every
+call that enters the device is mirrored to the follower processes first.
+A mirror that lost a follower is fatal (``fatal``, ``on_fatal``): every
+stream ends with an error, new requests are refused with "engine down",
+and the run loop returns so that the server can exit nonzero. The vocoder
+stays local to this process, and so does the fused admission vocode: the
+admission launch returns the whole batch's token rows on every rank.
+
 All threads launch on one CUDA stream, so their device work serializes.
-Not ported yet (ROADMAP.md): meshes, lockstep serving.
 """
 
 from __future__ import annotations
@@ -185,7 +193,8 @@ class Scheduler:
     def __init__(self, params, config: Config, vocoder: SnacDecoder,
                  tokenizer: TokenizerProtocol, *,
                  eos_id: int = protocol.TOKEN_EOS, seed: int = 0,
-                 device=None, use_native: bool = False):
+                 device=None, use_native: bool = False, mesh=None,
+                 wrap_core=None, graphs: bool = True):
         ecfg = config.engine
         if use_native:
             native.load()   # raises when the library cannot be built
@@ -195,7 +204,12 @@ class Scheduler:
         self.tokenizer = tokenizer
         self.eos_id = eos_id
         self.core = EngineCore(params, config.model, ecfg, eos_id=eos_id,
-                               seed=seed, device=device)
+                               seed=seed, device=device, mesh=mesh,
+                               graphs=graphs)
+        if wrap_core is not None:
+            # lockstep serving: every device-entering call is mirrored to
+            # the follower processes (parallel/lockstep.py)
+            self.core = wrap_core(self.core)
         b = self.core.batch
         self.slots: List[Optional[_SlotState]] = [None] * b
         self.pending: "queue.Queue[TTSRequest]" = queue.Queue()
@@ -241,6 +255,11 @@ class Scheduler:
         self.preemptions = 0    # kv_on_demand preempt-and-resume events
         self.watchdog_s: float = 120.0
         self._last_progress = time.perf_counter()
+        # a fatal engine loss (a lockstep follower died: the mesh can never
+        # complete another collective): set once, refuses all new work,
+        # reported by /health; on_fatal(msg) lets the server exit nonzero
+        self.fatal: Optional[str] = None
+        self.on_fatal = None
         # tick-phase profile: wall seconds per step() phase, once enabled
         self._prof: Optional[dict] = None
 
@@ -267,6 +286,9 @@ class Scheduler:
     # -- public API -----------------------------------------------------------
 
     def submit(self, req: TTSRequest) -> TTSRequest:
+        if self.fatal is not None:
+            req.events.put(("error", f"engine down: {self.fatal}"))
+            return req
         self.pending.put(req)
         self._wakeup.set()
         return req
@@ -609,7 +631,7 @@ class Scheduler:
     def _release(self, slot: int) -> None:
         self.slots[slot] = None
         self._active[slot] = False
-        if self.config.engine.paged_kv:
+        if self.config.engine.paged_kv and self.fatal is None:
             # release the blocks at once so held requests can admit; a
             # launch still in flight wrote them before anything enqueued
             # later can reuse them (one stream)
@@ -871,6 +893,27 @@ class Scheduler:
                 did_work = self.step()
             except Exception as e:  # noqa: BLE001 — fail requests, keep serving
                 log.exception("scheduler step failed")
+                if not getattr(e, "lockstep_fatal", False):
+                    # a dead follower can first surface as a collective's
+                    # own error: probe the side channel to tell a transient
+                    # error from a mesh missing a member
+                    probe = getattr(self.core, "lockstep_check", None)
+                    if probe is not None:
+                        try:
+                            probe()
+                        except Exception as pe:  # noqa: BLE001
+                            if getattr(pe, "lockstep_fatal", False):
+                                e = pe
+                if getattr(e, "lockstep_fatal", False):
+                    # no later step can succeed: stop serving and tell the
+                    # server to exit nonzero, so a supervisor restarts the
+                    # whole group
+                    self.fatal = str(e)
+                    self.fail_all(f"engine down: {self.fatal}")
+                    self._stop.set()
+                    if self.on_fatal is not None:
+                        self.on_fatal(self.fatal)
+                    return
                 self.fail_all(f"scheduler error: {type(e).__name__}: {e}")
                 did_work = True
             now = time.perf_counter()

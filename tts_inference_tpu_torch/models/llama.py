@@ -18,7 +18,16 @@ Differences from the JAX package, all deliberate:
   (s > 1) run ``_attention`` over the gathered (and, for quantized pools,
   dequantized) window;
 - the linears go through ``models.quant.mm``: plain weights to
-  ``torch.matmul``, int8 and int4 leaves to the kernels K2 and K4.
+  ``torch.matmul``, int8 and int4 leaves to the kernels K2 and K4;
+- under a tensor-parallel mesh (``parallel/mesh.py``) the layer reads its
+  head counts from the shapes of its weight shards, sums the row-parallel
+  products (o, down) over tp in f32 — each rank's partial product rounds
+  to the activation dtype first, as its kernel writes it — and the
+  embedding lookup and the logits work on this rank's block of the
+  vocabulary partition (a masked lookup summed over tp; logits gathered
+  over tp, so sampling sees whole rows on every rank). XLA inserts these
+  collectives for JAX; here they are explicit (``parallel/collectives.py``),
+  and without a mesh none is issued.
 """
 
 from __future__ import annotations
@@ -34,13 +43,16 @@ import torch.nn.functional as F
 
 from tts_inference_tpu_torch.config import ModelConfig
 from tts_inference_tpu_torch.models.quant import (embed_rows, head_logits, mm,
-                                                  tied_logits)
+                                                  out_features, tied_logits)
 from tts_inference_tpu_torch.ops.decode_attention import decode_attention
 from tts_inference_tpu_torch.ops.paged_attention import (
     gather_window, paged_decode_attention, paged_decode_attention_int8)
 from tts_inference_tpu_torch.ops.paged_attention_int4 import (
     gather_window_int4, paged_decode_attention_int4, quantize_kv_int4,
     scales_to_planes)
+from tts_inference_tpu_torch.parallel.collectives import (all_gather_tp,
+                                                          all_reduce_tp)
+from tts_inference_tpu_torch.parallel.mesh import vocab_shards
 
 Params = Dict
 
@@ -342,14 +354,24 @@ def _dequant(c: torch.Tensor, sc: torch.Tensor, dtype) -> torch.Tensor:
     return (c.float() * sc[..., None]).to(dtype)
 
 
+def _row_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product summed over tp, in f32."""
+    if mesh is None:
+        return y
+    return all_reduce_tp(y.float(), mesh).to(y.dtype)
+
+
 def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
-           write_pos, mask, write_mask, kv_window: Optional[int], paged_at):
+           write_pos, mask, write_mask, kv_window: Optional[int], paged_at,
+           mesh=None):
     """One decoder layer; writes this chunk's K/V into layer `li` of the
     cache. paged_at: (rows, offs, memo) of the written positions for a
     paged cache (``_paged_slots`` plus ``pool_scatter``'s index memo), None
-    for a dense one."""
+    for a dense one. The head counts are those of the weights (a tp
+    shard's own)."""
     b, s, _ = x.shape
-    hd, nq, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = cfg.head_dim
+    nq, nkv = out_features(lp["wq"]) // hd, out_features(lp["wk"]) // hd
 
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
     q = mm(h, lp["wq"]).reshape(b, s, nq, hd)
@@ -419,17 +441,31 @@ def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
             attn = decode_attention(qg, kw, vw, write_pos)
         else:
             attn = _attention(q, kw, vw, mask)
-    x = x + mm(attn.reshape(b, s, nq * hd), lp["wo"])
+    x = x + _row_sum(mm(attn.reshape(b, s, nq * hd), lp["wo"]), mesh)
 
     h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
     gate = F.silu(mm(h, lp["w_gate"]).float()).to(h.dtype)
-    return x + mm(gate * mm(h, lp["w_up"]), lp["w_down"])
+    return x + _row_sum(mm(gate * mm(h, lp["w_up"]), lp["w_down"]), mesh)
+
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+          mesh=None) -> torch.Tensor:
+    """Embedding lookup; under tp, of this rank's rows of the vocabulary
+    partition (the others masked to zero), summed over tp."""
+    dtype = param_dtype(cfg)
+    if mesh is None:
+        return embed_rows(params["embed"], tokens, dtype)
+    idx, own = vocab_shards(cfg.vocab_size, mesh.tp).local_index(
+        tokens, mesh.tp_rank)
+    x = embed_rows(params["embed"], idx, dtype)
+    x = torch.where(own[..., None], x, torch.zeros_like(x))
+    return all_reduce_tp(x, mesh)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Cache, write_pos: torch.Tensor,
-            seg_lens: torch.Tensor, kv_window: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Cache]:
+            seg_lens: torch.Tensor, kv_window: Optional[int] = None,
+            mesh=None) -> Tuple[torch.Tensor, Cache]:
     """Process a token chunk against the cache (updated in place); returns
     (final-norm hidden states (B, S, H), cache).
 
@@ -455,10 +491,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     write_mask = seg_lens > 0
     paged_at = ((*_paged_slots(cache.block_table, write_pos, s, write_mask,
                                cache.block_size), {}) if paged else None)
-    x = embed_rows(params["embed"], tokens, param_dtype(cfg))
+    x = embed(params, cfg, tokens, mesh)
     for li, lp in enumerate(params["layers"]):
         x = _layer(lp, cfg, x, cos, sin, cache, li, write_pos, mask,
-                   write_mask, window if window < max_seq else None, paged_at)
+                   write_mask, window if window < max_seq else None, paged_at,
+                   mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     cache.lengths.copy_(torch.maximum(cache.lengths,
                                       write_pos + seg_lens.to(torch.int32)))
@@ -466,35 +503,48 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def compute_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
-                   base: int = 0) -> torch.Tensor:
+                   base: int = 0, mesh=None) -> torch.Tensor:
     """Final-norm hidden (…, H) → f32 logits (…, V - base); logit i is token
-    id base + i (the sliced-head decode path skips rows below base)."""
-    if cfg.tie_word_embeddings or "lm_head" not in params:
-        return tied_logits(hidden, params["embed"], base)
-    return head_logits(hidden, params["lm_head"], base)
+    id base + i (the sliced-head decode path skips rows below base). Under
+    tp each rank computes its rows of the partition (only the audio block
+    at base HEAD_SLICE_BASE) and the gathered rows are put back in order."""
+    tied = cfg.tie_word_embeddings or "lm_head" not in params
+    if mesh is None:
+        if tied:
+            return tied_logits(hidden, params["embed"], base)
+        return head_logits(hidden, params["lm_head"], base)
+    vs = vocab_shards(cfg.vocab_size, mesh.tp)
+    if base not in (0, vs.split):
+        raise ValueError(f"compute_logits under tp: base {base} is neither 0 "
+                         f"nor the partition's split {vs.split}")
+    lo = vs.tc if base else 0
+    local = (tied_logits(hidden, params["embed"], lo) if tied
+             else head_logits(hidden, params["lm_head"], lo))
+    return vs.assemble(all_gather_tp(local, mesh), base)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, cache: Cache,
-            kv_window: Optional[int] = None, logits_base: int = 0
-            ) -> Tuple[torch.Tensor, Cache]:
+            kv_window: Optional[int] = None, logits_base: int = 0,
+            mesh=None) -> Tuple[torch.Tensor, Cache]:
     """Prefill the cache; returns (last-valid-position logits (B, V), cache).
     A prompt only attends to itself, so kv_window defaults to the bucket."""
     zero = torch.zeros_like(prompt_lens)
     if kv_window is None:
         kv_window = tokens.shape[1]
     hidden, cache = forward(params, cfg, tokens, cache, zero, prompt_lens,
-                            kv_window=kv_window)
+                            kv_window=kv_window, mesh=mesh)
     last = (prompt_lens - 1).clamp(min=0).long()
     b = tokens.shape[0]
     last_hidden = hidden[torch.arange(b, device=hidden.device), last]
-    return compute_logits(params, cfg, last_hidden, logits_base), cache
+    return compute_logits(params, cfg, last_hidden, logits_base,
+                          mesh), cache
 
 
 def decode_one(params: Params, cfg: ModelConfig, token: torch.Tensor,
                cache: Cache, active: Optional[torch.Tensor] = None,
-               kv_window: Optional[int] = None, logits_base: int = 0
-               ) -> Tuple[torch.Tensor, Cache]:
+               kv_window: Optional[int] = None, logits_base: int = 0,
+               mesh=None) -> Tuple[torch.Tensor, Cache]:
     """One decode step for every slot; returns (logits (B, V), cache).
 
     ``active`` (B,) bool freezes finished slots: their KV write lands in the
@@ -503,5 +553,7 @@ def decode_one(params: Params, cfg: ModelConfig, token: torch.Tensor,
     seg = (torch.ones_like(cache.lengths) if active is None
            else active.to(torch.int32))
     hidden, cache = forward(params, cfg, token[:, None], cache,
-                            cache.lengths.clone(), seg, kv_window=kv_window)
-    return compute_logits(params, cfg, hidden[:, 0], logits_base), cache
+                            cache.lengths.clone(), seg, kv_window=kv_window,
+                            mesh=mesh)
+    return compute_logits(params, cfg, hidden[:, 0], logits_base,
+                          mesh), cache

@@ -138,6 +138,16 @@ def quantize_llama_params(params: Dict, *, quantize_embed_table: bool = True,
     return out
 
 
+def out_features(w) -> int:
+    """The out width of a plain, QuantLinear or QuantLinearI4 weight (an
+    int4 weight's packed width may be padded)."""
+    if isinstance(w, QuantLinearI4):
+        return w.scale.shape[1]
+    if isinstance(w, QuantLinear):
+        return w.w_i8.shape[1]
+    return w.shape[1]
+
+
 def mm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w for plain, QuantLinear (K2) or QuantLinearI4 (K4) weights, w in
     the JAX package's (in, out) layout."""

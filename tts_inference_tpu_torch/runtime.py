@@ -12,6 +12,14 @@ tokenizer from the tokenizer dir, else the model dir when it holds one, else
 single-stream pipeline's vocoder graphs. The tests can also
 pass the JAX package's parameter pytrees (numpy leaves) as ``llama_tree`` /
 ``snac_tree``.
+
+Under a (dp, tp) mesh (``config.mesh`` of more than one device, or a
+``mesh`` from ``parallel.mesh``) the LM is loaded whole where it is read —
+a checkpoint on the host, seeded random weights on this rank's device, so
+that a seed gives the same weights as on one card — quantized there when
+asked, and cut to this rank's shard (``weights.shard_params``); the
+single-stream engine pads its batch to dp. The process group must be up
+(``parallel.multihost.init_multihost``).
 """
 
 from __future__ import annotations
@@ -137,6 +145,7 @@ class Runtime:
     tokenizer: object
     load_timings: dict
     device: torch.device
+    mesh: object = None   # parallel.mesh.Mesh when serving sharded
 
     @classmethod
     def create(cls, config: Optional[Config] = None, *,
@@ -147,7 +156,7 @@ class Runtime:
                seed: int = 0, device=None, warmup: bool = False,
                llama_tree: Optional[Dict] = None,
                snac_tree: Optional[Dict] = None, quantize: bool = False,
-               weight_bits: int = 8) -> "Runtime":
+               weight_bits: int = 8, mesh=None) -> "Runtime":
         """Checkpoint dirs, or random weights from `seed` (LM: seed,
         vocoder: seed + 1, like the JAX package), or the JAX pytrees
         `llama_tree` / `snac_tree`. With `quantize` the LM weights are
@@ -158,12 +167,22 @@ class Runtime:
         config = config or Config()
         dev = torch.device(device) if device is not None else default_device()
         timings = {}
+        if mesh is None and config.mesh.num_devices > 1:
+            from tts_inference_tpu_torch.parallel import mesh as M
+
+            mesh = M.make_mesh(config.mesh, device=dev)
 
         t0 = time.perf_counter()
+        # sharded: a checkpoint (or a JAX tree) whole on the host, then this
+        # rank's block of each tensor to the device
+        src = dev if mesh is None or not (model_path or llama_tree) \
+            else torch.device("cpu")
         params, config = load_model(
-            config, dev, model_path=model_path, lora_path=lora_path,
+            config, src, model_path=model_path, lora_path=lora_path,
             seed=seed, llama_tree=llama_tree, quantize=quantize,
             weight_bits=weight_bits)
+        if mesh is not None:
+            params = weights.shard_params(params, config.model, mesh)
         timings["load_model_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -205,9 +224,10 @@ class Runtime:
         if s.first_chunk_lookahead is not None:
             bursts.add((s.first_chunk_frames + s.first_chunk_lookahead)
                        * protocol.FRAME_SIZE)
-        engine = GenerationEngine(params, config.model, config.engine,
-                                  eos_id=protocol.TOKEN_EOS, seed=seed,
-                                  device=dev, first_bursts=sorted(bursts))
+        engine = GenerationEngine(
+            params, config.model, config.engine, eos_id=protocol.TOKEN_EOS,
+            seed=seed, device=dev, first_bursts=sorted(bursts), mesh=mesh,
+            graphs=mesh is None or not mesh.gather_by_sum)
         pipeline = TTSPipeline(engine, vocoder, tokenizer, config)
         if warmup:
             t0 = time.perf_counter()
@@ -223,7 +243,7 @@ class Runtime:
             # the engine's graph census and the vocoder's (ms)
             timings.update(info)
         return cls(config, pipeline, engine, vocoder, tokenizer, timings,
-                   dev)
+                   dev, mesh)
 
     def write_build_info(self, path: str) -> None:
         """build_info.json: the configs, the device and the boot timings."""

@@ -116,9 +116,13 @@ def parse_request(data: dict, defaults: SamplingConfig,
 
 
 class Server:
-    def __init__(self, runtime, scheduler=None):
+    def __init__(self, runtime, scheduler=None, lockstep=False):
         self.rt = runtime
         self.scheduler = scheduler            # multi-stream mode when set
+        # lockstep serving (parallel/lockstep.py): the single-stream engine's
+        # launches are not mirrored to the follower processes, so the token
+        # debug endpoints that drive it are refused
+        self.lockstep = lockstep
         self.lock = asyncio.Lock()
         self.started_at = time.time()
         self.requests_served = 0
@@ -265,7 +269,16 @@ class Server:
         })
 
     async def health(self, request: web.Request) -> web.Response:
+        fatal = getattr(self.scheduler, "fatal", None)
+        if fatal:
+            # the engine is unrecoverable (a lockstep follower was lost):
+            # say so to the supervisor instead of pretending to be up
+            return web.json_response({"status": "fatal", "error": fatal},
+                                     status=503)
         return web.json_response({"status": "ok", "busy": self.lock.locked()})
+
+    _LOCKSTEP_TOKENS = ("token debug endpoints are unavailable under "
+                        "lockstep multi-process serving")
 
     async def metrics_endpoint(self, request: web.Request) -> web.Response:
         """Fleet-level observability (SURVEY.md §5.5): server counters,
@@ -434,6 +447,9 @@ class Server:
         )
         if not text:
             return web.json_response({"error": "No text provided"}, status=400)
+        if self.lockstep:
+            return web.json_response({"error": self._LOCKSTEP_TOKENS},
+                                     status=503)
         if self._busy():
             return web.json_response({"error": "Generation in progress"},
                                      status=503)
@@ -560,6 +576,9 @@ class Server:
                 if not text:
                     await ws.send_json({"error": "No text provided"})
                     continue
+                if self.lockstep:
+                    await ws.send_json({"error": self._LOCKSTEP_TOKENS})
+                    continue
                 if self._busy():
                     await ws.send_json(
                         {"error": "Generation in progress, try again later"}
@@ -603,8 +622,8 @@ class Server:
         return ws
 
 
-def create_app(runtime, scheduler=None) -> web.Application:
-    server = Server(runtime, scheduler)
+def create_app(runtime, scheduler=None, lockstep=False) -> web.Application:
+    server = Server(runtime, scheduler, lockstep=lockstep)
     app = web.Application()
     app["server"] = server
     app.add_routes([
@@ -624,17 +643,30 @@ def create_app(runtime, scheduler=None) -> web.Application:
 
 
 def run_app(runtime, host: str = "0.0.0.0", port: int = 8000,
-            scheduler=None) -> int:
-    """Serve until shutdown; stops the scheduler's threads on the way out."""
+            scheduler=None, lockstep=False) -> int:
+    """Serve until shutdown; stops the scheduler's threads on the way out.
+    Returns 0 on a clean stop, 13 when the scheduler declared the engine
+    unrecoverable (a lockstep follower lost), for a supervisor to restart
+    the group."""
     loop = asyncio.new_event_loop()
     if scheduler is not None:
+        # a fatal engine loss takes the server down, rather than leaving an
+        # API up that can only answer with errors
+        scheduler.on_fatal = lambda msg: loop.call_soon_threadsafe(loop.stop)
         scheduler.start()
     try:
-        web.run_app(create_app(runtime, scheduler), host=host, port=port,
-                    loop=loop)
+        web.run_app(create_app(runtime, scheduler, lockstep=lockstep),
+                    host=host, port=port, loop=loop)
+    except RuntimeError:
+        # on_fatal stopped the loop under the running app
+        if scheduler is None or scheduler.fatal is None:
+            raise
     finally:
         if scheduler is not None:
             scheduler.stop()
+    if scheduler is not None and scheduler.fatal is not None:
+        print(f"fatal: {scheduler.fatal}", flush=True)
+        return 13
     return 0
 
 

@@ -9,8 +9,8 @@ differentiates only the adapter leaves, through ``merge_params``; serving
 merges in weight space (``models/loader.merge_lora_state`` for HF
 checkpoints, ``merge_params`` here for in-framework trees).
 
-``lora_pspecs`` (the adapters' sharding specs) belongs to multi-GPU and is
-not ported yet (ROADMAP.md Queue 1 item 4).
+``lora_pspecs`` (the adapters' sharding specs) belongs to sharded
+training and is not ported yet (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -79,6 +79,32 @@ def llama_params_from_jax(tree: Dict, device="cpu") -> Dict:
     return out
 
 
+def shard_params(params: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """This rank's shard of an LM parameter tree (plain or quantized
+    leaves, wherever they lie) on ``mesh.device``: ``shard_tree`` with
+    ``adapt_pspecs(llama_param_pspecs(cfg), params)``, after
+    ``validate_tp``."""
+    from tts_inference_tpu_torch.parallel import mesh as M
+
+    M.validate_tp(cfg, mesh.tp, params)
+    return M.shard_tree(params, M.adapt_pspecs(M.llama_param_pspecs(cfg),
+                                               params), mesh)
+
+
+def shard_cache(cache, cfg: ModelConfig, mesh):
+    """This rank's shard of a whole KV cache (dense or paged, any
+    precision): slots over dp, kv heads (int4: head pairs) over tp."""
+    from tts_inference_tpu_torch.models.llama import PagedKVCache
+    from tts_inference_tpu_torch.parallel import mesh as M
+
+    if isinstance(cache, PagedKVCache):
+        specs = M.paged_kv_cache_pspecs(cfg, int8=cache.quantized
+                                        and not cache.int4, int4=cache.int4)
+    else:
+        specs = M.kv_cache_pspecs(cfg, int8=cache.quantized)
+    return M.shard_tree(cache, specs, mesh)
+
+
 def lora_from_jax(tree: Dict, device="cpu") -> Dict:
     """The JAX package's LoRA adapter tree (``init_lora``'s structure,
     numpy leaves) → the port's, the same (in, r) / (r, out) layout."""
