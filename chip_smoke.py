@@ -85,7 +85,7 @@ no result line is printed:
    and ``_2048``), every resume (one per preemption, at least one) replays
    a graph, and the phase prints the resume gap (the worst gap of the
    preempted streams) and their RTF, and its peak memory; then the soak
-   (``tools/soak.py`` over that phase's scheduler, twice: 30 s of
+   (``tools/soak.py`` over that phase's scheduler, twice: 15 s of
    randomized churn at 8 target streams, cancel rate 0.1; no error, no slot
    or block leak, the vocode queue drained, every submission accounted
    for, no capture; first at 300-900 tokens a request, where the pool must
@@ -150,26 +150,36 @@ no result line is printed:
     rungs need them), and ``sos_ablation`` and ``make_artifacts`` on the
     tiny model on the card, under ``build/tools_phase`` (the artifact gate
     passes); the launches of every kernel over the phase;
-19. multigpu phase: the sharded serving path (``parallel/``) on the one
-    card — the card count stays 1 and no number is a multi-GPU speed. Its
-    kernel cases run in the kernel phase, after all the others: K1 at Hkv 4
-    and 2 (tp 2 and 4), K3b at Hkv 4, K5 at 2 and 1 head pairs, K2 on the
-    tp-2 shards of the seven linears and the 14,470-row head shard, K4 on
-    those linears at group 128, each against its plain version and timed.
-    Then, at full Orpheus-3B width with int8 weights and a small engine (4
-    slots): an NCCL group of one (``Mesh(dp=1, tp=1)`` given explicitly, so
-    every collective is a real NCCL call) whose scheduler captures its
-    graphs at warmup with the collectives inside and serves four greedy
-    requests with every launch a replay and no capture, its tokens equal to
-    the plain core's; two tp ranks sharing the card over gloo (eager: gloo
-    cannot be captured), rank 0's mirrored scheduler serving four greedy
-    requests dense and paged int8 — the shard shapes held, K1 / K3b and K2
+19. multigpu phase: the sharded path (``parallel/``, sharded serving and
+    training) on the one card — the card count stays 1 and no number is a
+    multi-GPU speed. Its kernel cases run in the kernel phase, after all
+    the others: K1 at Hkv 4 and 2 (tp 2 and 4), K3b at Hkv 4, K5 at 2 and
+    1 head pairs, K2 on the tp-2 shards of the seven linears and the
+    14,470-row head shard, K4 on those linears at group 128 and on the two
+    row shards at group 512 (o at the split group 256, down at 512), each
+    against its plain version and timed. Then, at full Orpheus-3B width
+    with int8 weights and a small engine (4 slots): an NCCL group of one
+    (``Mesh(dp=1, tp=1)`` given explicitly, so every collective is a real
+    NCCL call) whose scheduler captures its graphs at warmup with the
+    collectives inside and serves four greedy requests with every launch a
+    replay and no capture, its tokens equal to the plain core's, and which
+    then runs three LoRA steps of the tiny model in f32 through the mesh
+    code path, their losses and adapters within 1e-5 of the one-process
+    step's; two ranks sharing the card over gloo (eager: gloo cannot be
+    captured): three full-width LoRA steps of train_step.CARD_*'s shape at
+    tp 2 and at dp 2, each rank's losses and gradients held to the
+    one-process step within a bf16 bound (``two_rank_phase``), with step
+    ms, all_reduce calls a step and peak memory a rank; then, on the tp-2
+    runtime a sharded ``cli generate`` builds, rank 0's mirrored scheduler
+    serving two greedy requests dense, paged int8 and with int4
+    weights at group 512, and its single-stream engine generating through
+    the mirror — the shard shapes held, K1 / K3b, K2 and K4 (int4)
     launched on both ranks, the tokens equal to the unsharded engine's up
-    to a first flip within twice the model's own noise, the streamed PCM
-    equal to the whole decode of its tokens within PCM16_TOL, per-rank peak
-    memory — and rank 1 killed mid-stream, after which rank 0's stream ends
-    with "engine down"; ``tools/lockstep_overhead.py`` (the µs of mirroring
-    a decode launch);
+    to a first flip within twice the model's own noise, the PCM equal to
+    the whole decode of its tokens within PCM16_TOL, per-rank peak memory —
+    and rank 1 killed mid-stream, after which rank 0's stream ends with
+    "engine down"; ``tools/lockstep_overhead.py`` (the µs of mirroring a
+    decode launch);
 20. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -1262,7 +1272,9 @@ def shard_kernel_cases(gen: torch.Generator) -> dict:
     K1 at Hkv 4 and 2 (tp 2, tp 4; G 3), K3b at Hkv 4, K5 at 2 and 1 head
     pairs, K2 on the tp-2 shards of the seven linears and the tp-2 block of
     the vocabulary (14,470 rows of the sliced head), K4 on those linears at
-    group 128 (K/tp is then whole groups in each packed half)."""
+    group 128 (K/tp is then whole groups in each packed half), and K4 on
+    the two row shards at the default group 512: o 1536→3072 at the split
+    group 256 (``parallel/mesh.shard_group``), down 4096→3072 at 512."""
     res = {}
     for tp in (2, 4):
         res[f"K1 tp{tp}"] = _k1_case(512, gen, hkv=8 // tp)
@@ -1273,6 +1285,11 @@ def shard_kernel_cases(gen: torch.Generator) -> dict:
         res[f"K2 {name} tp2"] = _k2_case(8, k, n, gen)
         res[f"K4 {name} tp2"] = _k4_case(8, k, n, 128, torch.bfloat16, gen)
     res["K2 head tp2"] = _k2_head_case(gen, tp=2)
+    # after the cases above, which so keep drawing the inputs they drew
+    for name, (k, n), g in (("o", TP2_LINEARS["o"], 256),
+                            ("down", TP2_LINEARS["down"], 512)):
+        res[f"K4 {name} tp2 g512"] = _k4_case(8, k, n, g, torch.bfloat16,
+                                              gen)
     print(f"multigpu shard shapes [{card_line()}]:", json.dumps(
         {k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
          for k, v in res.items()}), flush=True)
@@ -2319,8 +2336,9 @@ def native_reference_phase(device="cuda") -> dict:
 # growth and TTFA drift gate too: two runs after the "preempt" one, in one
 # call on the card, read 2.1 / 0.0 MB and -0.035 / -0.035 against the
 # tool's 4096 MB and 0.5 (PERF.md, section 6). No warm-up round: the serve phase warmed the
-# scheduler (every graph captured, no late capture allowed).
-SOAK = {"duration_s": 30.0, "target_streams": 8, "cancel_rate": 0.1,
+# scheduler (every graph captured, no late capture allowed). 15 s each since
+# PR 16 (30 before), to keep the whole run inside its time limit.
+SOAK = {"duration_s": 15.0, "target_streams": 8, "cancel_rate": 0.1,
         "seed": 0, "warm_s": 0.0}
 SOAKS = {"preempt": {**SOAK, "max_tokens_range": (300, 900)},
          "churn": SOAK}
@@ -2329,7 +2347,7 @@ SOAKS = {"preempt": {**SOAK, "max_tokens_range": (300, 900)},
 def soak_phase(name: str, scheduler, kind: str) -> dict:
     """The port's ``tools/soak.py`` over a served phase's warmed scheduler:
     randomized churn (mixed lengths and sampling, mid-stream cancels) for
-    30 s at 8 target streams, at SOAKS[kind]'s lengths. Fails on error
+    SOAK's duration at 8 target streams, at SOAKS[kind]'s lengths. Fails on error
     events, a slot or KV block held at the end, an undrained vocode queue,
     a submission not accounted for, or a capture while it ran; "preempt"
     also unless the pool preempted and every resume replayed a graph (at
@@ -2678,7 +2696,9 @@ def prefix_reference_phase(rt) -> dict:
     int4 layout), eager cores: for each of the five KV layouts a prefix core
     and a plain core run 8 greedy requests sharing a 32-token header — a
     miss wave (the first request builds, the other seven hit in the same
-    admission) and a hit wave of other suffixes — 56 tokens each. After
+    admission) and a hit wave of other suffixes — 35 tokens each (56
+    before PR 16, which cut the decode launches from 6 to 3 to keep the
+    whole run inside its time limit). After
     each admission every slot's rows [0, plen) are its pool entry's bytes,
     and the rows [0, 32) are the plain core's within the bounds above the
     PREFIX_NOISE_MAX line (the model's own noise, measured here); so are the
@@ -2725,7 +2745,7 @@ def prefix_reference_phase(rt) -> dict:
                                           prefix_cache=tag == "prefix")
                 core = EngineCore(params, mcfg, cfg, device=rt.device,
                                   graphs=False)
-                run = {"waves": _prefix_waves(core, waves, 13, 6, sampling,
+                run = {"waves": _prefix_waves(core, waves, 13, 3, sampling,
                                               pb)}
                 if cfg.kv_on_demand:
                     run["boundary"] = _boundary_run(core, neighbour, newcomer,
@@ -3925,6 +3945,7 @@ def nccl_one_phase(rt, cfg) -> dict:
         shard = weights.shard_params(rt.engine.core.params, cfg.model, mesh)
         got = _mg_graph_run(rt, cfg, params=shard, mesh=mesh)
         del shard
+        train = _nccl_train_leg(mesh)
     finally:
         dist.destroy_process_group()
     res = {"graphs_captured": len(got["census"]),
@@ -3932,7 +3953,7 @@ def nccl_one_phase(rt, cfg) -> dict:
            "plain_graphs": len(plain["census"]), "warmup_s": got["warmup_s"],
            "late_captures": got["late_captures"], "launches": got["served"],
            "replays": got["replayed"], "kernels": got["kernels"],
-           "wall_s": time.perf_counter() - t0}
+           "train": train, "wall_s": time.perf_counter() - t0}
     print(f"multigpu[nccl group of one] [{card_line()}]:", json.dumps(res),
           flush=True)
     print("multigpu[nccl] census (ms):", json.dumps(got["census"]),
@@ -3946,6 +3967,58 @@ def nccl_one_phase(rt, cfg) -> dict:
     if got["tokens"] != plain["tokens"]:
         raise AssertionError("multigpu[nccl]: greedy tokens differ from the "
                              "plain core's")
+    return res
+
+
+def _tiny_lora_steps(base, cfg, mesh=None, steps: int = 3):
+    """`steps` LoRA steps (r 4, lr 1e-3) of a model of `cfg` over `base`
+    (cut to `mesh` when given) on one batch of 2 × 64 tokens from seed 0:
+    each step's loss and the final adapters (whole)."""
+    import numpy as np
+
+    from tts_inference_tpu_torch import weights
+    from tts_inference_tpu_torch.training import lora as L
+    from tts_inference_tpu_torch.training import train_step as T
+
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(2, 64)).astype(np.int32)
+    lens = np.array([64, 50], np.int32)
+    dev = T.tree_leaves(base)[0].device
+    if mesh is not None:
+        base = weights.shard_params(base, cfg, mesh)
+    lora = L.init_lora(torch.Generator(device=dev).manual_seed(1), cfg, base,
+                       r=4, mesh=mesh)
+    opt = T.make_optimizer(1e-3, steps)
+    step = T.make_train_step(cfg, opt, base_params=base, mesh=mesh)
+    state = T.init_train_state(lora, opt)
+    losses = [float(step(state, tokens, lens)[1]) for _ in range(steps)]
+    out = state.params
+    if mesh is not None:
+        with torch.no_grad():
+            out = weights.gather_lora(out, cfg, mesh)
+    return losses, [x.detach() for x in T.tree_leaves(out)]
+
+
+def _nccl_train_leg(mesh) -> dict:
+    """Three LoRA steps of the tiny model in f32 through the mesh code path
+    on the NCCL group of one (every dp and tp sum, the vocab-parallel
+    loss's max and sums, a real NCCL call) against the one-process step:
+    each step's loss within 1e-5 relative, the adapters after step 3
+    within 1e-5."""
+    from tts_inference_tpu_torch import weights
+    from tts_inference_tpu_torch.config import tiny_config
+
+    cfg = dataclasses.replace(tiny_config().model, dtype="float32")
+    base = weights.init_llama_params(cfg, 0, mesh.device)
+    plain, plain_ad = _tiny_lora_steps(base, cfg)
+    got, got_ad = _tiny_lora_steps(base, cfg, mesh)
+    res = {"losses": got, "plain_losses": plain,
+           "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got, plain)),
+           "adapter_max_diff": max(float((a - b).abs().max())
+                                   for a, b in zip(got_ad, plain_ad))}
+    if not (res["loss_rel"] <= 1e-5 and res["adapter_max_diff"] <= 1e-5
+            and len(got_ad) == len(plain_ad) and got[-1] < got[0]):
+        raise AssertionError(f"multigpu[nccl train]: {res}")
     return res
 
 
@@ -3963,14 +4036,180 @@ def _stop_follower(socks) -> None:
 MG_RUNS = (("dense", {}),
            ("paged_int8", {"paged_kv": True, "kv_cache_int8": True,
                            "kv_block_size": 128}))
+# the two-rank serve runs' streams (4 before PR 16, which added legs to the
+# phase; cut to keep the whole run inside its time limit)
+MG_REQUESTS = 2
+MG_GEN_TEXT = "Mirror probe: the quick brown fox jumps over the lazy dog."
+# the training legs: train_step.CARD_*'s step, MG_TRAIN_STEPS times on one
+# batch, tp 2 and dp 2 over the two ranks
+MG_TRAIN_LR, MG_TRAIN_STEPS = 1e-3, 3
+MG_TRAIN_MESHES = (("tp2", 1, 2), ("dp2", 2, 1))
+# a loss known to one rounding step of bf16 (2^-8 relative) passes
+BF16_STEP = 2.0 ** -8
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _rel(got, want) -> float:
+    """||got − want|| / ||want|| over the leaves of two trees, in f32."""
+    from tts_inference_tpu_torch.training.train_step import tree_leaves
+
+    num = den = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        num += float((a.float() - b.float()).pow(2).sum())
+        den += float(b.float().pow(2).sum())
+    return (num / den) ** 0.5 if den else float(num > 0)
+
+
+def _mg_train_batch(cfg):
+    """The training batch of train_step.CARD_*'s shape: CARD_BATCH rows of
+    CARD_LEN tokens from seed 7, the second row 3/4 long."""
+    import numpy as np
+
+    from tts_inference_tpu_torch.training import train_step as T
+
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, cfg.model.vocab_size,
+                          size=(T.CARD_BATCH, T.CARD_LEN)).astype(np.int32)
+    lens = np.full((T.CARD_BATCH,), T.CARD_LEN, np.int32)
+    lens[1] = T.CARD_LEN * 3 // 4
+    return tokens, lens
+
+
+def _mg_lora(base, cfg, mesh=None):
+    """(adapters, train step) of train_step.CARD_*'s LoRA (bf16, r 16,
+    α 32 on the 7 targets, adapters from seed 1) over `base` (this rank's
+    shard under `mesh`)."""
+    from tts_inference_tpu_torch.training import lora as L
+    from tts_inference_tpu_torch.training import train_step as T
+
+    dev = T.tree_leaves(base)[0].device
+    r, alpha = T.CARD_LORA_R, T.CARD_LORA_ALPHA
+    lora = L.init_lora(torch.Generator(device=dev).manual_seed(1), cfg.model,
+                       base, r=r, alpha=alpha, mesh=mesh)
+    opt = T.make_optimizer(MG_TRAIN_LR, MG_TRAIN_STEPS)
+    step = T.make_train_step(cfg.model, opt, base_params=base,
+                             lora_scale=L.lora_scale(r, alpha), mesh=mesh)
+    return T.init_train_state(lora, opt), step
+
+
+def _mg_train(base, cfg, mesh=None) -> dict:
+    """MG_TRAIN_STEPS steps of ``_mg_lora`` on the one batch: each step's
+    loss, ms, gradients (this rank's, after the step's sums; on the host)
+    and collective calls (every torch.distributed.all_reduce, counted where
+    it is called), and the peak memory."""
+    import torch.distributed as dist
+
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    tokens, lens = _mg_train_batch(cfg)
+    state, step = _mg_lora(base, cfg, mesh)
+    calls = [0]
+    real = dist.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    out = {"losses": [], "ms": [], "grads": [], "sums": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.all_reduce = counted
+    try:
+        for _ in range(MG_TRAIN_STEPS):
+            calls[0] = 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state, tokens, lens)
+            out["losses"].append(float(loss))
+            torch.cuda.synchronize(dev)
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["sums"].append(calls[0])
+            out["grads"].append(_map_tree(
+                lambda x: x.grad.detach().to("cpu", copy=True),
+                state.params))
+    finally:
+        dist.all_reduce = real
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _mg_train_rank(out: dict, cfg, dev) -> None:
+    """The training legs on a rank: the bf16 Orpheus-3B weights made from
+    seed 0 on the card, then MG_TRAIN_MESHES (tp 2: this rank's shard; dp
+    2: the whole model and one row of the batch), each step's loss and
+    gradients held to the one-process step's (MG_DIR / "train_ref.pt",
+    cut to this rank's shard)."""
+    from tts_inference_tpu_torch import weights
+    from tts_inference_tpu_torch.config import MeshConfig
+    from tts_inference_tpu_torch.parallel import mesh as M
+
+    ref = torch.load(MG_DIR / "train_ref.pt")
+    for name, dp, tp in MG_TRAIN_MESHES:
+        mesh = M.make_mesh(MeshConfig(dp=dp, tp=tp), device=dev)
+        base = weights.shard_params(weights.init_llama_params(
+            cfg.model, 0, dev), cfg.model, mesh)
+        got = _mg_train(base, cfg, mesh)
+        del base
+        want = [weights.shard_lora(_map_tree(lambda x: x.to(dev), g),
+                                   cfg.model, mesh) for g in ref["grads"]]
+        out["train_" + name] = {
+            "losses": got["losses"], "ms": got["ms"], "sums": got["sums"],
+            "peak_memory_bytes": got["peak_memory_bytes"],
+            "loss_rel": [abs(a - b) / b for a, b in zip(got["losses"],
+                                                          ref["losses"])],
+            "grad_rel": [_rel(_map_tree(lambda x: x.to(dev), g), w)
+                         for g, w in zip(got["grads"], want)]}
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def _mg_generate(rt, socks=None) -> dict:
+    """The single-stream engine of `rt` (a mesh rank's runtime: its core
+    mirrored over `socks`) generating MG_GEN_TEXT greedily, as ``cli
+    generate`` does: the stream's tokens and PCM."""
+    from tts_inference_tpu_torch.parallel import lockstep as LS
+
+    req = _mg_requests(1, tag="gen")[0]
+    eng = rt.engine
+    toks = []
+    stream = eng.stream
+
+    def recording(*a, **k):
+        for chunk in stream(*a, **k):
+            toks.extend(chunk)
+            yield chunk
+
+    eng.stream = recording
+    core = eng.core
+    if socks is not None:
+        eng.core = LS.MirroredCore(core, socks)
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pcm, metrics = rt.pipeline.synthesize(
+                MG_GEN_TEXT, sampling=req.sampling, force_speech=True)
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stream, eng.core = stream, core
+    return {"tokens": toks, "pcm": pcm, "wall_s": wall,
+            "ttfa_ms": metrics.ttfa_ms}
 
 
 def _tp_rank(rank: int, port: int, lport: int) -> None:
-    """One of two tp ranks sharing cuda:0 over gloo: full-width int8
-    weights, made from the seed on the card and cut to this rank's shard;
-    rank 0 serves four greedy requests per MG_RUNS configuration through a
-    mirrored, eager scheduler, rank 1 replays; then rank 0 kills rank 1 in
-    the middle of a stream. Each rank writes its results under MG_DIR."""
+    """One of two ranks sharing cuda:0 over gloo, at full width: the
+    training legs (``_mg_train_rank``); then, on a tp-2 mesh, the runtime
+    a sharded ``cli generate`` builds (int8 weights made from the seed on
+    the card, cut to this rank's shard): rank 0 serves MG_REQUESTS greedy
+    requests per MG_RUNS configuration through a mirrored, eager scheduler
+    and runs the single-stream engine through the mirror, rank 1 replays;
+    int4 weights at group 512 (o cut at the split group 256) serve as many
+    the same way; then rank 0 kills rank 1 in the
+    middle of a stream. Each rank writes its results under MG_DIR."""
     import os
     import signal
 
@@ -3989,47 +4228,72 @@ def _tp_rank(rank: int, port: int, lport: int) -> None:
     (MG_DIR / f"rank{rank}.pid").write_text(str(os.getpid()))
     dev = init_multihost(f"127.0.0.1:{port}", 2, rank, device="cuda:0",
                          backend="gloo", timeout_s=120)
-    mesh = M.make_mesh(MeshConfig(dp=1, tp=2), device=dev)
     cfg = _mg_config()
-    rt = None
-    if rank == 0:
-        rt = Runtime.create(cfg, seed=0, device=dev, quantize=True)
-        full = rt.engine.core.params
-    else:
-        full = quantize_llama_params(weights.init_llama_params(
-            cfg.model, 0, dev), bits=8, free_source=True)
-    shard = weights.shard_params(full, cfg.model, mesh)
-    del full
+    t1 = time.perf_counter()
+    _mg_train_rank(out, cfg, dev)
+    out["train_s"] = time.perf_counter() - t1
+    mesh = M.make_mesh(MeshConfig(dp=1, tp=2), device=dev)
+    t1 = time.perf_counter()
+    rt = Runtime.create(cfg, seed=0, device=dev, quantize=True, mesh=mesh)
+    shard = rt.engine.core.params
     lp = shard["layers"][0]
     out["shapes"] = {k: list(lp[k].w_i8.shape) for k in
                      ("wq", "wk", "wo", "w_gate", "w_down")}
     out["shapes"]["embed"] = list(shard["embed"].w_i8.shape)
-    out["boot_s"] = time.perf_counter() - t0
+    out["boot_s"] = time.perf_counter() - t1
+
+    def int4_shard():
+        full = quantize_llama_params(weights.init_llama_params(
+            cfg.model, 0, dev), bits=4, free_source=True)
+        sh = weights.shard_params(full, cfg.model, mesh)
+        out["i4_groups"] = {k: sh["layers"][0][k].w_p.shape[0] * 2
+                            // sh["layers"][0][k].scale.shape[0]
+                            for k in ("wq", "wo", "w_down")}
+        return sh
+
+    runs = MG_RUNS + (("int4", {}),)
     if rank == 1:
         sock = LS.follower_channel("127.0.0.1", lport, process_id=1)
-        for name, over in MG_RUNS + (("kill", {}),):
-            c = dataclasses.replace(cfg, engine=dataclasses.replace(
-                cfg.engine, **over))
-            core = EngineCore(shard, c.model, c.engine, device=dev,
-                              mesh=mesh, graphs=False)
+        for name, over in runs[:1] + (("generate", {}),) + runs[1:] \
+                + (("kill", {}),):
+            params = shard
+            if name == "int4":
+                params = int4_shard()
             before = _build.launch_counts()
-            out[name] = {"replayed": LS.follower_loop(core, sock),
+            if name == "generate":
+                n = LS.follower_loop(rt.engine.core, sock)
+            else:
+                c = dataclasses.replace(cfg, engine=dataclasses.replace(
+                    cfg.engine, **over))
+                core = EngineCore(params, c.model, c.engine, device=dev,
+                                  mesh=mesh, graphs=False)
+                n = LS.follower_loop(core, sock)
+                del core
+            out[name] = {"replayed": n,
                          "kernels": _build.launches_since(before)}
             out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
             (MG_DIR / "rank1.json").write_text(json.dumps(out))
-            del core
         return
     socks = LS.coordinator_channel(lport, 1)
-    for name, over in MG_RUNS:
-        c = dataclasses.replace(cfg, engine=dataclasses.replace(
-            cfg.engine, **over))
-        finished = {}
-        sched = _recording_scheduler(
-            rt, c, finished, params=shard, mesh=mesh, graphs=False,
-            wrap_core=lambda core: LS.MirroredCore(core, socks))
+    for name, over in runs[:1] + (("generate", {}),) + runs[1:]:
         before = _build.launch_counts()
         t1 = time.perf_counter()
-        pcm = _mg_serve(sched, _mg_requests(tag=name))
+        if name == "generate":
+            gen = _mg_generate(rt, socks)
+            out[name] = {"tokens": gen["tokens"], "wall_s": gen["wall_s"],
+                         "ttfa_ms": gen["ttfa_ms"],
+                         "kernels": _build.launches_since(before),
+                         "pcm": _pcm_vs_whole(rt, gen["pcm"], gen["tokens"])}
+            _stop_follower(socks)
+            continue
+        c = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, **over))
+        params = int4_shard() if name == "int4" else shard
+        finished = {}
+        sched = _recording_scheduler(
+            rt, c, finished, params=params, mesh=mesh, graphs=False,
+            wrap_core=lambda core: LS.MirroredCore(core, socks))
+        pcm = _mg_serve(sched, _mg_requests(MG_REQUESTS, tag=name))
         sched.stop()
         out[name] = {"tokens": finished, "serve_s": time.perf_counter() - t1,
                      "kernels": _build.launches_since(before),
@@ -4083,44 +4347,166 @@ def _pcm_vs_whole(rt, pcm: bytes, tokens) -> dict:
             "max_pcm16_diff": int(np.abs(got - whole).max())}
 
 
+def _mg_train_ref(cfg) -> dict:
+    """The one-process training steps the ranks are held to, on this
+    process: ``_mg_train`` over the whole bf16 model from seed 0, its
+    losses and gradients saved to MG_DIR / "train_ref.pt" for the ranks;
+    and the same steps in f32 over the same weights (the bf16 values): the
+    bf16 step's own error at each step, |Δloss| / loss and ``_rel`` of the
+    gradients against f32."""
+    from tts_inference_tpu_torch import weights
+
+    base = weights.init_llama_params(cfg.model, 0, "cuda")
+    ref = _mg_train(base, cfg)
+    torch.save({"losses": ref["losses"], "grads": ref["grads"]},
+               MG_DIR / "train_ref.pt")
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    base = _map_tree(lambda x: x.float(), base)
+    exact = _mg_train(base, f32)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": ref["losses"], "ms": ref["ms"],
+            "peak_memory_gb": round(ref["peak_memory_bytes"] / 1e9, 3),
+            "f32_losses": exact["losses"],
+            "f32_peak_memory_gb": round(exact["peak_memory_bytes"] / 1e9, 3),
+            "own_error": {
+                "loss": [abs(a - b) / b for a, b in zip(ref["losses"],
+                                                        exact["losses"])],
+                "grads": [_rel(a, b) for a, b in zip(ref["grads"],
+                                                     exact["grads"])]}}
+
+
+def _f32_twin(rt):
+    """`rt`'s model with f32 activations over the same weights (quantized
+    leaves as they are, the rest upcast), as ``_allowed_logits`` reads a
+    runtime: what a bf16 model's own rounding error is measured against."""
+    from types import SimpleNamespace
+
+    from tts_inference_tpu_torch.models.quant import (QuantEmbed,
+                                                      QuantLinear,
+                                                      QuantLinearI4)
+
+    def up(x):
+        return x if isinstance(x, (QuantEmbed, QuantLinear,
+                                   QuantLinearI4)) else x.float()
+
+    core = rt.engine.core
+    params = {k: [{n: up(w) for n, w in lp.items()} for lp in v]
+              if k == "layers" else up(v) for k, v in core.params.items()}
+    cfg = dataclasses.replace(rt.config, model=dataclasses.replace(
+        rt.config.model, dtype="float32"))
+    return dataclasses.replace(rt, config=cfg, engine=SimpleNamespace(
+        core=SimpleNamespace(params=params, device=core.device,
+                             max_seq=core.max_seq,
+                             logits_base=core.logits_base)))
+
+
+def _mg_flips(rt, c, got: dict, plain: dict, what: str) -> list:
+    """Each stream of `got` whose tokens leave `plain`'s: its first flip
+    step, the top-2 gap there and the model's own noise (on `rt`'s weights,
+    configuration `c`): the larger of ``_own_noise``'s two no-ops and the
+    bf16 model's error against its f32 twin at that step (``_f32_twin``:
+    the sharded and the one-process logits are two bf16 roundings of the
+    f32 ones). Raises unless the gap is within twice the noise."""
+    from tts_inference_tpu_torch.config import SamplingConfig
+
+    sampling = SamplingConfig(greedy=True, max_tokens=MG_TOKENS,
+                              token_range=_mg_requests(1)[0]
+                              .sampling.token_range)
+    shim = dataclasses.replace(rt, config=c)
+    twin = _f32_twin(shim)
+    flips = []
+    for text, toks in got.items():
+        w = plain[text]
+        if toks == w:
+            continue
+        i = next((k for k, (a, b) in enumerate(zip(toks, w)) if a != b),
+                 min(len(toks), len(w)))
+        prompt = rt.pipeline.build_prompt(text, force_speech=True)
+        noise, _ = _own_noise(shim, [list(prompt) + w[:i]], sampling,
+                              len(prompt) // 2, False)
+        a = _allowed_logits(shim, prompt, w, i, sampling)
+        ok = torch.isfinite(a)
+        err = float((a - _allowed_logits(twin, prompt, w, i, sampling))[ok]
+                    .abs().max())
+        gap = _top2_gap(shim, prompt, w, i, sampling)
+        flips.append({"step": i, "gap": gap, "noise": noise,
+                      "f32_error": err})
+        if not noise <= PREFIX_NOISE_MAX or not gap <= 2 * max(noise, err):
+            raise AssertionError(f"multigpu[{what}]: {text}: tokens differ "
+                                 f"at step {i}, top-2 gap {gap}, own noise "
+                                 f"{noise}, bf16 error against f32 {err}")
+    return flips
+
+
 def two_rank_phase(rt, cfg) -> dict:
-    """Two tp ranks on the one card over gloo (NCCL refuses two ranks on one
-    device), eager (gloo cannot be captured): the kernels run at the shard
-    shapes no other phase launches (12 query / 4 kv heads a rank; q
-    3072→1536, kv 3072→512, o 1536→3072, gate/up 3072→4096, down 4096→3072;
-    the 14,470-row head shard), dense and paged int8. Rank 0's greedy
-    tokens equal the unsharded engine's (eager, this process, same weights)
-    up to a first flip whose top-2 logit gap is within twice the model's own
-    noise (the bf16 row-parallel sums add in another order); its streamed
-    PCM equals the whole decode of its tokens within PCM16_TOL; K1 (dense)
-    or K3b (paged) and K2 launch on both ranks; killing rank 1 mid-stream
-    ends rank 0's stream with "engine down"."""
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), eager (gloo cannot be captured), at full width.
+
+    Training: the step of train_step.CARD_* (bf16, B 2 × 512, LoRA r 16
+    α 32 on the 7 targets, lr MG_TRAIN_LR) MG_TRAIN_STEPS times on one
+    batch at tp 2 and at dp 2, held to the one-process bf16 steps (this
+    process, same weights, adapters and batch) within twice the bf16
+    step's own error — its distance from the same steps in f32 — at each
+    step: the sharded and the one-process step are two bf16 roundings of
+    the same f32 step, so each is that far from it and they are at most
+    twice that apart. Each rank's loss (or within one bf16 step, 2^-8) and
+    its gradients (this rank's block, after the step's sums); the later
+    steps' errors include Adam's, which steps a gradient at rounding level
+    by its noise's sign, on both sides. The loss falls. Step ms,
+    all_reduce calls a step and peak memory a rank.
+
+    Serving, on the tp-2 runtime a sharded ``cli generate`` builds: the
+    kernels at the shard shapes no other phase launches (12 query / 4 kv
+    heads a rank; q 3072→1536, kv 3072→512, o 1536→3072, gate/up
+    3072→4096, down 4096→3072; the 14,470-row head shard), dense and paged
+    int8 through the mirrored scheduler, int4 weights at group 512 (o's
+    rows at the split group 256), and the single-stream engine through the
+    mirror. Rank 0's greedy tokens equal the unsharded engine's (this
+    process, same weights) up to a first flip whose top-2 logit gap is
+    within twice the model's own noise (``_mg_flips``: the bf16
+    row-parallel sums add in another order); its PCM equals the whole decode of its tokens within
+    PCM16_TOL; K1 (dense, generate, int4) or K3b (paged), K2, and K4 (int4)
+    launch on both ranks; killing rank 1 mid-stream ends rank 0's stream
+    with "engine down"."""
     import multiprocessing as mp
 
-    from tts_inference_tpu_torch.config import SamplingConfig
+    from tts_inference_tpu_torch.runtime import Runtime
 
     t0 = time.perf_counter()
     MG_DIR.mkdir(parents=True, exist_ok=True)
     for f in MG_DIR.glob("rank*"):
         f.unlink()
+    train_ref = _mg_train_ref(cfg)
+    print("multigpu[train, one process]:", json.dumps(train_ref), flush=True)
     ctx = mp.get_context("spawn")
     port, lport = _free_port(), _free_port()
     procs = [ctx.Process(target=_tp_rank, args=(r, port, lport))
              for r in range(2)]
     for p in procs:
         p.start()
-    # the unsharded references, on this process, while the ranks boot
+    # the unsharded references, on this process, while the ranks run
     refs = {}
     for name, over in MG_RUNS:
         c = dataclasses.replace(cfg, engine=dataclasses.replace(
             cfg.engine, **over))
         finished = {}
         sched = _recording_scheduler(rt, c, finished, graphs=False)
-        _mg_serve(sched, _mg_requests(tag=name))
+        _mg_serve(sched, _mg_requests(MG_REQUESTS, tag=name))
         sched.stop()
         refs[name] = (c, finished)
+    gen_ref = _mg_generate(rt)
+    rt4 = {"rt": Runtime.create(cfg, seed=0, device="cuda", quantize=True,
+                                weight_bits=4)}
+    finished = {}
+    sched = _recording_scheduler(rt4["rt"], cfg, finished, graphs=False)
+    _mg_serve(sched, _mg_requests(MG_REQUESTS, tag="int4"))
+    sched.stop()
+    refs["int4"] = (cfg, finished)
     for p in procs:
-        p.join(timeout=600)
+        p.join(timeout=900)
     for p in procs:
         if p.is_alive():
             p.kill()
@@ -4135,36 +4521,47 @@ def two_rank_phase(rt, cfg) -> dict:
             "embed": [78470, 3072]}
     if r0["shapes"] != want or r1["shapes"] != want:
         raise AssertionError(f"multigpu: shard shapes {r0['shapes']}")
-    sampling = SamplingConfig(greedy=True, max_tokens=MG_TOKENS,
-                              token_range=_mg_requests(1)[0]
-                              .sampling.token_range)
+    if r0["i4_groups"] != {"wq": 512, "wo": 256, "w_down": 512}:
+        raise AssertionError(f"multigpu[int4]: groups {r0['i4_groups']}")
     res = {"peak_memory_gb": [round(r["peak_memory_bytes"] / 1e9, 3)
                               for r in (r0, r1)],
-           "boot_s": [round(r["boot_s"], 1) for r in (r0, r1)]}
-    for name, _ in MG_RUNS:
+           "boot_s": [round(r["boot_s"], 1) for r in (r0, r1)],
+           "train_s": [round(r["train_s"], 1) for r in (r0, r1)],
+           "train_reference": train_ref}
+    own = train_ref["own_error"]
+    bad = []
+    for leg, _, _ in MG_TRAIN_MESHES:
+        rows = [r["train_" + leg] for r in (r0, r1)]
+        res["train_" + leg] = {
+            "losses": rows[0]["losses"], "ms": [r["ms"] for r in rows],
+            "all_reduce_calls": [r["sums"] for r in rows],
+            "peak_memory_gb": [round(r["peak_memory_bytes"] / 1e9, 3)
+                               for r in rows],
+            "loss_rel": [r["loss_rel"] for r in rows],
+            "grad_rel": [r["grad_rel"] for r in rows]}
+        for who, row in zip(("rank0", "rank1"), rows):
+            ok = row["losses"][-1] < row["losses"][0] and all(
+                lr <= max(2 * le, BF16_STEP) and gr <= 2 * ge
+                for lr, gr, le, ge in zip(row["loss_rel"], row["grad_rel"],
+                                          own["loss"], own["grads"]))
+            if not ok:
+                bad.append(f"train {leg} {who}")
+    print(f"multigpu[train, two ranks on one card, gloo] [{card_line()}]:",
+          json.dumps({k: res[k] for k in res if k.startswith("train")}),
+          flush=True)
+    if bad:
+        raise AssertionError(f"multigpu: {bad} beyond twice the bf16 "
+                             f"step's own error {own}")
+    for name in [n for n, _ in MG_RUNS] + ["int4"]:
         c, plain = refs[name]
         attn = "K3b" if name == "paged_int8" else "K1"
+        mm = {"K2", "K4"} if name == "int4" else {"K2"}
         for who, r in (("rank0", r0), ("rank1", r1)):
-            if not (r[name]["kernels"].get(attn) and
-                    r[name]["kernels"].get("K2")):
+            if not all(r[name]["kernels"].get(k) for k in {attn, *mm}):
                 raise AssertionError(f"multigpu[{name}]: {who} launched "
                                      f"{r[name]['kernels']}")
-        shim = dataclasses.replace(rt, config=c)
-        flips = []
-        for text, got in r0[name]["tokens"].items():
-            w = plain[text]
-            if got == w:
-                continue
-            i = next(k for k, (a, b) in enumerate(zip(got, w)) if a != b)
-            prompt = rt.pipeline.build_prompt(text, force_speech=True)
-            noise, _ = _own_noise(shim, [list(prompt) + w[:i]], sampling,
-                                  len(prompt) // 2, False)
-            gap = _top2_gap(shim, prompt, w, i, sampling)
-            flips.append({"step": i, "gap": gap, "noise": noise})
-            if not noise <= PREFIX_NOISE_MAX or not gap <= 2 * noise:
-                raise AssertionError(f"multigpu[{name}]: {text}: tokens "
-                                     f"differ at step {i}, top-2 gap {gap}"
-                                     f", own noise {noise}")
+        flips = _mg_flips(rt4["rt"] if name == "int4" else rt, c,
+                          r0[name]["tokens"], plain, name)
         pcm = r0[name]["pcm"]
         worst = [v["max_pcm16_diff"] for v in pcm.values()]
         if None in worst or max(worst) > PCM16_TOL:
@@ -4175,13 +4572,32 @@ def two_rank_phase(rt, cfg) -> dict:
                      "max_pcm16_diff": max(worst),
                      "kernels_rank0": r0[name]["kernels"],
                      "kernels_rank1": r1[name]["kernels"]}
+    _free(rt4)
+    gen = r0["generate"]
+    for who, r in (("rank0", r0), ("rank1", r1)):
+        if not (r["generate"]["kernels"].get("K1")
+                and r["generate"]["kernels"].get("K2")):
+            raise AssertionError(f"multigpu[generate]: {who} launched "
+                                 f"{r['generate']['kernels']}")
+    flips = _mg_flips(rt, cfg, {MG_GEN_TEXT: gen["tokens"]},
+                      {MG_GEN_TEXT: gen_ref["tokens"]}, "generate")
+    if gen["pcm"]["max_pcm16_diff"] is None \
+            or gen["pcm"]["max_pcm16_diff"] > PCM16_TOL \
+            or len(gen["tokens"]) != MG_TOKENS:
+        raise AssertionError(f"multigpu[generate]: {len(gen['tokens'])} "
+                             f"tokens, PCM vs whole decode {gen['pcm']}")
+    res["generate"] = {"equal": not flips, "flips": flips,
+                       "wall_s": gen["wall_s"], "ttfa_ms": gen["ttfa_ms"],
+                       "max_pcm16_diff": gen["pcm"]["max_pcm16_diff"],
+                       "kernels_rank0": gen["kernels"],
+                       "kernels_rank1": r1["generate"]["kernels"]}
     kill = r0["kill"]
     res["kill"] = kill
     if kill["last"][0] != "error" or "engine down" not in kill["last"][1] \
             or not kill["fatal"]:
         raise AssertionError(f"multigpu[kill]: {kill}")
     res["wall_s"] = time.perf_counter() - t0
-    print(f"multigpu[two tp ranks on one card, gloo] [{card_line()}]:",
+    print(f"multigpu[two ranks on one card, gloo] [{card_line()}]:",
           json.dumps(res), flush=True)
     return res
 
@@ -4208,9 +4624,11 @@ def lockstep_overhead_phase() -> dict:
 
 
 def multigpu_phase() -> dict:
-    """The sharded serving path on the one card: an NCCL group of one, two
-    tp ranks over gloo, the cost of the lockstep mirror. The card count
-    stays 1; no number here is a multi-GPU speed."""
+    """The sharded path on the one card: an NCCL group of one (serving and
+    training), two ranks over gloo (training at tp 2 and dp 2; serving
+    int8 and int4, and generating, at tp 2), the cost of the lockstep
+    mirror. The card count stays 1; no number here is a multi-GPU
+    speed."""
     from tts_inference_tpu_torch.runtime import Runtime
 
     t0 = time.perf_counter()
@@ -4280,6 +4698,17 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    t_run = time.perf_counter()
+    times: dict = {}
+
+    def stamp(label):
+        """The seconds since the last stamp, under the blocks then ending
+        (0 for a block that did not run)."""
+        now = time.perf_counter()
+        times[label] = round(now - stamp.t, 1)
+        stamp.t = now
+
+    stamp.t = t_run
     build_phase()
 
     def on(phase: str) -> bool:
@@ -4293,6 +4722,7 @@ def main(argv=None) -> int:
     if only is not None and "compare" in only:
         compare_phase()
     phases, graphs = {}, {}
+    stamp("build, kernels")
     if on("dense"):
         dense = phases["dense"] = run_serve_phase("dense")
         graphs["dense"] = graph_phase("dense", dense["rt"])
@@ -4301,11 +4731,14 @@ def main(argv=None) -> int:
         if on("tools"):
             phases["tools_runtime"] = tools_runtime_phase(dense["rt"])
         _free(dense)
+    stamp("dense")
     if on("checkpoint"):
         # the train phase fine-tunes the checkpoint phase's HF dir
         phases["checkpoint"] = checkpoint_phase(keep=on("train"))
+    stamp("checkpoint")
     if on("train"):
         phases["train"] = train_phase(phases.get("checkpoint", {}).get("dirs"))
+    stamp("train")
     if on("paged"):
         phases["paged_int8"] = run_serve_phase("paged_int8")
         phases["soak_preempt"] = soak_phase(
@@ -4325,6 +4758,7 @@ def main(argv=None) -> int:
                                            phases["paged_bf16"]["rt"])
         _free(phases["paged_bf16"])
         paged_reference_phase()
+    stamp("paged")
     if on("quant"):
         phases["int4"] = run_serve_phase("int4")
         graphs["int4"] = graph_phase("int4", phases["int4"]["rt"])
@@ -4333,6 +4767,7 @@ def main(argv=None) -> int:
         graphs["int8w"] = graph_phase("int8w", phases["int8w"]["rt"])
         _free(phases["int8w"])
         quant_reference_phase()
+    stamp("quant")
     if on("native"):
         t0 = time.perf_counter()
         phases["native"] = run_serve_phase("native")
@@ -4350,6 +4785,7 @@ def main(argv=None) -> int:
                       flush=True)
         native_reference_phase()
         print(f"native: {time.perf_counter() - t0:.1f} s", flush=True)
+    stamp("native")
     if on("prefix"):
         t0 = time.perf_counter()
         ph = phases["prefix"] = run_serve_phase("prefix")
@@ -4364,6 +4800,7 @@ def main(argv=None) -> int:
         print(f"reference[prefix]: {time.perf_counter() - t1:.1f} s",
               flush=True)
         _free(ph)
+    stamp("prefix")
     if on("vocoder"):
         if kern is None:   # --only vocoder: the 16-bit kernel cases too
             gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4373,6 +4810,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phases["vocoder_f16"] = float16_phase()
         print(f"float16: {time.perf_counter() - t0:.1f} s", flush=True)
+    stamp("vocoder")
     if on("tools"):
         if "tools_runtime" not in phases:      # --only tools: boot one
             from tts_inference_tpu_torch.config import Config
@@ -4384,10 +4822,14 @@ def main(argv=None) -> int:
             _free(rt)
         phases["tools"] = tools_phase(only is not None,
                                       phases["tools_runtime"])
+    stamp("tools")
     if on("multigpu"):
         if kern is None:    # --only multigpu: the shard-shape kernel cases
             shard_kernel_cases(torch.Generator(device="cuda").manual_seed(0))
         phases["multigpu"] = multigpu_phase()
+    stamp("multigpu")
+    print("chip_smoke: seconds by block", json.dumps(times), "total",
+          round(time.perf_counter() - t_run, 1), flush=True)
     if only is not None:
         print(f"chip_smoke: phases {sorted(only)} passed; no result line "
               "without the full run", flush=True)

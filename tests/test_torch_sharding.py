@@ -164,12 +164,32 @@ def test_validate_tp():
         with pytest.raises(ValueError) as got:
             M.validate_tp(port_config(jcfg), tp)
         assert str(got.value) == str(want.value)
-    # int4 o/down rows: K 128 at group 32 is 2 groups per packed half;
-    # tp 4 leaves 32 rows a shard, half a group per half
+    # int4 o/down rows: K 128 at group 32 is 2 groups per packed half at
+    # tp 2; at tp 4 a shard's half is 16 rows, and a group of 32 is cut into
+    # groups of 16 (a multiple of 8, as K4's tensor cores take)
     q = quantize_llama_params(W._params(cfg, 0), bits=4, group=W.I4_GROUP)
     M.validate_tp(cfg, 2, q)
-    with pytest.raises(ValueError, match="whole number of groups"):
-        M.validate_tp(cfg, 4, q)
+    M.validate_tp(cfg, 4, q)
+    assert M.shard_group(128, 32, 4) == 16
+    # at group 4 no group that divides both 4 and a shard's half is a
+    # multiple of 8
+    q4 = quantize_llama_params(W._params(cfg, 0), bits=4, group=4)
+    with pytest.raises(ValueError, match="no group that divides both"):
+        M.validate_tp(cfg, 2, q4)
+    # Orpheus-3B at tp 2 and the default group 512: o (K 3072) is cut into
+    # groups of 256, down (K 8192) keeps 512
+    import torch
+
+    from tts_inference_tpu_torch.config import ModelConfig as PortConfig
+    from tts_inference_tpu_torch.models.quant import quantize_linear_i4
+
+    gen = torch.Generator().manual_seed(0)
+    orpheus = {"layers": [{
+        "wo": quantize_linear_i4(torch.randn(3072, 128, generator=gen), 512),
+        "w_down": quantize_linear_i4(torch.randn(8192, 128, generator=gen),
+                                     512)}]}
+    M.validate_tp(PortConfig(), 2, orpheus)
+    assert [M.shard_group(k, 512, 2) for k in (3072, 8192)] == [256, 512]
 
 
 @pytest.mark.parametrize("dp,tp", MESHES, ids=ids)

@@ -243,7 +243,7 @@ def test_cli_serve_vocoder_bf16_answers_ws_tts():
 
     args = cli.build_parser().parse_args(
         ["serve", "--tiny", "--device", "cpu", "--vocoder-bf16"])
-    assert "vocoder_bf16" not in cli.UNPORTED
+    assert not hasattr(cli, "UNPORTED")     # no option is refused
     rt, sched = cli.build_serving(args)
     assert rt.config.snac.dtype == "bfloat16"
     assert rt.load_timings["snac_dtype"] == "bfloat16"

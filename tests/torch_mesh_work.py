@@ -38,15 +38,15 @@ def _mesh(dp, tp):
     return mesh is not None, mesh
 
 
-# int4 group of the sharded tests: a row shard must be whole groups in each
-# packed half of its K (64 at tp 2 → group 32)
+# int4 group of the sharded tests (a tp-4 row shard cuts it into groups of
+# 16)
 I4_GROUP = 32
 
 
-def _params(cfg, seed: int, bits: int = 0, mesh=None):
+def _params(cfg, seed: int, bits: int = 0, mesh=None, group=I4_GROUP):
     p = weights.llama_params_from_jax(numpy_llama_tree(cfg, seed))
     if bits:
-        p = quantize_llama_params(p, bits=bits, group=I4_GROUP)
+        p = quantize_llama_params(p, bits=bits, group=group)
     return p if mesh is None else weights.shard_params(p, cfg, mesh)
 
 
@@ -131,14 +131,16 @@ SCRIPTS = {"tick": _tick, "first": _first, "prefix": _prefix,
            "paged": _paged}
 
 
-def engine_run(cfg, ecfg, script, dp=None, tp=None, bits=0, seed=0):
+def engine_run(cfg, ecfg, script, dp=None, tp=None, bits=0, seed=0,
+               i4_group=I4_GROUP):
     """One of SCRIPTS over an EngineCore of the numpy weights of `seed`
-    (quantized to `bits` when nonzero), sharded over (dp, tp)."""
+    (quantized to `bits` when nonzero, int4 at `i4_group`), sharded over
+    (dp, tp)."""
     member, mesh = _mesh(dp, tp)
     if not member:
         return None
-    core = EngineCore(_params(cfg, seed, bits, mesh), cfg, ecfg, eos_id=5,
-                      mesh=mesh)
+    core = EngineCore(_params(cfg, seed, bits, mesh, i4_group), cfg, ecfg,
+                      eos_id=5, mesh=mesh)
     with torch.no_grad():
         return SCRIPTS[script](core)
 
@@ -303,3 +305,198 @@ def scheduler_run(specs, dp=None, tp=None, lport=0, admission_steps=None,
         m.close()
     return {"streams": out, "preemptions": s.preemptions}
 
+
+
+# ---- sharded training -------------------------------------------------------
+
+
+def numpy_adapters(cfg, seed, r=4, b_scale=0.02):
+    """Adapters in the JAX package's layout (numpy f32): A and B drawn from
+    `seed` (B nonzero, so A takes a gradient from the first step)."""
+    from tts_inference_tpu_torch.training.lora import DEFAULT_TARGETS
+
+    rng = np.random.default_rng(seed)
+    tree = numpy_llama_tree(cfg)
+    return {"layers": [{t: {
+        "A": (rng.standard_normal((lp[t].shape[0], r)) / 2).astype(
+            np.float32),
+        "B": (b_scale * rng.standard_normal((r, lp[t].shape[1]))).astype(
+            np.float32)} for t in DEFAULT_TARGETS}
+        for lp in tree["layers"]]}
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_numpy(v) for v in tree]
+    return tree.detach().float().numpy()
+
+
+def train_run(cfg, batches, dp=None, tp=None, full=False, lr=1e-2, seed=0,
+              adapters=None):
+    """The port's train step over `batches` [(tokens, lens)] from the numpy
+    weights of `seed`: a LoRA step over the numpy `adapters` (default:
+    numpy_adapters(cfg, seed + 1)), or a full fine-tune; unsharded, or on
+    (dp, tp) with every rank passing the whole batch. Returns each step's
+    loss, and the trained tree and the last step's gradients (summed as
+    the step sums them), gathered whole."""
+    from tts_inference_tpu_torch.training import train_step as T
+
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    base = _params(cfg, seed, mesh=mesh)
+    if full:
+        trainable, base_params = base, None
+    else:
+        lora = weights.lora_from_jax(adapters or numpy_adapters(cfg,
+                                                                seed + 1))
+        trainable = lora if mesh is None else weights.shard_lora(lora, cfg,
+                                                                 mesh)
+        base_params = base
+    opt = T.make_optimizer(lr, len(batches))
+    step = T.make_train_step(cfg, opt, base_params=base_params,
+                             lora_scale=2.0, mesh=mesh)
+    state = T.init_train_state(trainable, opt)
+    losses = []
+    for tokens, lens in batches:
+        state, loss = step(state, tokens, lens)
+        losses.append(float(loss))
+    tree, grads = state.params, _grad_tree(state.params)
+    if mesh is not None:
+        with torch.no_grad():
+            gather = (weights.gather_params if full else weights.gather_lora)
+            tree, grads = (gather(t, cfg, mesh) for t in (tree, grads))
+    return {"losses": losses, "tree": _to_numpy(tree),
+            "grads": _to_numpy(grads)}
+
+
+def _grad_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _grad_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_grad_tree(v) for v in tree]
+    return tree.grad
+
+
+def lora_init_cut(cfg, dp, tp, seed=3):
+    """init_lora(mesh=) on this rank's shard of the base, against the cut
+    of the unsharded init_lora from the same generator seed."""
+    from tts_inference_tpu_torch.training import lora as L
+
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    whole = L.init_lora(torch.Generator().manual_seed(seed), cfg,
+                        _params(cfg, 0), r=4)
+    got = L.init_lora(torch.Generator().manual_seed(seed), cfg,
+                      _params(cfg, 0, mesh=mesh), r=4, mesh=mesh)
+    want = weights.shard_lora(whole, cfg, mesh)
+    return all(torch.equal(a, b) for a, b in zip(
+        _leaves(got), _leaves(want))) and len(_leaves(got)) == len(
+        _leaves(whole))
+
+
+def _leaves(tree):
+    from tts_inference_tpu_torch.training.train_step import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def vocab_loss(vocab, hidden, tp, seed=0):
+    """The vocab-parallel nll on a (1, tp) mesh against log_softmax of the
+    whole logits: values, and the gradients of the hidden states and of
+    the embedding (this rank's block, gathered whole); and those gradients
+    through the logits gathered over tp."""
+    from tts_inference_tpu_torch.training import train_step as T
+
+    member, mesh = _mesh(1, tp)
+    if not member:
+        return None
+    cfg = dataclasses.replace(tiny_config().model, vocab_size=vocab,
+                              hidden_size=hidden, num_attention_heads=tp,
+                              num_key_value_heads=tp, dtype="float32")
+    rng = np.random.default_rng(seed)
+    emb = torch.from_numpy(rng.standard_normal((vocab, hidden),
+                                               dtype=np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((2, 3, hidden),
+                                              dtype=np.float32))
+    tg = torch.tensor([[0, P.HEAD_SLICE_BASE - 1, P.HEAD_SLICE_BASE],
+                       [P.TOKEN_AUDIO_BASE + 5, vocab - 1, 17]]) % vocab
+    shard = M.shard_tree({"embed": emb}, {"embed": ("tp_vocab", None)}, mesh)
+    shard["embed"].requires_grad_(True)
+    h = h0.clone().requires_grad_(True)
+    weight = torch.arange(1, 7.0).view(2, 3)
+    nll = T.vocab_parallel_nll(shard, cfg, h, tg, mesh)
+    (nll * weight).sum().backward()
+    vs = M.vocab_shards(vocab, tp)
+    g_emb = M.gather_tree(shard["embed"].grad, ("tp_vocab", None), mesh,
+                          vocab=vs)
+    # the same through the gathered logits (gather_from_tp's backward)
+    shard["embed"].grad = None
+    hg = h0.clone().requires_grad_(True)
+    gathered = -torch.log_softmax(llama.compute_logits(shard, cfg, hg,
+                                                       mesh=mesh), -1)
+    (gathered.gather(-1, tg[..., None])[..., 0] * weight).sum().backward()
+    g_emb_gathered = M.gather_tree(shard["embed"].grad, ("tp_vocab", None),
+                                   mesh, vocab=vs)
+    emb.requires_grad_(True)
+    h1 = h0.clone().requires_grad_(True)
+    want = -torch.log_softmax(h1 @ emb.t(), -1).gather(
+        -1, tg[..., None])[..., 0]
+    (want * weight).sum().backward()
+    return {"nll": nll.detach().numpy(), "want": want.detach().numpy(),
+            "g_h": h.grad.numpy(), "want_g_h": h1.grad.numpy(),
+            "g_emb": g_emb.numpy(), "want_g_emb": emb.grad.numpy(),
+            "g_h_gathered": hg.grad.numpy(),
+            "g_emb_gathered": g_emb_gathered.numpy()}
+
+
+def int4_cut_rows(k, n, group, tp):
+    """Each tp rank's row shard of an int4 (k, n) matrix of `group`,
+    dequantized, against the rows of the whole matrix it holds (bit
+    equality), with the shard's group; and the whole gathered back."""
+    from tts_inference_tpu_torch.models.quant import (QuantLinearI4,
+                                                      quantize_linear_i4)
+    from tts_inference_tpu_torch.ops.int4_matmul import unpack_int4
+
+    member, mesh = _mesh(1, tp)
+    if not member:
+        return None
+
+    def deq(w):
+        kk = w.w_p.shape[0] * 2
+        g = kk // w.scale.shape[0]
+        q = unpack_int4(w.w_p)[:, :w.scale.shape[1]].float()
+        return (q.reshape(kk // g, g, -1) * w.scale[:, None]).reshape(kk, -1)
+
+    rng = np.random.default_rng(k + n + group)
+    w = quantize_linear_i4(torch.from_numpy(
+        rng.standard_normal((k, n), dtype=np.float32)), group)
+    spec = QuantLinearI4(w_p=("tp", None), scale=(None, None))
+    shard = M.shard_tree(w, spec, mesh)
+    kl = k // tp
+    rows = deq(w)[mesh.tp_rank * kl:(mesh.tp_rank + 1) * kl]
+    back = M.gather_tree(shard, spec, mesh, i4_group=group)
+    return {"equal": bool(torch.equal(deq(shard), rows)),
+            "group": kl // shard.scale.shape[0],
+            "back": bool(torch.equal(back.w_p, w.w_p)
+                         and torch.equal(back.scale, w.scale))}
+
+
+def merge_cut(cfg, dp, tp, seed=4):
+    """merge_params on this rank's shards of the base and the adapters
+    against the cut of the whole merge: the max abs difference."""
+    from tts_inference_tpu_torch.training import lora as L
+
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    whole = _params(cfg, 0)
+    lora = weights.lora_from_jax(numpy_adapters(cfg, seed))
+    want = weights.shard_params(L.merge_params(whole, lora, 2.0), cfg, mesh)
+    got = L.merge_params(weights.shard_params(whole, cfg, mesh),
+                         weights.shard_lora(lora, cfg, mesh), 2.0)
+    return max(float((a - b).abs().max())
+               for a, b in zip(_leaves(got), _leaves(want)))

@@ -26,23 +26,26 @@ extracts tokens and de-interleaves windows in the C++ runtime built from
 ``--device`` every command but ``devices`` runs on ``cuda`` and fails when
 there is none; ``--device cpu`` asks for the CPU.
 
-``serve --tp T --dp D`` serves one engine sharded over T·D devices, one
-process each (``parallel/``): without ``--coordinator`` this process
-starts the T·D − 1 followers itself (the same command with ``--coordinator
-127.0.0.1:<free port> --process-id i``) and exits nonzero when any of them
-dies; with ``--coordinator HOST:PORT --num-processes N --process-id I``
-each process of a multi-host group is started by hand. Process 0 serves
-the API and mirrors every engine launch to the others over the lockstep
-side channel (``--lockstep-port``, ``--lockstep-bind``). NCCL on cards,
-gloo on the CPU.
-Options of configurations that are not ported yet are accepted by the
-parser and rejected with the ROADMAP item that ports them — the port never
-runs a different path silently.
+``--tp T --dp D`` runs a command over T·D devices, one process each
+(``parallel/``): without ``--coordinator`` this process starts the T·D − 1
+followers itself (the same command with ``--coordinator 127.0.0.1:<free
+port> --process-id i``); with ``--coordinator HOST:PORT --num-processes N
+--process-id I`` each process of a multi-host group is started by hand.
+NCCL on cards (one process a card), gloo on the CPU. ``serve`` serves one
+engine sharded over them: process 0 serves the API and mirrors every
+engine launch to the others over the lockstep side channel
+(``--lockstep-port``, ``--lockstep-bind``) and exits nonzero when a
+follower dies. ``generate`` and ``dump-tokens`` mirror the single-stream
+engine's launches the same way: process 0 prints the command's JSON (and
+writes the WAV), the followers print nothing. ``quantize`` cuts the
+quantized weights as the mesh serves them and gathers the shards back to
+process 0, which writes the one checkpoint the unsharded command writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,16 +54,7 @@ import subprocess
 import sys
 import threading
 import time
-
-# command → the ROADMAP.md item that ports it under --tp/--dp > 1 (serve
-# runs sharded since the multi-GPU slice)
-UNPORTED = {
-    "generate": "single-stream commands under a mesh (ROADMAP.md Queue 1 "
-                "item 8)",
-    "dump-tokens": "single-stream commands under a mesh (ROADMAP.md Queue 1 "
-                   "item 8)",
-    "quantize": "a sharded checkpoint writer (ROADMAP.md Queue 1 item 8)",
-}
+from typing import Optional
 
 
 def _add_runtime_args(p: argparse.ArgumentParser) -> None:
@@ -132,19 +126,33 @@ def _add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "tools/vocoder_dtype_fidelity.py")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree (mesh tp axis, one process "
-                        "per device; serve)")
+                        "per device)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel degree (request slots over replicas; "
-                        "serve)")
+                   help="data-parallel degree (request slots over "
+                        "replicas)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process mesh: the process group's TCP "
+                        "rendezvous (served by process 0); process 0 owns "
+                        "the engine's calls and mirrors them to the others "
+                        "(parallel/lockstep.py). Without it, --tp/--dp > 1 "
+                        "start their followers on this host")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="total processes in the group")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="this process's index (0 = the one that answers)")
+    p.add_argument("--lockstep-port", type=int, default=18765,
+                   help="TCP side-channel port on the coordinator host for "
+                        "mirrored EngineCore calls")
+    p.add_argument("--lockstep-bind", default=None,
+                   help="interface the coordinator binds the side channel "
+                        "to (default: the --coordinator host). The channel "
+                        "carries pickled descriptors — keep it on a trusted "
+                        "private network and set TTS_LOCKSTEP_TOKEN on all "
+                        "processes (shared-token handshake)")
 
 
-def check_ported(args) -> None:
-    """Reject options whose configuration is not ported yet."""
-    item = UNPORTED.get(getattr(args, "cmd", None))
-    if item and (args.tp, args.dp) != (1, 1):
-        opt = "--tp" if args.tp != 1 else "--dp"
-        raise SystemExit(f"{opt} with {args.cmd} is not ported to "
-                         f"tts_inference_tpu_torch yet: {item}")
+def _sharded(args) -> bool:
+    return bool(args.coordinator) or (args.tp, args.dp) != (1, 1)
 
 
 def _config(args):
@@ -152,7 +160,6 @@ def _config(args):
     from tts_inference_tpu_torch.config import (Config, extended_kv_buckets,
                                                 tiny_config)
 
-    check_ported(args)
     cfg = tiny_config() if args.tiny else Config()
     eng_over = {}
     if args.max_input_len:
@@ -219,13 +226,11 @@ def _build_runtime(args):
                           weight_bits=args.weight_bits)
 
 
-def cmd_generate(args) -> int:
+def _sampling(args):
     from tts_inference_tpu_torch import protocol
     from tts_inference_tpu_torch.config import SamplingConfig
-    from tts_inference_tpu_torch.utils.audio import duration_s, write_wav
 
-    rt = _build_runtime(args)
-    sampling = SamplingConfig(
+    return SamplingConfig(
         temperature=args.temperature, top_p=args.top_p,
         repetition_penalty=args.repetition_penalty,
         max_tokens=args.max_tokens, greedy=args.greedy, seed=args.seed,
@@ -233,8 +238,14 @@ def cmd_generate(args) -> int:
                       protocol.TOKEN_AUDIO_BASE + protocol.AUDIO_VOCAB)
                      if args.audio_only else None),
     )
+
+
+def _generate(rt, args) -> int:
+    from tts_inference_tpu_torch.utils.audio import duration_s, write_wav
+
     t0 = time.perf_counter()
-    pcm, metrics = rt.pipeline.synthesize(args.text, args.voice, sampling,
+    pcm, metrics = rt.pipeline.synthesize(args.text, args.voice,
+                                          _sampling(args),
                                           force_speech=args.force_speech)
     wall = time.perf_counter() - t0
     write_wav(args.output, pcm)
@@ -253,10 +264,9 @@ def cmd_generate(args) -> int:
     return 0
 
 
-def cmd_dump_tokens(args) -> int:
+def _dump_tokens(rt, args) -> int:
     from tts_inference_tpu_torch.config import SamplingConfig
 
-    rt = _build_runtime(args)
     prompt = rt.pipeline.build_prompt(args.text, args.voice)
     res = rt.engine.generate(
         prompt, SamplingConfig(max_tokens=args.max_tokens, seed=args.seed))
@@ -265,42 +275,75 @@ def cmd_dump_tokens(args) -> int:
     return 0
 
 
+def cmd_generate(args) -> int:
+    if _sharded(args):
+        return _single_stream_sharded(args, _generate)
+    return _generate(_build_runtime(args), args)
+
+
+def cmd_dump_tokens(args) -> int:
+    if _sharded(args):
+        return _single_stream_sharded(args, _dump_tokens)
+    return _dump_tokens(_build_runtime(args), args)
+
+
 def cmd_quantize(args) -> int:
     """Offline weight quantization: checkpoint in → pre-quantized checkpoint
     out (``params.safetensors`` + ``metadata.json``). A boot from the output
     skips the quantization. The int4 group is ``TTS_INT4_GROUP`` (512 by
-    default), as in the JAX package."""
+    default), as in the JAX package. Under ``--tp/--dp`` every process
+    loads and quantizes as a sharded runtime does and keeps its shard; the
+    shards are gathered back to process 0 (int4 row shards at the
+    checkpoint's group), which writes; the others write nothing."""
     import torch
 
     from tts_inference_tpu_torch.models.quant import (QuantEmbed,
                                                       QuantLinear,
+                                                      i4_group_of,
                                                       quantize_llama_params,
                                                       to_plain)
     from tts_inference_tpu_torch.runtime import default_device, load_model
     from tts_inference_tpu_torch.training.checkpoint import save_params
 
-    t0 = time.perf_counter()
-    cfg = _config(args)
-    dev = torch.device(args.device) if args.device else default_device()
-    params, cfg = load_model(cfg, dev, model_path=args.model_path,
-                             lora_path=args.lora_path, seed=args.seed,
-                             quantize=args.quantize,
-                             weight_bits=args.weight_bits)
-    load_s = time.perf_counter() - t0
-    if not isinstance(params.get("embed"), (QuantEmbed, QuantLinear)):
-        params = quantize_llama_params(params, bits=args.weight_bits,
-                                       free_source=True)
-    t1 = time.perf_counter()
-    nbytes = save_params(args.out, to_plain(params), metadata={
-        "vocab_size": cfg.model.vocab_size,
-        "quantized": args.weight_bits,
-        "model_config": dataclasses.asdict(cfg.model),
-    })
-    print(json.dumps({"out": args.out, "weight_bits": args.weight_bits,
-                      "device": str(dev), "bytes": nbytes,
-                      "load_model_s": round(load_s, 3),
-                      "save_s": round(time.perf_counter() - t1, 3),
-                      "wall_s": round(time.perf_counter() - t0, 1)}))
+    with _process_group(args) as (cfg, dev, mesh):
+        t0 = time.perf_counter()
+        if dev is None:
+            dev = torch.device(args.device) if args.device \
+                else default_device()
+        # sharded: a checkpoint whole on the host, as Runtime.create loads
+        src = dev if mesh is None or not args.model_path \
+            else torch.device("cpu")
+        params, cfg = load_model(cfg, src, model_path=args.model_path,
+                                 lora_path=args.lora_path, seed=args.seed,
+                                 quantize=args.quantize,
+                                 weight_bits=args.weight_bits)
+        load_s = time.perf_counter() - t0
+        if not isinstance(params.get("embed"), (QuantEmbed, QuantLinear)):
+            params = quantize_llama_params(params, bits=args.weight_bits,
+                                           free_source=True)
+        if mesh is not None:
+            from tts_inference_tpu_torch import weights
+
+            group = i4_group_of(params)
+            shard = weights.shard_params(params, cfg.model, mesh)
+            del params
+            with torch.no_grad():
+                params = weights.gather_params(shard, cfg.model, mesh,
+                                               i4_group=group)
+            del shard
+            if mesh.rank != 0:
+                return 0
+        t1 = time.perf_counter()
+        nbytes = save_params(args.out, to_plain(params), metadata={
+            "vocab_size": cfg.model.vocab_size,
+            "quantized": args.weight_bits,
+            "model_config": dataclasses.asdict(cfg.model),
+        })
+        print(json.dumps({"out": args.out, "weight_bits": args.weight_bits,
+                          "device": str(dev), "bytes": nbytes,
+                          "load_model_s": round(load_s, 3),
+                          "save_s": round(time.perf_counter() - t1, 3),
+                          "wall_s": round(time.perf_counter() - t0, 1)}))
     return 0
 
 
@@ -343,7 +386,7 @@ def build_serving(args):
 def cmd_serve(args) -> int:
     from tts_inference_tpu_torch.serving.app import run_app
 
-    if args.coordinator or (args.tp, args.dp) != (1, 1):
+    if _sharded(args):
         return _serve_sharded(args)
     rt, scheduler = build_serving(args)
     return run_app(rt, host=args.host, port=args.port, scheduler=scheduler)
@@ -397,26 +440,22 @@ def _watch_followers(children: list, mirror: list,
                      name="follower-watch").start()
 
 
-def _serve_sharded(args) -> int:
-    """`serve` over a (dp, tp) mesh of processes (parallel/lockstep.py):
-    process 0 serves the API with a mirrored scheduler, the others replay
-    its engine calls."""
-    from tts_inference_tpu_torch import protocol
-    from tts_inference_tpu_torch.engine.engine import EngineCore
-    from tts_inference_tpu_torch.engine.scheduler import Scheduler
-    from tts_inference_tpu_torch.parallel import lockstep as LS
+@contextlib.contextmanager
+def _process_group(args, watch: Optional[list] = None):
+    """(config, device, mesh) of this process in the (dp, tp) mesh the flags
+    ask for, with the default process group up (``init_multihost``); the
+    followers started here when there is no ``--coordinator``, and waited
+    for (``watch``: the serve's mirror, failed when one dies) on the way
+    out. Without ``--tp/--dp/--coordinator``: (config, None, None)."""
+    cfg = _config(args)     # validate_tp and dp | batch before any process
+    if not _sharded(args):
+        yield cfg, None, None
+        return
     from tts_inference_tpu_torch.parallel.multihost import (init_multihost,
                                                             make_global_mesh)
-    from tts_inference_tpu_torch.runtime import Runtime
-    from tts_inference_tpu_torch.serving.app import run_app
 
-    if not args.multi_stream:
-        raise SystemExit("lockstep serving requires the scheduler (drop "
-                         "--single-stream)")
     n = args.tp * args.dp
-    cfg = _config(args)     # validate_tp and dp | batch before any process
     children: list = []
-    mirror: list = []
     stopping = threading.Event()
     if not args.coordinator:
         if not str(args.device).startswith("cpu"):
@@ -428,9 +467,10 @@ def _serve_sharded(args) -> int:
                     f"host, found {torch.cuda.device_count()} (one process "
                     "per card: NCCL refuses two ranks on one device)")
         children = _start_followers(args, n)
-        print(json.dumps({"lockstep_followers": [c.pid for c in children]}),
-              flush=True)
-        _watch_followers(children, mirror, stopping)
+        if watch is not None:
+            print(json.dumps({"lockstep_followers": [c.pid for c in children]}),
+                  flush=True)
+            _watch_followers(children, watch, stopping)
     elif args.num_processes < 2:
         raise SystemExit("--coordinator requires --num-processes >= 2")
     if args.num_processes % args.tp or (
@@ -441,17 +481,87 @@ def _serve_sharded(args) -> int:
         dev = init_multihost(args.coordinator, args.num_processes,
                              args.process_id, device=args.device)
         mesh = make_global_mesh(tp=args.tp, device=dev)
-        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
-            cfg.mesh, dp=mesh.dp, tp=mesh.tp))
+        yield (dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, dp=mesh.dp, tp=mesh.tp)), dev, mesh)
+        if watch is None:
+            # a command that ends: its followers end with it
+            for c in children:
+                try:
+                    c.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    pass
+            bad = [c.returncode for c in children if c.returncode != 0]
+            if bad:
+                raise SystemExit(f"a follower process failed: rc {bad}")
+    finally:
+        stopping.set()
+        for c in children:
+            if c.poll() is None:
+                c.terminate()
+        for c in children:
+            try:
+                c.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                c.kill()
+
+
+def _sharded_runtime(args, cfg, dev, mesh):
+    """This process's runtime over its shard, no warmup (the warmup's
+    engine launches must be mirrored)."""
+    from tts_inference_tpu_torch.runtime import Runtime
+
+    return Runtime.create(cfg, model_path=args.model_path,
+                          snac_path=args.snac_path, lora_path=args.lora_path,
+                          tokenizer_path=args.tokenizer_path, seed=args.seed,
+                          device=dev, warmup=False, quantize=args.quantize,
+                          weight_bits=args.weight_bits, mesh=mesh)
+
+
+def _single_stream_sharded(args, run) -> int:
+    """`generate` / `dump-tokens` over a (dp, tp) mesh of processes:
+    process 0 runs the command with its single-stream engine's core
+    mirrored to the others (``parallel/lockstep.py``); they replay its
+    launches and print nothing."""
+    from tts_inference_tpu_torch.parallel import lockstep as LS
+
+    with _process_group(args) as (cfg, dev, mesh):
+        rt = _sharded_runtime(args, cfg, dev, mesh)
+        host = args.coordinator.rsplit(":", 1)[0]
+        if args.process_id != 0:
+            sock = LS.follower_channel(host, args.lockstep_port,
+                                       process_id=args.process_id)
+            LS.follower_loop(rt.engine.core, sock)
+            return 0
+        mirror = LS.MirroredCore(rt.engine.core, LS.coordinator_channel(
+            args.lockstep_port, args.num_processes - 1,
+            bind=args.lockstep_bind or host))
+        rt.engine.core = mirror
+        try:
+            if not args.no_warmup:
+                rt.warmup()
+            return run(rt, args)
+        finally:
+            mirror.close()
+
+
+def _serve_sharded(args) -> int:
+    """`serve` over a (dp, tp) mesh of processes (parallel/lockstep.py):
+    process 0 serves the API with a mirrored scheduler, the others replay
+    its engine calls."""
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.engine.engine import EngineCore
+    from tts_inference_tpu_torch.engine.scheduler import Scheduler
+    from tts_inference_tpu_torch.parallel import lockstep as LS
+    from tts_inference_tpu_torch.serving.app import run_app
+
+    if not args.multi_stream:
+        raise SystemExit("lockstep serving requires the scheduler (drop "
+                         "--single-stream)")
+    mirror: list = []
+    with _process_group(args, watch=mirror) as (cfg, dev, mesh):
         # the single-stream engine's launches are not mirrored: no runtime
         # warmup (the scheduler's, mirrored, covers every launch it makes)
-        rt = Runtime.create(cfg, model_path=args.model_path,
-                            snac_path=args.snac_path,
-                            lora_path=args.lora_path,
-                            tokenizer_path=args.tokenizer_path,
-                            seed=args.seed, device=dev, warmup=False,
-                            quantize=args.quantize,
-                            weight_bits=args.weight_bits, mesh=mesh)
+        rt = _sharded_runtime(args, cfg, dev, mesh)
         graphs = not mesh.gather_by_sum     # gloo cannot be captured
         host = args.coordinator.rsplit(":", 1)[0]
         if args.process_id != 0:
@@ -496,16 +606,6 @@ def _serve_sharded(args) -> int:
                            scheduler=scheduler, lockstep=True)
         finally:
             mirror[0].close()
-    finally:
-        stopping.set()
-        for c in children:
-            if c.poll() is None:
-                c.terminate()
-        for c in children:
-            try:
-                c.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                c.kill()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -560,25 +660,6 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--native-protocol", action="store_true",
                    help="C++ token extractor + deinterleave in the "
                         "scheduler hot path (native/tts_runtime.cpp)")
-    s.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="lockstep multi-process serving: the process "
-                        "group's TCP rendezvous (served by process 0); one "
-                        "logical engine spans all processes, process 0 "
-                        "serves the API (parallel/lockstep.py). Without it, "
-                        "--tp/--dp > 1 start their followers on this host")
-    s.add_argument("--num-processes", type=int, default=1,
-                   help="total processes in the lockstep group")
-    s.add_argument("--process-id", type=int, default=0,
-                   help="this process's index (0 = API owner)")
-    s.add_argument("--lockstep-port", type=int, default=18765,
-                   help="TCP side-channel port on the coordinator host for "
-                        "mirrored EngineCore calls")
-    s.add_argument("--lockstep-bind", default=None,
-                   help="interface the coordinator binds the side channel "
-                        "to (default: the --coordinator host). The channel "
-                        "carries pickled descriptors — keep it on a trusted "
-                        "private network and set TTS_LOCKSTEP_TOKEN on all "
-                        "processes (shared-token handshake)")
     s.set_defaults(fn=cmd_serve)
     return ap
 

@@ -27,7 +27,11 @@ Differences from the JAX package, all deliberate:
   vocabulary partition (a masked lookup summed over tp; logits gathered
   over tp, so sampling sees whole rows on every rank). XLA inserts these
   collectives for JAX; here they are explicit (``parallel/collectives.py``),
-  and without a mesh none is issued.
+  and without a mesh none is issued. They are the autograd-aware forms
+  (``copy_to_tp`` on the replicated input of each column-parallel product,
+  ``reduce_from_tp``, ``gather_from_tp``), so the train step differentiates
+  through a sharded forward; under ``no_grad`` they issue the serve path's
+  calls and no other.
 """
 
 from __future__ import annotations
@@ -50,8 +54,9 @@ from tts_inference_tpu_torch.ops.paged_attention import (
 from tts_inference_tpu_torch.ops.paged_attention_int4 import (
     gather_window_int4, paged_decode_attention_int4, quantize_kv_int4,
     scales_to_planes)
-from tts_inference_tpu_torch.parallel.collectives import (all_gather_tp,
-                                                          all_reduce_tp)
+from tts_inference_tpu_torch.parallel.collectives import (copy_to_tp,
+                                                          gather_from_tp,
+                                                          reduce_from_tp)
 from tts_inference_tpu_torch.parallel.mesh import vocab_shards
 
 Params = Dict
@@ -358,7 +363,7 @@ def _row_sum(y: torch.Tensor, mesh) -> torch.Tensor:
     """A row-parallel product summed over tp, in f32."""
     if mesh is None:
         return y
-    return all_reduce_tp(y.float(), mesh).to(y.dtype)
+    return reduce_from_tp(y.float(), mesh).to(y.dtype)
 
 
 def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
@@ -373,7 +378,7 @@ def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
     hd = cfg.head_dim
     nq, nkv = out_features(lp["wq"]) // hd, out_features(lp["wk"]) // hd
 
-    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    h = copy_to_tp(rms_norm(x, lp["input_norm"], cfg.rms_norm_eps), mesh)
     q = mm(h, lp["wq"]).reshape(b, s, nq, hd)
     k = mm(h, lp["wk"]).reshape(b, s, nkv, hd)
     v = mm(h, lp["wv"]).reshape(b, s, nkv, hd)
@@ -443,7 +448,8 @@ def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
             attn = _attention(q, kw, vw, mask)
     x = x + _row_sum(mm(attn.reshape(b, s, nq * hd), lp["wo"]), mesh)
 
-    h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+    h = copy_to_tp(rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps),
+                   mesh)
     gate = F.silu(mm(h, lp["w_gate"]).float()).to(h.dtype)
     return x + _row_sum(mm(gate * mm(h, lp["w_up"]), lp["w_down"]), mesh)
 
@@ -459,7 +465,7 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         tokens, mesh.tp_rank)
     x = embed_rows(params["embed"], idx, dtype)
     x = torch.where(own[..., None], x, torch.zeros_like(x))
-    return all_reduce_tp(x, mesh)
+    return reduce_from_tp(x, mesh)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -508,19 +514,26 @@ def compute_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
     id base + i (the sliced-head decode path skips rows below base). Under
     tp each rank computes its rows of the partition (only the audio block
     at base HEAD_SLICE_BASE) and the gathered rows are put back in order."""
-    tied = cfg.tie_word_embeddings or "lm_head" not in params
     if mesh is None:
-        if tied:
-            return tied_logits(hidden, params["embed"], base)
-        return head_logits(hidden, params["lm_head"], base)
+        return local_logits(params, cfg, hidden, None, base)
     vs = vocab_shards(cfg.vocab_size, mesh.tp)
     if base not in (0, vs.split):
         raise ValueError(f"compute_logits under tp: base {base} is neither 0 "
                          f"nor the partition's split {vs.split}")
-    lo = vs.tc if base else 0
-    local = (tied_logits(hidden, params["embed"], lo) if tied
-             else head_logits(hidden, params["lm_head"], lo))
-    return vs.assemble(all_gather_tp(local, mesh), base)
+    local = local_logits(params, cfg, hidden, mesh, vs.tc if base else 0)
+    return vs.assemble(gather_from_tp(local, mesh), base)
+
+
+def local_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+                 mesh, lo: int = 0) -> torch.Tensor:
+    """This tp rank's f32 logits (…, rows - lo) of its block of the
+    vocabulary partition (``VocabShards``: its text rows, then its audio
+    rows, each padded with zero rows), from local row `lo` on; without a
+    mesh, all of the head's."""
+    hidden = copy_to_tp(hidden, mesh)
+    if cfg.tie_word_embeddings or "lm_head" not in params:
+        return tied_logits(hidden, params["embed"], lo)
+    return head_logits(hidden, params["lm_head"], lo)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -138,6 +138,16 @@ def quantize_llama_params(params: Dict, *, quantize_embed_table: bool = True,
     return out
 
 
+def i4_group_of(params: Dict) -> Optional[int]:
+    """The group an int4 tree was quantized with: the largest of its
+    leaves' (each leaf's is ``pick_group(K, group)``); None without int4
+    leaves."""
+    groups = [w.w_p.shape[0] * 2 // w.scale.shape[0]
+              for lp in params["layers"] for w in lp.values()
+              if isinstance(w, QuantLinearI4)]
+    return max(groups, default=None)
+
+
 def out_features(w) -> int:
     """The out width of a plain, QuantLinear or QuantLinearI4 weight (an
     int4 weight's packed width may be padded)."""

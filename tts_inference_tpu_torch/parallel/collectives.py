@@ -17,6 +17,17 @@ the choice is the mesh's (``Mesh.gather_by_sum``), made once from the
 backend. gloo cannot be captured: a collective on a gloo group inside a
 CUDA-graph capture raises.
 
+Training differentiates through these calls, and a raw collective is the
+identity to autograd. So the model calls them through three functions
+that autograd sees (Megatron's f and g, and the gather): ``copy_to_tp``
+(the identity forward, a tp sum of the gradient backward — before a
+column-parallel product, whose input is replicated), ``reduce_from_tp``
+(a tp sum forward, the identity backward — after a row-parallel product or
+the masked embedding lookup) and ``gather_from_tp`` (``all_gather_tp``
+forward, the rank's own slice of the gradient backward). Where no gradient
+is asked for (``no_grad``, the serve path, its captured graphs) they issue
+exactly the calls above and no other: ``copy_to_tp`` none.
+
 ``local_only()`` turns the collectives of this thread into local stand-ins
 of the right shapes and no communication: the engine's eager pass before a
 second thread's first capture uses it, so that it issues no collective the
@@ -102,3 +113,90 @@ def all_gather_dp(x: torch.Tensor, mesh=None) -> torch.Tensor:
         return x
     g = _gather(x, mesh, mesh.dp_group, mesh.dp, mesh.dp_rank)
     return g.reshape((-1,) + tuple(x.shape[1:]))
+
+
+def _grad_wanted(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_tp(g.clone(memory_format=torch.contiguous_format),
+                             ctx.mesh), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_tp(x.clone(memory_format=torch.contiguous_format),
+                             mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.i = mesh.tp_rank
+        return all_gather_tp(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.i], None
+
+
+def copy_to_tp(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x, whose gradient is summed over tp: the replicated input of a
+    column-parallel product (each rank's gradient of it is a partial
+    sum)."""
+    if mesh is None or not _grad_wanted(x):
+        return x
+    return _CopyToTP.apply(x, mesh)
+
+
+def reduce_from_tp(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of x over tp (``all_reduce_tp``, in place on a fresh x where
+    no gradient is wanted); the gradient passes through unchanged."""
+    if mesh is None or not _grad_wanted(x):
+        return all_reduce_tp(x, mesh)
+    return _ReduceFromTP.apply(x, mesh)
+
+
+def gather_from_tp(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``all_gather_tp(x)``; the gradient of the gathered tensor gives each
+    rank its own slice (every rank computes the same thing from it)."""
+    if mesh is None or not _grad_wanted(x):
+        return all_gather_tp(x, mesh)
+    return _GatherFromTP.apply(x, mesh)
+
+
+def all_reduce_dp(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Sum of x over the dp group, in place (x must be a fresh tensor); no
+    gradient (the train step sums its counts and gradients with it)."""
+    if mesh is None or _is_local():
+        return x
+    import torch.distributed as dist
+
+    _check_capture(mesh)
+    dist.all_reduce(x, group=mesh.dp_group)
+    return x
+
+
+def all_reduce_max_tp(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Elementwise max of x over tp, in place; no gradient (the
+    vocab-parallel softmax's shift)."""
+    if mesh is None or _is_local():
+        return x
+    import torch.distributed as dist
+
+    _check_capture(mesh)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.tp_group)
+    return x

@@ -2,12 +2,14 @@
 
     python -m tts_inference_tpu_torch.parallel.dryrun 4
 
-The counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``
-without its training step (sharded training is not ported yet). It starts
-n gloo processes on the CPU over localhost, lays a (dp, tp) mesh over them
-(tp 4 when 4 divides n, else 2 when 2 does, else 1) and checks, on every
-rank, that
+The counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``.
+It starts n gloo processes on the CPU over localhost, lays a (dp, tp) mesh
+over them (tp 4 when 4 divides n, else 2 when 2 does, else 1) and checks,
+on every rank, that
 
+0. one full LoRA training step over the mesh (batch 2·dp × 32, r 4, the
+   adapters drawn from a seed and cut; ``training/train_step.py``) gives
+   the unsharded step's loss and, gathered, its adapters;
 1. a sharded serving tick — an EngineCore admission (prefill + 3 decode
    steps) and a decode launch over a 4-head-per-tp model — gives the
    unsharded core's tokens;
@@ -62,6 +64,48 @@ def dryrun_multichip(n_devices: int) -> dict:
     return json.loads(line)
 
 
+def train_check(model_cfg, params, mesh, lr: float = 1e-4) -> dict:
+    """One LoRA step (r 4, adapters from seed 1) on a batch of 2·dp × 32
+    tokens from seed 0, over `mesh` and unsharded on this rank: the loss
+    within 1e-5 and the gathered adapters within 2·lr — one Adam step
+    moves an element by at most lr, and where an element's gradient is at
+    f32 rounding level its direction is the noise's."""
+    import torch
+
+    from tts_inference_tpu_torch import weights
+    from tts_inference_tpu_torch.training import lora as L
+    from tts_inference_tpu_torch.training import train_step as T
+
+    rng = np.random.default_rng(0)
+    batch = 2 * mesh.dp
+    tokens = rng.integers(0, model_cfg.vocab_size, size=(batch, 32))
+    lens = np.full((batch,), 32, np.int32)
+
+    def step(base, m):
+        lora = L.init_lora(torch.Generator().manual_seed(1), model_cfg,
+                           base, r=4, mesh=m)
+        opt = T.make_optimizer(lr, 1)
+        state = T.init_train_state(lora, opt)
+        fn = T.make_train_step(model_cfg, opt, base_params=base, mesh=m)
+        state, loss = fn(state, tokens.astype(np.int32), lens)
+        out = state.params
+        if m is not None:
+            with torch.no_grad():
+                out = weights.gather_lora(out, model_cfg, m)
+        return float(loss), T.tree_leaves(out)
+
+    loss, got = step(weights.shard_params(params, model_cfg, mesh), mesh)
+    want_loss, want = step(params, None)
+    diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not (np.isfinite(loss) and abs(loss - want_loss) <= 1e-5 * want_loss
+            and len(got) == len(want) and diff <= 2 * lr):
+        raise AssertionError(f"sharded LoRA step diverged: loss {loss} vs "
+                             f"{want_loss}, adapters {diff}")
+    return {"loss": loss, "loss_unsharded": want_loss,
+            "adapter_max_diff": diff,
+            "adapter_leaves": len(got)}
+
+
 def _impl(n: int, rank: int, port: int, lport: int) -> None:
     import torch
 
@@ -86,7 +130,6 @@ def _impl(n: int, rank: int, port: int, lport: int) -> None:
     init_multihost(f"127.0.0.1:{port}", n, rank, device="cpu")
     mesh = M.make_mesh(MeshConfig(dp=dp, tp=tp))
 
-    # ---- 1) a sharded serving tick against the unsharded core -------------
     model_cfg = ModelConfig(
         vocab_size=512, hidden_size=128, intermediate_size=256,
         num_hidden_layers=2, num_attention_heads=8,
@@ -94,6 +137,11 @@ def _impl(n: int, rank: int, port: int, lport: int) -> None:
         rope_scaling_factor=None, max_position_embeddings=256,
         dtype="float32")
     params = weights.init_llama_params(model_cfg, 0)
+
+    # ---- 0) a LoRA training step against the unsharded step ---------------
+    train = train_check(model_cfg, params, mesh)
+
+    # ---- 1) a sharded serving tick against the unsharded core -------------
     ecfg = EngineConfig(max_batch_size=2 * dp, max_input_len=32,
                         max_output_len=96, prefill_buckets=(16, 32),
                         kv_buckets=(32, 64), decode_steps_per_call=4)
@@ -184,6 +232,7 @@ def _impl(n: int, rank: int, port: int, lport: int) -> None:
         raise AssertionError("sharded paged-int8 scheduler tick diverged "
                              f"(tokens {ntok_mesh} vs {ntok_ref})")
     print(json.dumps({"dryrun_multichip": n, "dp": dp, "tp": tp,
+                      "train": train,
                       "serve_tick_tokens": int(got.size),
                       "scheduler_tokens": ntok_mesh,
                       "scheduler_pcm_bytes": len(pcm_mesh), "ok": True}),

@@ -35,14 +35,20 @@ are the same as JAX's.
 int4 weights (``QuantLinearI4``) are cut as the logical (K, N) matrix
 they encode: a column shard takes its columns of the packed rows and pads
 them to 128 again; a row shard is unpacked, cut and packed anew in the
-split-half format of its own K, with its groups' scales — so its K must be
-a whole number of groups in each packed half (``validate_tp``).
+split-half format of its own K. Its group g′ is the largest that divides
+both the checkpoint's group g and each packed half of the shard's K
+(``shard_group``), and each of its scale rows is the scale of the g-group
+its rows lie in, so the dequantized shard is bit-equal to the rows of the
+whole matrix it holds. ``gather_tree`` is the inverse of ``shard_tree``:
+the whole tensors back on every rank, an int4 row shard's scales back at
+the checkpoint's group.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -138,10 +144,18 @@ def make_mesh(cfg: MeshConfig, device=None,
                 backend=backend)
 
 
+def shard_group(k: int, g: int, tp: int) -> int:
+    """The group g′ of a row shard of an int4 (K, N) matrix of group g cut
+    over tp: the largest group that divides both g and each packed half of
+    the shard's K/tp rows."""
+    return math.gcd(g, k // tp // 2)
+
+
 def validate_tp(model_cfg: ModelConfig, tp: int, params=None) -> None:
     """The JAX package's three checks, with its messages; with `params`,
-    also that every int4 row-parallel shard (o, down) is a whole number of
-    groups in each packed half of its K, which K4 needs (G | K/2)."""
+    also that every int4 row-parallel shard (o, down) has a group g′
+    (``shard_group``) that is a multiple of 8, as K4's tensor-core path
+    needs."""
     if model_cfg.num_key_value_heads % tp:
         raise ValueError(
             f"num_key_value_heads={model_cfg.num_key_value_heads} not "
@@ -151,7 +165,7 @@ def validate_tp(model_cfg: ModelConfig, tp: int, params=None) -> None:
         raise ValueError("num_attention_heads not divisible by tp")
     if model_cfg.intermediate_size % tp:
         raise ValueError("intermediate_size not divisible by tp")
-    if params is None:
+    if params is None or tp == 1:
         return
     for li, lp in enumerate(params["layers"]):
         for name in ("wo", "w_down"):
@@ -160,12 +174,13 @@ def validate_tp(model_cfg: ModelConfig, tp: int, params=None) -> None:
                 continue
             k = w.w_p.shape[0] * 2
             g = k // w.scale.shape[0]
-            if (k // tp) % (2 * g):
+            if (k // tp) % 2 or shard_group(k, g, tp) % 8:
                 raise ValueError(
-                    f"int4 {name} of layer {li}: K/tp = {k}/{tp} = "
-                    f"{k // tp} is not a whole number of groups of {g} in "
-                    f"each packed half (quantize with a smaller group, "
-                    "TTS_INT4_GROUP)")
+                    f"int4 {name} of layer {li}: no group that divides both "
+                    f"the checkpoint's group {g} and each packed half of "
+                    f"K/tp = {k}/{tp} rows is a multiple of 8 (K4's "
+                    "tensor-core path); quantize with another group "
+                    "(TTS_INT4_GROUP)")
 
 
 def validate_kv_int4(model_cfg: ModelConfig, tp: int) -> None:
@@ -237,6 +252,13 @@ class VocabShards:
         own = in_text | in_audio
         return torch.where(own, local, torch.zeros_like(local)), own
 
+    def own_rows(self, r: int, device=None) -> torch.Tensor:
+        """(rows,) bool: the local rows of rank r that hold a token (the
+        others are padding)."""
+        i = torch.arange(self.rows, device=device)
+        return (i < self.text[r][1]) | (
+            (i >= self.tc) & (i < self.tc + self.audio[r][1]))
+
     def cut(self, t: torch.Tensor, dim: int, r: int) -> torch.Tensor:
         """Rank r's rows of a full (…, vocab, …) tensor along `dim`, padded
         with zeros."""
@@ -263,10 +285,17 @@ class VocabShards:
                 return g.movedim(0, -2).reshape(*g.shape[1:-1], -1)
             return torch.cat([g[r, ..., :s] for r, (_, s)
                               in enumerate(self.audio)], dim=-1)
-        parts = [g[r, ..., :s] for r, (_, s) in enumerate(self.text)]
-        parts += [g[r, ..., self.tc:self.tc + s]
-                  for r, (_, s) in enumerate(self.audio)]
-        return torch.cat(parts, dim=-1)
+        return self.uncut(g, -1)
+
+    def uncut(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor of the gathered blocks g (tp, …): each rank's
+        rows back in vocabulary order along `dim` of a block (the inverse
+        of ``cut``)."""
+        parts = [g[r].narrow(dim, 0, s) for r, (_, s) in enumerate(self.text)]
+        if self.ac:
+            parts += [g[r].narrow(dim, self.tc, s)
+                      for r, (_, s) in enumerate(self.audio)]
+        return torch.cat(parts, dim=dim)
 
 
 @functools.lru_cache(maxsize=32)
@@ -406,7 +435,8 @@ def _cut(t: torch.Tensor, spec: Spec, mesh: Mesh,
 def _cut_i4(w: QuantLinearI4, spec: Spec, mesh: Mesh) -> QuantLinearI4:
     """A tp shard of the logical (K, N) int4 matrix: columns keep the
     packing (their packed width padded to 128 again); rows are unpacked,
-    cut at group boundaries and packed anew over the shard's own K."""
+    cut and packed anew over the shard's own K, at the group
+    ``shard_group`` gives, each scale row the scale of its rows' group."""
     n = w.scale.shape[1]
     k = w.w_p.shape[0] * 2
     g = k // w.scale.shape[0]
@@ -421,13 +451,13 @@ def _cut_i4(w: QuantLinearI4, spec: Spec, mesh: Mesh) -> QuantLinearI4:
                              w.scale[:, i * c:(i + 1) * c].contiguous())
     if spec[0] == "tp":
         kl = k // tp
-        if kl % (2 * g):
-            raise ValueError(f"int4 row shard: K/tp = {kl} is not a whole "
-                             f"number of groups of {g} in each packed half")
+        if kl % 2:
+            raise ValueError(f"int4 row shard: K/tp = {kl} is odd")
+        gs = shard_group(k, g, tp)
         q = unpack_int4(w.w_p)[i * kl:(i + 1) * kl]
-        return QuantLinearI4(pack_int4(q),
-                             w.scale[i * kl // g:(i + 1) * kl // g]
-                             .contiguous())
+        rows = torch.arange(i * kl, (i + 1) * kl, gs,
+                            device=w.scale.device) // g
+        return QuantLinearI4(pack_int4(q), w.scale[rows].contiguous())
     return w
 
 
@@ -453,6 +483,84 @@ def shard_tree(tree, pspec_tree, mesh: Mesh, vocab: Optional[VocabShards]
             return dataclasses.replace(x, **{
                 f.name: walk(getattr(x, f.name), getattr(s, f.name))
                 for f in dataclasses.fields(x)})
+        if isinstance(x, dict):
+            return {k: walk(v, s[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(a, b) for a, b in zip(x, s))
+        return x
+
+    return walk(tree, pspec_tree)
+
+
+# -- gathering --------------------------------------------------------------
+
+
+def _uncut(t: torch.Tensor, spec: Spec, mesh: Mesh,
+           vocab: Optional[VocabShards]) -> torch.Tensor:
+    from tts_inference_tpu_torch.parallel import collectives as C
+
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        g = C.all_gather_tp(t, mesh)
+        if ax == "tp_vocab":
+            if vocab is None:
+                raise ValueError("gather_tree: a tp_vocab axis needs the "
+                                 "partition (vocab=)")
+            t = vocab.uncut(g, dim)
+        else:
+            t = torch.cat(list(g.unbind(0)), dim=dim)
+    return t.contiguous()
+
+
+def _uncut_i4(w: QuantLinearI4, spec: Spec, mesh: Mesh,
+              group: Optional[int]) -> QuantLinearI4:
+    """The whole int4 matrix of a tp shard; a row shard's scales at
+    pick_group(K, group) (default: the shard's own group)."""
+    from tts_inference_tpu_torch.ops.int4_matmul import pick_group
+    from tts_inference_tpu_torch.parallel import collectives as C
+
+    n = w.scale.shape[1]
+    if spec[1] == "tp":
+        # the padding columns as quantize_linear_i4 packs them (zeros)
+        q = C.all_gather_tp(unpack_int4(w.w_p)[:, :n].contiguous(), mesh)
+        q = torch.cat(list(q.unbind(0)), dim=1)
+        q = torch.nn.functional.pad(q, (0, -(-q.shape[1] // 128) * 128
+                                        - q.shape[1]))
+        scale = torch.cat(list(C.all_gather_tp(w.scale, mesh).unbind(0)), 1)
+        return QuantLinearI4(pack_int4(q), scale.contiguous())
+    if spec[0] == "tp":
+        q = C.all_gather_tp(unpack_int4(w.w_p), mesh)
+        q = torch.cat(list(q.unbind(0)), dim=0)
+        k = q.shape[0]
+        scale = torch.cat(list(C.all_gather_tp(w.scale, mesh).unbind(0)), 0)
+        gs = k // scale.shape[0]
+        g = pick_group(k, group) if group else gs
+        if g % gs:
+            raise ValueError(f"gather_tree: group {g} is no multiple of the "
+                             f"shards' group {gs}")
+        return QuantLinearI4(pack_int4(q), scale[::g // gs].contiguous())
+    return w
+
+
+def gather_tree(tree, pspec_tree, mesh: Mesh,
+                vocab: Optional[VocabShards] = None,
+                i4_group: Optional[int] = None):
+    """The inverse of ``shard_tree`` over tp axes (the weights' and the
+    adapters'): every leaf whole again, on every rank (every rank of the
+    mesh must call it). `vocab`: the partition of
+    "tp_vocab" axes (needed when the tree has one); `i4_group`: an int4 row
+    shard's scales go back at ``pick_group(K, i4_group)`` — the group its
+    checkpoint was quantized with — instead of the shard's own."""
+    def walk(x, s):
+        if s is None or x is None:
+            return x
+        if isinstance(x, QuantLinearI4) and isinstance(s, QuantLinearI4):
+            return _uncut_i4(x, s.w_p, mesh, i4_group)
+        if isinstance(x, torch.Tensor):
+            return _uncut(x, s, mesh, vocab)
+        if hasattr(x, "_fields"):
+            return type(x)(*[walk(a, b) for a, b in zip(x, s)])
         if isinstance(x, dict):
             return {k: walk(v, s[k]) for k, v in x.items()}
         if isinstance(x, (list, tuple)):

@@ -229,21 +229,28 @@ class Runtime:
             seed=seed, device=dev, first_bursts=sorted(bursts), mesh=mesh,
             graphs=mesh is None or not mesh.gather_by_sum)
         pipeline = TTSPipeline(engine, vocoder, tokenizer, config)
+        rt = cls(config, pipeline, engine, vocoder, tokenizer, timings, dev,
+                 mesh)
         if warmup:
-            t0 = time.perf_counter()
-            info = engine.warmup()
-            # the single-stream pipeline's vocoder calls: one window per
-            # call, and the fused first chunk of the default stream
-            with torch.no_grad():
-                vocoder.warmup_graphs(1)
-                warmup_first_chunks(vocoder, 1, [first_chunk_geometry(
-                    s, config.snac.samples_per_frame)], dev)
-            info.update(vocoder.census())
-            timings["warmup_s"] = time.perf_counter() - t0
-            # the engine's graph census and the vocoder's (ms)
-            timings.update(info)
-        return cls(config, pipeline, engine, vocoder, tokenizer, timings,
-                   dev, mesh)
+            rt.warmup()
+        return rt
+
+    def warmup(self) -> None:
+        """Capture the engine's graphs and the single-stream pipeline's
+        vocoder graphs (one window per call, and the fused first chunk of
+        the default stream); their census (ms) and the time into
+        ``load_timings``. Under a mesh the engine's core must be mirrored
+        to the other ranks first (``parallel/lockstep.py``)."""
+        t0 = time.perf_counter()
+        info = self.engine.warmup()
+        with torch.no_grad():
+            self.vocoder.warmup_graphs(1)
+            warmup_first_chunks(self.vocoder, 1, [first_chunk_geometry(
+                self.config.stream, self.config.snac.samples_per_frame)],
+                self.device)
+        info.update(self.vocoder.census())
+        self.load_timings["warmup_s"] = time.perf_counter() - t0
+        self.load_timings.update(info)
 
     def write_build_info(self, path: str) -> None:
         """build_info.json: the configs, the device and the boot timings."""

@@ -2,7 +2,9 @@
 
 The port's own server: the wire contracts and the request parsing of
 ``tts_inference_tpu/serving/app.py``, over the port's runtime and scheduler.
-Lockstep multi-host serving is not ported, so its switches are absent.
+Under lockstep serving (``lockstep=True``, ``cli serve --tp/--dp``) the
+endpoints that drive the single-stream engine answer 503, as the JAX
+package's do.
 
 Preserves the reference's wire contracts so its surviving benchmark clients
 run unmodified against this server:

@@ -21,7 +21,7 @@ imports them on each side.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -89,6 +89,34 @@ def shard_params(params: Dict, cfg: ModelConfig, mesh) -> Dict:
     M.validate_tp(cfg, mesh.tp, params)
     return M.shard_tree(params, M.adapt_pspecs(M.llama_param_pspecs(cfg),
                                                params), mesh)
+
+
+def gather_params(shard: Dict, cfg: ModelConfig, mesh,
+                  i4_group: Optional[int] = None) -> Dict:
+    """The whole LM parameter tree of this rank's shard, on every rank of
+    the mesh (the inverse of ``shard_params``); int4 row shards' scales go
+    back at ``pick_group(K, i4_group)``, the checkpoint's group."""
+    from tts_inference_tpu_torch.parallel import mesh as M
+
+    return M.gather_tree(
+        shard, M.adapt_pspecs(M.llama_param_pspecs(cfg), shard), mesh,
+        vocab=M.vocab_shards(cfg.vocab_size, mesh.tp), i4_group=i4_group)
+
+
+def shard_lora(lora: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """This rank's shard of a whole adapter tree (``lora_pspecs``)."""
+    from tts_inference_tpu_torch.parallel import mesh as M
+    from tts_inference_tpu_torch.training.lora import lora_pspecs
+
+    return M.shard_tree(lora, lora_pspecs(cfg, lora), mesh)
+
+
+def gather_lora(lora: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """The whole adapter tree of this rank's shard, on every rank."""
+    from tts_inference_tpu_torch.parallel import mesh as M
+    from tts_inference_tpu_torch.training.lora import lora_pspecs
+
+    return M.gather_tree(lora, lora_pspecs(cfg, lora), mesh)
 
 
 def shard_cache(cache, cfg: ModelConfig, mesh):
