@@ -49,11 +49,12 @@ no result line is printed:
    vocoder's graph census too (row bucket x frame bucket, first chunk) and
    fails unless every vocode-worker call and fused first chunk was a
    replay, with K6 (or K6-bf16) launched exactly 12 times a vocoder call;
-   after it, a graph phase runs the same eight requests (greedy and
-   seeded) through a scheduler over an eager core (``EngineCore(...,
-   graphs=False)``) and eager vocoder and over replayed ones on the
-   phase's weights: tokens equal, or a greedy flip at an eager top-2 logit
-   gap <= 1e-3, and the PCM of equal tokens within PCM16_TOL;
+   after it, a graph phase runs eight requests (greedy and seeded; 70
+   tokens each, 280 in paged_int8, whose pool must preempt) through a
+   scheduler over an eager core (``EngineCore(..., graphs=False)``) and
+   eager vocoder and over replayed ones on the phase's weights: tokens
+   equal, or a greedy flip at an eager top-2 logit gap <= 1e-3, and the
+   PCM of equal tokens within PCM16_TOL;
 5. streaming exactness: windowed lookahead decode vs one batch decode;
 6. reference: the slice at ``tiny_config()`` on the card against the same
    weights on the CPU (plain versions), and finite full-geometry logits;
@@ -85,7 +86,7 @@ no result line is printed:
    and ``_2048``), every resume (one per preemption, at least one) replays
    a graph, and the phase prints the resume gap (the worst gap of the
    preempted streams) and their RTF, and its peak memory; then the soak
-   (``tools/soak.py`` over that phase's scheduler, twice: 15 s of
+   (``tools/soak.py`` over that phase's scheduler, twice: 8 s of
    randomized churn at 8 target streams, cancel rate 0.1; no error, no slot
    or block leak, the vocode queue drained, every submission accounted
    for, no capture; first at 300-900 tokens a request, where the pool must
@@ -145,7 +146,7 @@ no result line is printed:
     replays), ``kv_kernel_bench`` at B 64 W 512 and B 4 W 12,288 (K3a, K3b,
     K5 beside their bounds), ``vocode_bench`` 64 × 16 in f32 and bf16 (12
     launches of K6 / K6-bf16 a call), ``quant_ladder --full-geometry
-    --tokens 140 --utterances 1`` on the rungs bf16, int8 and int4_g128,
+    --tokens 70 --utterances 1`` on the rungs bf16, int8 and int4_g128,
     each in its own process (no rung fails; K2 and K4 launch where their
     rungs need them), and ``sos_ablation`` and ``make_artifacts`` on the
     tiny model on the card, under ``build/tools_phase`` (the artifact gate
@@ -171,7 +172,7 @@ no result line is printed:
     one-process step within a bf16 bound (``two_rank_phase``), with step
     ms, all_reduce calls a step and peak memory a rank; then, on the tp-2
     runtime a sharded ``cli generate`` builds, rank 0's mirrored scheduler
-    serving two greedy requests dense, paged int8 and with int4
+    serving one greedy request dense, paged int8 and with int4
     weights at group 512, and its single-stream engine generating through
     the mirror — the shard shapes held, K1 / K3b, K2 and K4 (int4)
     launched on both ranks, the tokens equal to the unsharded engine's up
@@ -180,7 +181,33 @@ no result line is printed:
     and rank 1 killed mid-stream, after which rank 0's stream ends with
     "engine down"; ``tools/lockstep_overhead.py`` (the µs of mirroring a
     decode launch);
-20. the card line, the kernels' JSON line, and last
+20. deploy phase: the deployment layer (``tts_inference_tpu_torch/
+    deploy/``), every server a process of its own. ``deploy.launch
+    --replicas 2`` over the ``cli serve`` defaults: its warm build (the
+    build info names the kernel library this run built); two full-width
+    replicas on the card (the card's free memory printed before the
+    launch; each replica's device memory in the router's per-replica
+    ``/metrics``; the card's free memory fallen by what they reserve; both
+    pids in ``nvidia-smi --query-compute-apps`` where it lists them: a host
+    whose processes run in a pid namespace of their own is listed as one
+    pid);
+    while they boot, a supervised ``cli serve --tiny
+    --no-warmup`` killed, restarted and drained (``{"restarts": 1}``);
+    one-chunk requests straight to replica0 and through the router in
+    turns (the router hop's share of TTFA); the dense phase's 8 ``/ws/tts``
+    streams through the router (full PCM, the router's ``served`` split
+    summing to 8 with at least 1 on each, 0 late captures in each replica;
+    TTFA, RTF and worst gap beside the dense phase's); replica0 SIGKILLed
+    and 4 streams at once (all on replica1, full PCM); the seconds until
+    replica0's ``/health`` answers again; SIGTERM (rc 0 within
+    ``--drain-s``, the last line ``{"restarts": {"replica0": 1,
+    "replica1": 0, "router": 0}}``, no child left, none of their pids in
+    nvidia-smi and the card's memory back to before the launch); then
+    ``tools/profile_ttfa.py --quantize`` at full width in a process of its
+    own, every line printed, every number finite and positive, K1, K2 and
+    K6 launched. The lockstep launcher has no leg here: its members use
+    NCCL, one card each (the CPU tests run its gloo group);
+21. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
@@ -189,7 +216,7 @@ checkpoint, train, paged, quant, native, prefix, vocoder = phase 17 with the 16-
 kernel cases; tools = phase 18 with ``step_bench`` also at ``--paged-kv
 --kv-int8`` and ``--quantize --weight-bits 4 --paged-kv --kv-int4`` and all
 five ladder rungs, on a runtime of its own without the dense phase;
-multigpu = phase 19 with its kernel cases;
+multigpu = phase 19 with its kernel cases; deploy = phase 20;
 paged,soak runs the churn soak twice; gap = the paged_int8 serve
 phase alone, with ``--port-root DIR`` from another checkout, to time two
 trees in one call) runs some phases during development and prints no
@@ -1396,10 +1423,10 @@ def _request(i: int, opener: str = "") -> dict:
 
 
 async def _drive(port: int, generate: bool, waves: int = 1,
-                 opener: str = "") -> dict:
-    """`waves` waves of N_STREAMS concurrent /ws/tts requests, one after the
-    other, then (with `generate`) one /generate; /metrics before the first
-    wave, after the last and at the end."""
+                 opener: str = "", streams: int = N_STREAMS) -> dict:
+    """`waves` waves of `streams` concurrent /ws/tts requests, one after
+    the other, then (with `generate`) one /generate; /metrics before the
+    first wave, after the last and at the end."""
     import io
     import wave
 
@@ -1445,17 +1472,17 @@ async def _drive(port: int, generate: bool, waves: int = 1,
                "metrics_before": await metrics()}
         for w in range(waves):
             t0 = time.perf_counter()
-            streams = await asyncio.gather(*(
-                one(w * N_STREAMS + i) for i in range(N_STREAMS)))
+            got = await asyncio.gather(*(
+                one(w * streams + i) for i in range(streams)))
             wave_s = time.perf_counter() - t0
-            out["waves"].append({"streams": streams, "wave_s": wave_s})
-            out["streams"] += streams
+            out["waves"].append({"streams": got, "wave_s": wave_s})
+            out["streams"] += got
             out["wave_s"] += wave_s
         out["metrics_waves"] = await metrics()
         if generate:
             t1 = time.perf_counter()
             async with sess.post(base + "/generate", json=_request(
-                    waves * N_STREAMS, opener)) as r:
+                    waves * streams, opener)) as r:
                 if r.status != 200:
                     raise AssertionError(f"/generate: {r.status} "
                                          f"{await r.text()}")
@@ -2035,7 +2062,7 @@ def _recording_scheduler(rt, config, finished: dict, vocoder=None,
 GRAPH_FLIP_GAP = 1e-3   # eager top-2 logit gap below which a greedy flip passes
 
 
-def _graph_run(rt, graphs: bool) -> dict:
+def _graph_run(rt, graphs: bool, max_tokens: int = MAX_TOKENS) -> dict:
     """Eight requests through a scheduler over the runtime's weights,
     stepped by hand so that both runs admit and preempt alike: six at once
     (three greedy, three seeded), two more after eight steps, beside live
@@ -2060,9 +2087,9 @@ def _graph_run(rt, graphs: bool) -> dict:
     reqs = [TS.TTSRequest(
         text=f"Graph probe {i}: the quick brown fox jumps over the dog.",
         force_speech=True,
-        sampling=(SamplingConfig(greedy=True, max_tokens=MAX_TOKENS,
+        sampling=(SamplingConfig(greedy=True, max_tokens=max_tokens,
                                  token_range=audio) if i % 2 == 0 else
-                  SamplingConfig(max_tokens=MAX_TOKENS, seed=500 + i,
+                  SamplingConfig(max_tokens=max_tokens, seed=500 + i,
                                  token_range=audio)))
         for i in range(N_STREAMS)]
     t0 = time.perf_counter()
@@ -2099,7 +2126,12 @@ def _graph_run(rt, graphs: bool) -> dict:
             "late_captures": core.late_captures}
 
 
-def graph_phase(name: str, rt) -> dict:
+# the graph phase's requests where no preemption is needed: 10 frames each
+# (the paged_int8 phase keeps MAX_TOKENS, which its pool cannot hold)
+GRAPH_TOKENS = 70
+
+
+def graph_phase(name: str, rt, max_tokens: int = GRAPH_TOKENS) -> dict:
     """The replayed path against the eager one at full geometry, on the same
     card and weights: the same eight requests (greedy and seeded) through a
     scheduler over an eager core and over a replayed core. Every request's
@@ -2107,8 +2139,8 @@ def graph_phase(name: str, rt) -> dict:
     model's top-2 logit gap is at most GRAPH_FLIP_GAP (the phase prints the
     step and the gap)."""
     with torch.no_grad():
-        eager = _graph_run(rt, graphs=False)
-        replayed = _graph_run(rt, graphs=True)
+        eager = _graph_run(rt, graphs=False, max_tokens=max_tokens)
+        replayed = _graph_run(rt, graphs=True, max_tokens=max_tokens)
     on_cuda = rt.device.type == "cuda"
     if replayed["preemptions"] != eager["preemptions"]:
         raise AssertionError(f"graph[{name}]: preemptions eager "
@@ -2124,7 +2156,7 @@ def graph_phase(name: str, rt) -> dict:
     pcm_diff = 0
     for r in eager["reqs"]:
         a, b = eager["tokens"][r.text], replayed["tokens"][r.text]
-        if len(a) != MAX_TOKENS:
+        if len(a) != max_tokens:
             raise AssertionError(f"graph[{name}] {r.text}: {len(a)} tokens")
         if a == b:
             # the same tokens: the replayed vocoder calls' PCM against the
@@ -2338,7 +2370,7 @@ def native_reference_phase(device="cuda") -> dict:
 # tool's 4096 MB and 0.5 (PERF.md, section 6). No warm-up round: the serve phase warmed the
 # scheduler (every graph captured, no late capture allowed). 15 s each since
 # PR 16 (30 before), to keep the whole run inside its time limit.
-SOAK = {"duration_s": 15.0, "target_streams": 8, "cancel_rate": 0.1,
+SOAK = {"duration_s": 8.0, "target_streams": 8, "cancel_rate": 0.1,
         "seed": 0, "warm_s": 0.0}
 SOAKS = {"preempt": {**SOAK, "max_tokens_range": (300, 900)},
          "churn": SOAK}
@@ -2745,7 +2777,7 @@ def prefix_reference_phase(rt) -> dict:
                                           prefix_cache=tag == "prefix")
                 core = EngineCore(params, mcfg, cfg, device=rt.device,
                                   graphs=False)
-                run = {"waves": _prefix_waves(core, waves, 13, 3, sampling,
+                run = {"waves": _prefix_waves(core, waves, 13, 2, sampling,
                                               pb)}
                 if cfg.kv_on_demand:
                     run["boundary"] = _boundary_run(core, neighbour, newcomer,
@@ -3518,7 +3550,8 @@ def compare_phase() -> dict:
 
 # ---- the tools phase: the measurement and diagnostic tools at full width ----
 
-BUILD = Path(__file__).resolve().parent / "build"
+ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build"
 # step_bench flag sets at B 64, W 512 (bench.py's geometry): the full run
 # takes bench.py's default weights; --only tools all three
 STEP_BENCH = {"int8w": ["--quantize"],
@@ -3646,7 +3679,7 @@ def vocode_bench_phase() -> dict:
 
 
 def ladder_phase(rungs) -> dict:
-    """``tools/quant_ladder.py --full-geometry --tokens 140 --utterances
+    """``tools/quant_ladder.py --full-geometry --tokens 70 --utterances
     1`` on `rungs`, each in its own process: no rung fails, each launches
     its kernels (K2 on the int8 rungs, K4 on the int4 ones) and none of
     another rung's; prints each rung's teacher-forced agreement and logit
@@ -3654,7 +3687,7 @@ def ladder_phase(rungs) -> dict:
     from tts_inference_tpu_torch.tools import quant_ladder as QL
 
     t0 = time.perf_counter()
-    out = QL.run_ladder(tiny=False, tokens=140, utterances=1, seed=0,
+    out = QL.run_ladder(tiny=False, tokens=70, utterances=1, seed=0,
                         rungs=tuple((n, o) for n, o in QL.LADDER
                                     if n in rungs),
                         subprocess_rungs=True, device="cuda")
@@ -4038,7 +4071,7 @@ MG_RUNS = (("dense", {}),
                            "kv_block_size": 128}))
 # the two-rank serve runs' streams (4 before PR 16, which added legs to the
 # phase; cut to keep the whole run inside its time limit)
-MG_REQUESTS = 2
+MG_REQUESTS = 1
 MG_GEN_TEXT = "Mirror probe: the quick brown fox jumps over the lazy dog."
 # the training legs: train_step.CARD_*'s step, MG_TRAIN_STEPS times on one
 # batch, tp 2 and dp 2 over the two ranks
@@ -4643,6 +4676,463 @@ def multigpu_phase() -> dict:
     return res
 
 
+# ---- the deploy phase: the launcher, its router and the TTFA anatomy -------
+
+DEPLOY_DIR = BUILD / "deploy_phase"
+DEPLOY_ARGS = ("--ready-timeout-s", "300", "--health-interval", "1",
+               "--drain-s", "60")
+DEPLOY_DRAIN_S = 60.0
+
+
+def _free_port_block(n: int) -> int:
+    """A port p with p .. p + n free (the replicas take port + 1 ..)."""
+    import socket
+
+    for _ in range(50):
+        p = _free_port()
+        if p + n >= 65535:
+            continue
+        try:
+            for q in range(p + 1, p + n + 1):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", q))
+            return p
+        except OSError:
+            continue
+    raise RuntimeError("no free block of ports")
+
+
+def _children(ppid: int) -> dict:
+    """pid → argv of the live processes whose parent is `ppid`."""
+    out = {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text().rsplit(")", 1)[1].split()
+            if int(stat[1]) != ppid or stat[0] == "Z":
+                continue
+            argv = (d / "cmdline").read_bytes().split(b"\0")
+        except (OSError, ValueError, IndexError):
+            continue
+        out[int(d.name)] = [a.decode() for a in argv if a]
+    return out
+
+
+def _pid_gone(pid: int) -> bool:
+    """The process exited (gone, or a zombie its parent has not reaped)."""
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(
+            ")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _on_port(kids: dict, port: int) -> int:
+    """The child whose argv carries ``--port <port>``."""
+    (pid,) = [p for p, a in kids.items()
+              if "--port" in a and a[a.index("--port") + 1] == str(port)]
+    return pid
+
+
+def _compute_apps() -> list:
+    """(pid, "N MiB") of each process ``nvidia-smi --query-compute-apps``
+    lists on the card."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv"], capture_output=True, text=True, check=True)
+    return [(int(pid), mem.strip()) for pid, mem in (
+        line.split(",") for line in res.stdout.strip().splitlines()[1:])]
+
+
+def _listed(pid: int, apps: list) -> bool:
+    return any(p == pid for p, _ in apps)
+
+
+def _get_json(url: str, timeout: float = 5.0):
+    """(status, JSON body) of a GET; (None, None) when nothing answers."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+    except OSError:
+        return None, None
+
+
+def _await(pred, proc, timeout: float, what: str, log: Path):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        if proc.poll() is not None:
+            raise AssertionError(f"deploy: the launcher exited rc "
+                                 f"{proc.returncode} while waiting for "
+                                 f"{what}:\n{log.read_text()[-4000:]}")
+        time.sleep(0.2)
+    raise AssertionError(f"deploy: no {what} in {timeout:.0f} s:\n"
+                         f"{log.read_text()[-4000:]}")
+
+
+def _launch(argv, log: Path):
+    """``deploy.launch`` in a session of its own (its children share its
+    process group), output to `log`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tts_inference_tpu_torch.deploy.launch",
+         *argv], cwd=ROOT, stdout=open(log, "w"), stderr=subprocess.STDOUT,
+        start_new_session=True)
+
+
+def _drain(proc, log: Path, timeout: float) -> tuple:
+    """SIGTERM the launcher: (rc, seconds to exit, its last line)."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=timeout)
+    lines = [ln for ln in log.read_text().splitlines() if ln.strip()]
+    return rc, time.perf_counter() - t0, json.loads(lines[-1])
+
+
+def _kill_group(proc, pids=()) -> None:
+    """Whatever a failed phase left: the launcher's process group and any
+    child that left it."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    for pid in pids:
+        if not _pid_gone(pid):
+            os.kill(pid, signal.SIGKILL)
+
+
+def _replica_metrics(port: int) -> list:
+    """The per-replica entries of the router's /metrics."""
+    status, body = _get_json(f"http://127.0.0.1:{port}/metrics", 30.0)
+    if status != 200:
+        raise AssertionError(f"deploy: router /metrics answered {status}")
+    return body["per_replica"]
+
+
+def _late(entry: dict) -> dict:
+    """A replica's late captures (its scheduler core's and its vocoder's),
+    from its /metrics as the router passes it through."""
+    g = entry["metrics"]["graphs"]
+    return {k: v for k, v in g.items() if k.endswith("late_captures")}
+
+
+HOP_PAIRS = 4          # one-chunk requests direct and through the router
+
+
+async def _first_audio_ms(port: int, i: int) -> float:
+    """TTFA (ms, client clock) of one request of one chunk (28 tokens)."""
+    import aiohttp
+
+    async with aiohttp.ClientSession() as sess:
+        t0 = time.perf_counter()
+        first = None
+        async with sess.ws_connect(f"http://127.0.0.1:{port}/ws/tts") as ws:
+            await ws.send_json(dict(_request(i), max_tokens=28))
+            async for msg in ws:
+                if msg.type == aiohttp.WSMsgType.BINARY:
+                    first = first or time.perf_counter()
+                    continue
+                data = json.loads(msg.data)
+                if "error" in data:
+                    raise AssertionError(f"hop request {i}: {data}")
+                if data.get("done"):
+                    break
+    if first is None:
+        raise AssertionError(f"hop request {i}: no audio")
+    return (first - t0) * 1e3
+
+
+def _hop_ms(router: int, replica: int) -> dict:
+    """The router hop's share of TTFA: one-chunk requests, one at a time,
+    straight to `replica` and through the router (which sends an idle
+    router's request to the first replica), in turns."""
+    direct, routed = [], []
+    for k in range(HOP_PAIRS):
+        direct.append(asyncio.run(_first_audio_ms(replica, 2 * k)))
+        routed.append(asyncio.run(_first_audio_ms(router, 2 * k + 1)))
+    d, r = sorted(direct)[HOP_PAIRS // 2], sorted(routed)[HOP_PAIRS // 2]
+    return {"direct_ms": direct, "routed_ms": routed,
+            "hop_ms_median": r - d}
+
+
+def replicas_leg(card: str, dense=None, during_boot=None) -> dict:
+    """Two full-width replicas of the ``cli serve`` defaults behind the
+    router, with the warm build; traffic, failover, restart, drain.
+    `during_boot()` starts work that runs while the replicas boot and
+    returns its future; its result is out["during_boot"]."""
+    import os
+    import signal
+
+    from tts_inference_tpu_torch.ops import _build
+
+    DEPLOY_DIR.mkdir(parents=True, exist_ok=True)
+    info_path, log = DEPLOY_DIR / "build_info.json", DEPLOY_DIR / "launch.log"
+    info_path.unlink(missing_ok=True)
+    port = _free_port_block(2)
+    rports = (port + 1, port + 2)
+    out = {}
+    apps0, free0 = _compute_apps(), torch.cuda.mem_get_info()[0]
+    t0, wall0 = time.perf_counter(), time.time()
+    proc = _launch(["--host", "127.0.0.1", "--port", str(port),
+                    "--replicas", "2", "--build-info", str(info_path),
+                    *DEPLOY_ARGS], log)
+    pids: list = []
+    try:
+        beside = during_boot() if during_boot is not None else None
+
+        def ready():
+            st, body = _get_json(f"http://127.0.0.1:{port}/health")
+            return st == 200 and all(r["up"] for r in body["replicas"])
+
+        _await(ready, proc, 420, "two ready replicas behind the router", log)
+        out["ready_s"] = time.perf_counter() - t0
+        if beside is not None:
+            out["during_boot"] = beside.result()
+        info = json.loads(info_path.read_text())
+        lib = info["kernel_library"]
+        if not lib or lib["path"] != str(_build.library_path()) or not \
+                Path(lib["path"]).exists():
+            raise AssertionError(f"deploy: build_info names {lib}, the "
+                                 f"library is {_build.library_path()}")
+        out["warm_build"] = {
+            "kernel_library": lib,
+            "done_s_after_launch": info_path.stat().st_mtime - wall0,
+            "warm_build_s": info["load_timings"].get("warm_build_s")}
+        kids = _children(proc.pid)
+        pids = [_on_port(kids, p) for p in rports]
+        apps, free = _compute_apps(), torch.cuda.mem_get_info()[0]
+        per = _replica_metrics(port)
+        mem = [e["metrics"].get("device_memory", {}) for e in per]
+        if not all(m.get("reserved_bytes.all.current") for m in mem):
+            raise AssertionError(f"deploy: device memory per replica {mem}")
+        out["replica_reserved_gb"] = [
+            m["reserved_bytes.all.current"] / 1e9 for m in mem]
+        # on the card: the card's free memory fell by what they reserve,
+        # and nvidia-smi lists both pids — except where a pid namespace
+        # hides them (nvidia-smi then lists all of its processes under one
+        # pid)
+        need = sum(m["reserved_bytes.all.current"] for m in mem)
+        listed = all(_listed(p, apps) for p in pids)
+        hidden = {p for p, _ in apps} <= {p for p, _ in apps0}
+        out.update(nvidia_smi_before=apps0, nvidia_smi=apps,
+                   pids_listed=listed, free_gb_drop=(free0 - free) / 1e9)
+        print(f"deploy[replicas] [{card}]: ready {out['ready_s']:.1f} s "
+              f"after the launch (warm build {json.dumps(out['warm_build'])}"
+              f"); replica pids {pids}, reserved GB per replica (their "
+              f"/metrics through the router) {out['replica_reserved_gb']}; "
+              f"nvidia-smi compute apps before {apps0}, now {apps} (the "
+              f"replicas' pids {'listed' if listed else 'not listed'}); "
+              f"card free memory {free0 / 1e9:.2f} -> {free / 1e9:.2f} GB",
+              flush=True)
+        if not (listed or hidden) or free0 - free < need:
+            raise AssertionError(f"deploy: replicas {pids} not on the card: "
+                                 f"nvidia-smi {apps0} -> {apps}, free "
+                                 f"{free0} -> {free}, reserved {need}")
+
+        # -- the router hop, then 8 streams through the router -------------
+        out["hop"] = _hop_ms(port, rports[0])
+        print(f"deploy[hop] [{card}]: one-chunk TTFA ms straight to replica0 "
+              f"{[round(x, 1) for x in out['hop']['direct_ms']]}, through "
+              f"the router {[round(x, 1) for x in out['hop']['routed_ms']]}"
+              f": the hop's share (median) "
+              f"{out['hop']['hop_ms_median']:.1f} ms", flush=True)
+        st, health = _get_json(f"http://127.0.0.1:{port}/health")
+        split0 = [r["served"] for r in health["replicas"]]
+        res = asyncio.run(_drive(port, False))
+        short = [s["bytes"] for s in res["streams"]
+                 if s["bytes"] != PCM_BYTES]
+        st, health = _get_json(f"http://127.0.0.1:{port}/health")
+        split = [r["served"] - s0 for r, s0 in zip(health["replicas"],
+                                                     split0)]
+        late = [_late(e) for e in _replica_metrics(port)]
+        p50, p95 = _ttfa(res["streams"])
+        gaps = sorted(s["worst_gap_ms"] for s in res["streams"])
+        audio_s = PCM_BYTES / 2 / 24000
+        out.update(ttfa_ms_p50=p50, ttfa_ms_p95=p95,
+                   aggregate_rtf=len(res["streams"]) * audio_s
+                   / res["wave_s"], worst_gap_ms_max=gaps[-1],
+                   served_split=split, late_captures=late)
+        print(f"deploy[replicas] [{card}]: 8 streams through the router: "
+              f"PCM short {short}, served split {split}, late captures "
+              f"{late}; TTFA ms p50 {p50:.1f} p95 {p95:.1f}, aggregate RTF "
+              f"{out['aggregate_rtf']:.3f}, worst gap {gaps[-1]:.1f} ms",
+              flush=True)
+        if dense is not None:
+            print("deploy[replicas] beside the dense phase (one server, "
+                  "this run): TTFA ms p50 / p95 "
+                  f"{dense['ttfa_ms_p50']:.1f} / {dense['ttfa_ms_p95']:.1f},"
+                  f" aggregate RTF {dense['aggregate_rtf']:.3f}, worst gap "
+                  f"{dense['worst_gap_ms_max']:.1f} ms", flush=True)
+        if short or sum(split) != N_STREAMS or min(split) < 1 or any(
+                v for d in late for v in d.values()):
+            raise AssertionError(f"deploy: PCM short {short}, split {split}"
+                                 f", late captures {late}")
+
+        # -- failover: replica0 killed, 4 streams at once ------------------
+        t_kill = time.perf_counter()
+        os.kill(pids[0], signal.SIGKILL)
+        _await(lambda: _pid_gone(pids[0]), proc, 60, "replica0's exit", log)
+        res4 = asyncio.run(_drive(port, False, streams=4))
+        st, health = _get_json(f"http://127.0.0.1:{port}/health")
+        after = [r["served"] - s0 for r, s0 in zip(health["replicas"],
+                                                     split0)]
+        short = [s["bytes"] for s in res4["streams"]
+                 if s["bytes"] != PCM_BYTES]
+        out["failover"] = {"served_split_after": after,
+                           "ttfa_ms_p50": _ttfa(res4["streams"])[0],
+                           "failures": [r["failures"]
+                                        for r in health["replicas"]]}
+        print(f"deploy[failover] [{card}]: replica0 SIGKILLed; 4 streams "
+              f"through the router, PCM short {short}, served split "
+              f"{split} -> {after}, router failures "
+              f"{out['failover']['failures']}", flush=True)
+        if short or after[0] != split[0] or after[1] != split[1] + 4:
+            raise AssertionError(f"deploy: failover split {split} -> "
+                                 f"{after}, PCM short {short}")
+
+        # -- restart: the launcher brings replica0 back -------------------
+        _await(lambda: _get_json(
+            f"http://127.0.0.1:{rports[0]}/health")[0] == 200, proc, 420,
+            "replica0's restart", log)
+        out["restart_s"] = time.perf_counter() - t_kill
+        new = _on_port(_children(proc.pid), rports[0])
+        pids.append(new)
+        print(f"deploy[restart] [{card}]: replica0 back (pid {new}) "
+              f"{out['restart_s']:.1f} s after the kill", flush=True)
+
+        # -- drain --------------------------------------------------------
+        every = list(_children(proc.pid))
+        rc, drain_s, last = _drain(proc, log, DEPLOY_DRAIN_S + 60)
+        left = [p for p in every + pids if not _pid_gone(p)]
+        apps, free = _compute_apps(), torch.cuda.mem_get_info()[0]
+        out.update(drain_rc=rc, drain_s=drain_s, last_line=last,
+                   nvidia_smi_after=apps)
+        want = {"restarts": {"replica0": 1, "replica1": 0, "router": 0}}
+        # gone from the card: no pid of theirs listed, and the free memory
+        # back to before the launch (within 1 GiB)
+        back = (not any(_listed(p, apps) for p in every + pids)
+                and free >= free0 - 2 ** 30)
+        print(f"deploy[drain] [{card}]: rc {rc} in {drain_s:.1f} s (drain "
+              f"limit {DEPLOY_DRAIN_S:.0f} s); last line {json.dumps(last)};"
+              f" children left {left}; nvidia-smi compute apps {apps} "
+              f"(before the launch {apps0}); card free memory "
+              f"{free / 1e9:.2f} GB (before {free0 / 1e9:.2f})", flush=True)
+        if rc != 0 or drain_s > DEPLOY_DRAIN_S or last != want or left or \
+                not back:
+            raise AssertionError(f"deploy: drain rc {rc} in {drain_s:.1f} s,"
+                                 f" last line {last}, left {left}, apps "
+                                 f"{apps}, free {free} (before {free0})")
+    finally:
+        _kill_group(proc, pids)
+    return out
+
+
+def supervised_leg(card: str) -> dict:
+    """One supervised ``cli serve --tiny --no-warmup`` on the card (no
+    request reaches it, so no graph is captured): killed, restarted,
+    drained."""
+    import os
+    import signal
+
+    log = DEPLOY_DIR / "supervised.log"
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc = _launch(["--host", "127.0.0.1", "--port", str(port),
+                    "--skip-build", *DEPLOY_ARGS, "--", "--tiny",
+                    "--no-warmup"], log)
+    pids: list = []
+    try:
+        def serving(not_pid=None):
+            kids = _children(proc.pid)
+            ok = _get_json(f"http://127.0.0.1:{port}/health")[0] == 200
+            live = [p for p in kids if p != not_pid]
+            return live[0] if ok and len(kids) == 1 and live else None
+
+        pids.append(_await(serving, proc, 240, "the tiny server", log))
+        ready_s = time.perf_counter() - t0
+        t_kill = time.perf_counter()
+        os.kill(pids[0], signal.SIGKILL)
+        pids.append(_await(lambda: serving(pids[0]), proc, 240,
+                           "the restarted tiny server", log))
+        restart_s = time.perf_counter() - t_kill
+        rc, drain_s, last = _drain(proc, log, DEPLOY_DRAIN_S + 60)
+        left = [p for p in pids if not _pid_gone(p)]
+        print(f"deploy[supervised] [{card}]: tiny server ready {ready_s:.1f}"
+              f" s; killed, back in {restart_s:.1f} s (pid {pids[0]} -> "
+              f"{pids[1]}); SIGTERM: rc {rc} in {drain_s:.1f} s, last line "
+              f"{json.dumps(last)}, left {left}", flush=True)
+        if rc != 0 or last != {"restarts": 1} or left:
+            raise AssertionError(f"deploy: supervised rc {rc}, {last}, "
+                                 f"left {left}")
+    finally:
+        _kill_group(proc, pids)
+    return {"ready_s": ready_s, "restart_s": restart_s, "drain_s": drain_s}
+
+
+def ttfa_leg(card: str) -> dict:
+    """``tools/profile_ttfa.py`` at full width with int8 weights, in a
+    process of its own: every line, every number finite and positive, and
+    K1, K2 and K6 launched."""
+    from tts_inference_tpu_torch.tools.profile_ttfa import numbers_ok
+
+    res = subprocess.run(
+        [sys.executable, "-m", "tts_inference_tpu_torch.tools.profile_ttfa",
+         "--quantize", "--iters", "6"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    for line in lines:
+        print(f"deploy[profile_ttfa] [{card}]: {line}", flush=True)
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"profile_ttfa: rc {res.returncode}\n"
+                             f"{res.stderr[-4000:]}")
+    report = json.loads(lines[-1])
+    ran = report["launches"]
+    if not numbers_ok(report) or not all(ran.get(k, 0) > 0
+                                         for k in ("K1", "K2", "K6")):
+        raise AssertionError(f"profile_ttfa: {report}")
+    return report
+
+
+def deploy_phase(dense=None) -> dict:
+    """The deployment layer on the card: ``deploy.launch --replicas 2``
+    (warm build, two full-width replicas behind the router, 8 streams,
+    failover, restart, drain), one supervised tiny server (while the
+    replicas boot), and ``tools/profile_ttfa.py``."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    card = card_line()
+    print(f"deploy [{card}]: card memory free {free / 1e9:.2f} of "
+          f"{total / 1e9:.2f} GB before the launch (this process reserves "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB)", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    # the tiny server's drill runs while the two replicas boot (it times
+    # nothing the phase reports beside the replicas' numbers)
+    with ThreadPoolExecutor(1) as pool:
+        res = {"free_gb_before": free / 1e9,
+               "replicas": replicas_leg(
+                   card, dense,
+                   during_boot=lambda: pool.submit(supervised_leg, card))}
+    res["supervised"] = res["replicas"].pop("during_boot")
+    res["profile_ttfa"] = ttfa_leg(card)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"deploy: {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
 KERNELS = (
     # key, name, source under tts_inference_tpu_torch/csrc, the TPU kernel
     ("K1", "decode_attention", "decode_attention.cu",
@@ -4675,10 +5165,11 @@ def main(argv=None) -> int:
                          "quant, prefix, vocoder, native, tools = the "
                          "measurement and diagnostic tools with every flag "
                          "set and rung, multigpu = the sharded serving path "
-                         "and its kernel shapes, compare = the serve "
-                         "phases eager and replayed, gap = the paged_int8 "
-                         "phase alone) and print no result line; the full "
-                         "run takes no arguments")
+                         "and its kernel shapes, deploy = the launcher, "
+                         "its router and the TTFA anatomy, compare = the "
+                         "serve phases eager and replayed, gap = the "
+                         "paged_int8 phase alone) and print no result "
+                         "line; the full run takes no arguments")
     ap.add_argument("--port-root", default=None, metavar="DIR",
                     help="development, with --only gap: import the port "
                          "from DIR (a checkout of another commit), to time "
@@ -4703,10 +5194,13 @@ def main(argv=None) -> int:
 
     def stamp(label):
         """The seconds since the last stamp, under the blocks then ending
-        (0 for a block that did not run)."""
+        (0 for a block that did not run), printed as each block ends."""
         now = time.perf_counter()
         times[label] = round(now - stamp.t, 1)
         stamp.t = now
+        if times[label]:
+            print(f"chip_smoke: block {label} {times[label]} s, "
+                  f"{now - t_run:.1f} s in all", flush=True)
 
     stamp.t = t_run
     build_phase()
@@ -4749,7 +5243,8 @@ def main(argv=None) -> int:
             phases["soak"] = soak_phase(
                 "paged_int8", phases["paged_int8"]["sched"], "churn")
         graphs["paged_int8"] = graph_phase("paged_int8",
-                                           phases["paged_int8"]["rt"])
+                                           phases["paged_int8"]["rt"],
+                                           MAX_TOKENS)
         if graphs["paged_int8"]["preemptions"] < 1:
             raise AssertionError("graph[paged_int8]: no preemption")
         _free(phases["paged_int8"])
@@ -4828,6 +5323,9 @@ def main(argv=None) -> int:
             shard_kernel_cases(torch.Generator(device="cuda").manual_seed(0))
         phases["multigpu"] = multigpu_phase()
     stamp("multigpu")
+    if on("deploy"):
+        phases["deploy"] = deploy_phase(phases.get("dense"))
+    stamp("deploy")
     print("chip_smoke: seconds by block", json.dumps(times), "total",
           round(time.perf_counter() - t_run, 1), flush=True)
     if only is not None:

@@ -433,3 +433,13 @@ def test_runtime_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     rt = Runtime.create(TCFG, device="cpu")
     assert rt.device.type == "cpu"
     assert rt.engine.core.params["final_norm"].device.type == "cpu"
+
+
+def test_create_tiny_runtime_is_the_jax_helpers_config():
+    """`runtime.create_tiny_runtime` (the JAX package's one-line helper)
+    builds the tiny config's runtime, on the CPU when asked."""
+    from tts_inference_tpu_torch.runtime import create_tiny_runtime
+
+    rt = create_tiny_runtime(seed=0, device="cpu")
+    assert rt.config == port_config(tiny_config())
+    assert rt.device.type == "cpu" and "warmup_s" not in rt.load_timings

@@ -287,3 +287,50 @@ def test_make_artifacts_writes_under_build_and_passes(tmp_path, monkeypatch,
     rep = json.loads((out / "fidelity.json").read_text())
     assert rep["artifact_gate"]["passed"] and rep["pass"]
     assert rep["request"]["tokens"] == 140 and rep["request"]["chunks"] >= 2
+
+
+# -- profile_ttfa ------------------------------------------------------------------
+
+# the JAX tool's labelled lines, in its order (tools/profile_ttfa.py:71-166)
+TTFA_LABELS = ("burst (prefill+{N} steps, 1 dispatch):",
+               "prefill only (1 dispatch):",
+               "decode scan n={N} (1 dispatch):",
+               "single step, full sampling chain:",
+               "single step, greedy argmax:",
+               "single step, no LM head:",
+               "scan n={N} greedy (no sampler):",
+               "first-chunk vocoder decode_frames:",
+               "implied in-scan step:", "| sampling ≈", "| LM head ≈")
+
+
+def test_profile_ttfa_prints_the_jax_tools_lines(capsys):
+    """The tiny model on the CPU: every label of the JAX tool in its order,
+    each with a finite positive number, then a JSON line of the same
+    numbers."""
+    import math
+    import re
+    from pathlib import Path
+
+    from tts_inference_tpu_torch.tools import profile_ttfa as TPT
+
+    jax_src = (Path(__file__).resolve().parents[1] / "tools"
+               / "profile_ttfa.py").read_text()
+    assert all(label in jax_src for label in TTFA_LABELS)
+    assert TPT.main(["--tiny", "--device", "cpu", "--iters", "5"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    text = "\n".join(lines[:-1])
+    at, values = 0, []
+    for label in TTFA_LABELS:
+        label = label.replace("{N}", str(TPT.N))
+        i = text.find(label, at)
+        assert i >= 0, (label, text)
+        at = i + len(label)
+        values.append(float(re.match(r"\s*(-?[\d.]+) ms", text[at:])[1]))
+    assert all(math.isfinite(v) and v > 0 for v in values), values
+    report = json.loads(lines[-1])
+    assert TPT.numbers_ok(report)
+    assert report["device"] == "cpu" and report["scan_n"] == TPT.N
+    assert report["weights"] == "QuantLinear"     # int8 by default
+    for key, v in zip(("burst_ms", "prefill_ms", "scan_ms"), values):
+        assert round(report[key], 2) == v
+    assert round(report["lm_head_ms"], 2) == values[-1]

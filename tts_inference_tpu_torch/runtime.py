@@ -252,17 +252,37 @@ class Runtime:
         self.load_timings["warmup_s"] = time.perf_counter() - t0
         self.load_timings.update(info)
 
-    def write_build_info(self, path: str) -> None:
-        """build_info.json: the configs, the device and the boot timings."""
-        info = {
-            "framework": "tts_inference_tpu_torch",
-            "backend": self.device.type,
-            "device_name": (torch.cuda.get_device_name(self.device)
-                            if self.device.type == "cuda" else "cpu"),
-            "model": dataclasses.asdict(self.config.model),
-            "engine": dataclasses.asdict(self.config.engine),
-            "snac": dataclasses.asdict(self.config.snac),
-            "load_timings": self.load_timings,
-        }
-        with open(path, "w") as f:
-            json.dump(info, f, indent=2, default=str)
+    def write_build_info(self, path: str, **extra) -> None:
+        """build_info.json: the configs, the device and the boot timings
+        (and `extra`'s keys)."""
+        write_build_info(path, self.config, self.device, self.load_timings,
+                         **extra)
+
+
+def write_build_info(path: str, config: Config, device: torch.device,
+                     load_timings: dict, **extra) -> None:
+    """build_info.json of a runtime of `config` on `device`, with `extra`'s
+    keys beside the configs and the timings."""
+    info = {
+        "framework": "tts_inference_tpu_torch",
+        "backend": device.type,
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "model": dataclasses.asdict(config.model),
+        "engine": dataclasses.asdict(config.engine),
+        "snac": dataclasses.asdict(config.snac),
+        "load_timings": load_timings,
+        **extra,
+    }
+    with open(path, "w") as f:
+        json.dump(info, f, indent=2, default=str)
+
+
+def create_tiny_runtime(seed: int = 0, warmup: bool = False,
+                        device=None) -> Runtime:
+    """Tiny random-weight runtime (tests, smoke runs, ``cli --tiny``); on
+    cuda unless `device` says otherwise."""
+    from tts_inference_tpu_torch.config import tiny_config
+
+    return Runtime.create(tiny_config(), seed=seed, warmup=warmup,
+                          device=device)

@@ -55,19 +55,18 @@ def replay_ms(run: Callable[[], Any], iters: int, device) -> float:
     return best
 
 
-def chained_ms(step: Callable[[Any], Any], carry, reps: int, iters: int,
-               device) -> float:
-    """Milliseconds per call of `step` in a chain of `reps` calls, each fed
-    the one before's output (``carry = step(carry)``, as the JAX tools chain
-    them in a ``lax.scan``); the best of `iters` runs of the chain
-    (``replay_ms``).
+def chain_run(step: Callable[[Any], Any], carry, reps: int,
+              device) -> Callable[[], Any]:
+    """A run of `reps` chained calls of `step`, each fed the one before's
+    output (``carry = step(carry)``, as the JAX tools chain them in a
+    ``lax.scan``).
 
     On a CUDA device the chain is captured once into a CUDA graph, after
     one eager call that does what a capture must not (the kernel build,
     library handles, the kernels' workspaces; its launches are not
-    counted), and each run replays the graph: a device time, with no host
+    counted), and the run replays the graph: a device time, with no host
     enqueue in it. Every replay adds the chain's kernel launches to their
-    counters. On the CPU the chain runs eagerly."""
+    counters. On the CPU the run is the eager chain."""
     from tts_inference_tpu_torch.ops import _build
 
     def chain():
@@ -77,7 +76,7 @@ def chained_ms(step: Callable[[Any], Any], carry, reps: int, iters: int,
         return c
 
     if torch.device(device).type != "cuda":
-        return replay_ms(chain, iters, device) / reps
+        return chain
     with CAPTURE_LOCK:
         with _build.record_launches():
             step(carry)
@@ -87,5 +86,13 @@ def chained_ms(step: Callable[[Any], Any], carry, reps: int, iters: int,
         with _build.record_launches() as launches, torch.cuda.graph(
                 graph, capture_error_mode="thread_local"):
             outputs = chain()
-    return replay_ms(Graph(graph, outputs, launches).replay, iters,
+    return Graph(graph, outputs, launches).replay
+
+
+def chained_ms(step: Callable[[Any], Any], carry, reps: int, iters: int,
+               device) -> float:
+    """Milliseconds per call of `step` in a chain of `reps` calls
+    (``chain_run``); the best of `iters` runs of the chain
+    (``replay_ms``)."""
+    return replay_ms(chain_run(step, carry, reps, device), iters,
                      device) / reps
