@@ -3,7 +3,11 @@
     python3 chip_smoke.py
 
 Phases, in order; any failed check raises, so the exit code is nonzero and
-no result line is printed:
+no result line is printed. The serve phases after the dense one (the
+checkpoint and train boots, paged bf16, int4, int8w, native, prefix, the
+bf16 vocoder, the deploy replicas) add ``SMALL_SERVE``'s flags, a smaller
+census (max_seq 512), and paged_int8 takes max_seq 2,048, so that the run
+keeps within its time limit on a slow host:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build of the hand-written kernels from ``tts_inference_tpu_torch/csrc``;
@@ -50,7 +54,7 @@ no result line is printed:
    fails unless every vocode-worker call and fused first chunk was a
    replay, with K6 (or K6-bf16) launched exactly 12 times a vocoder call;
    after it, a graph phase runs eight requests (greedy and seeded; 70
-   tokens each, 280 in paged_int8, whose pool must preempt) through a
+   tokens each, 210 in paged_int8, whose pool must preempt) through a
    scheduler over an eager core (``EngineCore(..., graphs=False)``) and
    eager vocoder and over replayed ones on the phase's weights: tokens
    equal, or a greedy flip at an eager top-2 logit gap <= 1e-3, and the
@@ -86,7 +90,7 @@ no result line is printed:
    and ``_2048``), every resume (one per preemption, at least one) replays
    a graph, and the phase prints the resume gap (the worst gap of the
    preempted streams) and their RTF, and its peak memory; then the soak
-   (``tools/soak.py`` over that phase's scheduler, twice: 8 s of
+   (``tools/soak.py`` over that phase's scheduler, twice: 5 s of
    randomized churn at 8 target streams, cancel rate 0.1; no error, no slot
    or block leak, the vocode queue drained, every submission accounted
    for, no capture; first at 300-900 tokens a request, where the pool must
@@ -167,12 +171,12 @@ no result line is printed:
     then runs three LoRA steps of the tiny model in f32 through the mesh
     code path, their losses and adapters within 1e-5 of the one-process
     step's; two ranks sharing the card over gloo (eager: gloo cannot be
-    captured): three full-width LoRA steps of train_step.CARD_*'s shape at
+    captured): two full-width LoRA steps of train_step.CARD_*'s shape at
     tp 2 and at dp 2, each rank's losses and gradients held to the
     one-process step within a bf16 bound (``two_rank_phase``), with step
     ms, all_reduce calls a step and peak memory a rank; then, on the tp-2
     runtime a sharded ``cli generate`` builds, rank 0's mirrored scheduler
-    serving one greedy request dense, paged int8 and with int4
+    serving one greedy request (35 tokens) dense, paged int8 and with int4
     weights at group 512, and its single-stream engine generating through
     the mirror — the shard shapes held, K1 / K3b, K2 and K4 (int4)
     launched on both ranks, the tokens equal to the unsharded engine's up
@@ -183,7 +187,8 @@ no result line is printed:
     decode launch);
 20. deploy phase: the deployment layer (``tts_inference_tpu_torch/
     deploy/``), every server a process of its own. ``deploy.launch
-    --replicas 2`` over the ``cli serve`` defaults: its warm build (the
+    --replicas 2`` over ``cli serve`` with ``SMALL_SERVE``'s smaller census
+    (max_seq 512, two KV windows): its warm build (the
     build info names the kernel library this run built); two full-width
     replicas on the card (the card's free memory printed before the
     launch; each replica's device memory in the router's per-replica
@@ -207,7 +212,19 @@ no result line is printed:
     own, every line printed, every number finite and positive, K1, K2 and
     K6 launched. The lockstep launcher has no leg here: its members use
     NCCL, one card each (the CPU tests run its gloo group);
-21. the card line, the kernels' JSON line, and last
+21. long phase: ``bench.py --mode long``'s engine class through ``cli
+    serve`` (``--quantize --paged-kv --max-batch-size 4 --max-input-len
+    128 --prefill-buckets 128 --max-output-len 12032 --kv-pool-tokens
+    48704``: max_seq 12,160, windows to 8,192 and max_seq): 4 concurrent
+    ``/ws/tts`` streams of 8,379 tokens (1,197 frames, 102.1 s), every
+    frame delivered, decode launches replayed at the 4,096, 8,192 and
+    12,160 windows with no late capture, K3a on every layer of every
+    decode step, K2 on every linear and the head, K6 12 a vocoder call;
+    then the JAX package's long-audio test geometry on the tiny model
+    (max_seq 14,400, blocks of 64): 2,016 frames through the pipeline with
+    O(n) re-decode, the streamed PCM within PCM16_TOL of the batch decode,
+    and 4,300 greedy tokens held to the CPU's choice at every step;
+22. the card line, the kernels' JSON line, and last
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package. Exits nonzero
@@ -216,7 +233,8 @@ checkpoint, train, paged, quant, native, prefix, vocoder = phase 17 with the 16-
 kernel cases; tools = phase 18 with ``step_bench`` also at ``--paged-kv
 --kv-int8`` and ``--quantize --weight-bits 4 --paged-kv --kv-int4`` and all
 five ladder rungs, on a runtime of its own without the dense phase;
-multigpu = phase 19 with its kernel cases; deploy = phase 20;
+multigpu = phase 19 with its kernel cases; deploy = phase 20; long =
+phase 21;
 paged,soak runs the churn soak twice; gap = the paged_int8 serve
 phase alone, with ``--port-root DIR`` from another checkout, to time two
 trees in one call) runs some phases during development and prints no
@@ -226,6 +244,7 @@ result line.
 from __future__ import annotations
 
 import asyncio
+import collections
 import dataclasses
 import gc
 import json
@@ -1414,19 +1433,21 @@ def _free_port() -> int:
 OPENER = "Thanks for calling the support line. "
 
 
-def _request(i: int, opener: str = "") -> dict:
+def _request(i: int, opener: str = "", max_tokens: int = MAX_TOKENS) -> dict:
     # bench.py's request: speech forced, audio tokens only, fixed budget
     return {"text": f"{opener}Stream {i}: the quick brown fox jumps over the "
                     "dog.",
             "force_speech": True, "audio_only": True,
-            "max_tokens": MAX_TOKENS, "seed": 1000 + i, "benchmark": True}
+            "max_tokens": max_tokens, "seed": 1000 + i, "benchmark": True}
 
 
 async def _drive(port: int, generate: bool, waves: int = 1,
-                 opener: str = "", streams: int = N_STREAMS) -> dict:
-    """`waves` waves of `streams` concurrent /ws/tts requests, one after
-    the other, then (with `generate`) one /generate; /metrics before the
-    first wave, after the last and at the end."""
+                 opener: str = "", streams: int = N_STREAMS,
+                 max_tokens: int = MAX_TOKENS) -> dict:
+    """`waves` waves of `streams` concurrent /ws/tts requests of
+    `max_tokens` tokens, one after the other, then (with `generate`) one
+    /generate; /metrics before the first wave, after the last and at the
+    end."""
     import io
     import wave
 
@@ -1445,7 +1466,7 @@ async def _drive(port: int, generate: bool, waves: int = 1,
             nbytes = 0
             done = None
             async with sess.ws_connect(base + "/ws/tts") as ws:
-                await ws.send_json(_request(i, opener))
+                await ws.send_json(_request(i, opener, max_tokens))
                 async for msg in ws:
                     if msg.type == aiohttp.WSMsgType.BINARY:
                         arrivals.append(time.perf_counter())
@@ -1465,7 +1486,7 @@ async def _drive(port: int, generate: bool, waves: int = 1,
             gaps = [(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])]
             return {"ttfa_ms": (arrivals[0] - t0) * 1e3, "bytes": nbytes,
                     "wall_s": wall, "done": done,
-                    "text": _request(i, opener)["text"],
+                    "text": _request(i, opener, max_tokens)["text"],
                     "worst_gap_ms": max(gaps, default=0.0)}
 
         out = {"streams": [], "waves": [], "wave_s": 0.0,
@@ -1482,7 +1503,7 @@ async def _drive(port: int, generate: bool, waves: int = 1,
         if generate:
             t1 = time.perf_counter()
             async with sess.post(base + "/generate", json=_request(
-                    waves * streams, opener)) as r:
+                    waves * streams, opener, max_tokens)) as r:
                 if r.status != 200:
                     raise AssertionError(f"/generate: {r.status} "
                                          f"{await r.text()}")
@@ -1571,16 +1592,19 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
                 min_preemptions: int = 0, eager: bool = False,
                 on_boot=None, waves: int = 1, opener: str = "",
                 prefix_counts=None, vocoder_kernel: str = "K6",
-                resume: bool = False) -> dict:
+                resume: bool = False, max_tokens: int = MAX_TOKENS,
+                streams: int = N_STREAMS, windows=()) -> dict:
     """Build `cli serve` (runtime + scheduler) from `argv`, put the port's
-    aiohttp app on a localhost port and drive it: `waves` waves of 8
-    concurrent /ws/tts streams (texts starting with `opener`), then (with
-    `generate`) one /generate, then /metrics. `expect` maps each kernel of
-    the phase's path to its launch count as a function of (layers, decode
-    steps, forward passes); every kernel it does not name must not run,
-    except `vocoder_kernel` (K6, or K6-bf16 under ``--vocoder-bf16``),
-    which carries every residual unit of every vocoder call: 12 launches a
-    call. Every vocoder call of the run (the vocode worker's and the fused
+    aiohttp app on a localhost port and drive it: `waves` waves of
+    `streams` (8) concurrent /ws/tts streams of `max_tokens` (280) tokens
+    (texts starting with `opener`), then (with `generate`) one /generate,
+    then /metrics. Every phase prints the scheduler core's decode launches
+    by KV window; each window of `windows` must have one. `expect` maps
+    each kernel of the phase's path to its launch count as a function of
+    (layers, decode steps, forward passes); every kernel it does not name
+    must not run, except `vocoder_kernel` (K6, or K6-bf16 under
+    ``--vocoder-bf16``), which carries every residual unit of every
+    vocoder call: 12 launches a call. Every vocoder call of the run (the vocode worker's and the fused
     first chunk's) must be a graph replay, with no capture while serving;
     decodes beyond the streaming window's frame bucket run eagerly and are
     counted. With `eager` both engine cores are replaced by eager ones
@@ -1611,6 +1635,7 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     if getattr(args, "native_protocol", False) and not scheduler.use_native:
         raise AssertionError(f"serve[{name}]: --native-protocol, but the "
                              "scheduler runs the Python extractor")
+    pcm_bytes = (max_tokens // 7) * 2048 * 2
     preempted = []      # texts of the requests the scheduler preempted
     preempt = scheduler._preempt
 
@@ -1642,6 +1667,15 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     if on_boot is not None:
         on_boot(rt)
     core = scheduler.core
+    by_window = collections.Counter()   # the core's decode launches
+    launch = core._launch
+
+    def _recording_launch(key, *a, **kw):
+        if key[0] == "decode":
+            by_window[key[2]] += 1
+        return launch(key, *a, **kw)
+
+    core._launch = _recording_launch
     kv = (" int4" if getattr(core.cache, "int4", False)
           else " int8" if core.cache.quantized else "")
     weights = type(core.params["layers"][0]["wq"]).__name__
@@ -1681,7 +1715,8 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         await runner.setup()
         await web.TCPSite(runner, "127.0.0.1", port).start()
         try:
-            return await _drive(port, generate, waves, opener)
+            return await _drive(port, generate, waves, opener, streams,
+                                max_tokens)
         finally:
             await runner.cleanup()
 
@@ -1693,10 +1728,11 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         # counts cover exactly the main path's run
         for c in counters.values():
             c.reset()
-        steps0 = sum(c.decode_steps for c in cores)
+        steps0 = sum(c.steps_launched for c in cores)
         prefills0 = sum(c.prefills for c in cores)
+        by_window.clear()
         res = asyncio.run(run())
-        steps = sum(c.decode_steps for c in cores) - steps0
+        steps = sum(c.steps_launched for c in cores) - steps0
         passes = steps + sum(c.prefills for c in cores) - prefills0
         launches = {k: c.count for k, c in counters.items()}
     finally:
@@ -1709,6 +1745,12 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     late = [c.late_captures - n for c, n in zip(cores, late0)]
     print(f"serve[{name}] launches and replays (scheduler, single stream):",
           json.dumps(uses), "late captures", late, flush=True)
+    print(f"serve[{name}] decode launches by KV window (scheduler):",
+          json.dumps(dict(sorted(by_window.items()))), flush=True)
+    if not all(by_window[w] for w in windows):
+        raise AssertionError(f"serve[{name}]: decode launches by window "
+                             f"{dict(by_window)}; each of {list(windows)} "
+                             "needs one")
     if resume:
         tier = {f"capture_prefill_resume_{b}" for b in core.resume_tier()}
         resumes = uses[0]["launches"].get("resume", 0)
@@ -1745,11 +1787,11 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
 
     layers = rt.config.model.num_hidden_layers
     short = [(i, s["bytes"], s["done"]) for i, s in enumerate(res["streams"])
-             if s["bytes"] != PCM_BYTES]
+             if s["bytes"] != pcm_bytes]
     if short:
         raise AssertionError(f"streams (index, PCM bytes, done) {short}: "
-                             f"expected {PCM_BYTES} bytes each")
-    if generate and res["generate_samples"] != PCM_BYTES // 2:
+                             f"expected {pcm_bytes} bytes each")
+    if generate and res["generate_samples"] != pcm_bytes // 2:
         raise AssertionError(f"/generate: {res['generate_samples']} samples")
     on_cuda = rt.device.type == "cuda"
     want = {k: fn(layers, steps, passes) for k, fn in expect.items()}
@@ -1780,7 +1822,7 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
             raise AssertionError(f"serve[{name}]: the waves added {prefix} "
                                  f"to the prefix counters, expected "
                                  f"{prefix_counts}")
-    audio_s = PCM_BYTES / 2 / 24000
+    audio_s = pcm_bytes / 2 / 24000
     p50, p95 = _ttfa(res["streams"])
     gaps = sorted(st["worst_gap_ms"] for st in res["streams"])
     resumed = [{"text": st["text"], "worst_gap_ms": st["worst_gap_ms"],
@@ -1802,6 +1844,7 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
         "wave_wall_s": res["wave_s"],
         "generate_wall_s": res.get("generate_s"),
         "decode_steps": steps, "forward_passes": passes,
+        "decode_launches_by_window": dict(sorted(by_window.items())),
         "launches": launches, "vocoder_calls": vuse,
         "vocoder_census": vocoder_census,
         "scheduler_metrics": sched_metrics,
@@ -1833,7 +1876,7 @@ def serve_phase(name: str, argv, expect: dict, generate: bool = True,
     gb = f" = {peak / 1e9:.2f} GB, reserved {held / 1e9:.2f} GB" if peak \
         else ""
     print(f"serve[{name}] peak memory {peak} bytes{gb}", flush=True)
-    print(f"serve[{name}]: {waves} x 8 x /ws/tts"
+    print(f"serve[{name}]: {waves} x {streams} x /ws/tts"
           f"{' + /generate' if generate else ''} ok:", json.dumps(out),
           flush=True)
     return {"rt": rt, "sched": scheduler, "served_tokens": served, **out}
@@ -1942,6 +1985,24 @@ def _top2_gap(rt, prompt, toks, i, sampling) -> float:
     return float(top[0] - top[1])
 
 
+def _one_slot_cache(rt):
+    """An empty one-slot cache of the runtime's kind and max_seq (paged: a
+    table of its own blocks) on its device."""
+    from tts_inference_tpu_torch.models import llama
+
+    core, cfg, ecfg = rt.engine.core, rt.config.model, rt.config.engine
+    if not ecfg.paged_kv:
+        return llama.init_kv_cache(cfg, 1, core.max_seq, device=core.device,
+                                   int8=ecfg.kv_cache_int8)
+    nblk = core.max_seq // ecfg.kv_block_size
+    cache = llama.init_paged_kv_cache(
+        cfg, 1, core.max_seq, num_blocks=1 + nblk,
+        block_size=ecfg.kv_block_size, int8=ecfg.kv_cache_int8,
+        int4=ecfg.kv_cache_int4, device=core.device)
+    cache.block_table[0] = torch.arange(1, 1 + nblk, dtype=torch.int32)
+    return cache
+
+
 def _allowed_logits(rt, prompt, toks, i, sampling, kv_window=None,
                     with_cache=False, split=0):
     """The logits the sampler ranks at greedy step i: prompt + toks[:i]
@@ -1953,18 +2014,8 @@ def _allowed_logits(rt, prompt, toks, i, sampling, kv_window=None,
     from tts_inference_tpu_torch.models import llama
     from tts_inference_tpu_torch.ops import sampling as S
 
-    core, cfg = rt.engine.core, rt.config.model
-    ecfg, dev = rt.config.engine, core.device
-    if ecfg.paged_kv:
-        bs = ecfg.kv_block_size
-        nblk = core.max_seq // bs
-        cache = llama.init_paged_kv_cache(
-            cfg, 1, core.max_seq, num_blocks=1 + nblk, block_size=bs,
-            int8=ecfg.kv_cache_int8, int4=ecfg.kv_cache_int4, device=dev)
-        cache.block_table[0] = torch.arange(1, 1 + nblk, dtype=torch.int32)
-    else:
-        cache = llama.init_kv_cache(cfg, 1, core.max_seq, device=dev,
-                                    int8=ecfg.kv_cache_int8)
+    core, cfg, dev = rt.engine.core, rt.config.model, rt.engine.core.device
+    cache = _one_slot_cache(rt)
     ids = torch.tensor([list(prompt) + list(toks[:i])], dtype=torch.int32,
                        device=dev)
     n = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
@@ -1991,6 +2042,41 @@ def _allowed_logits(rt, prompt, toks, i, sampling, kv_window=None,
     col = core.logits_base + torch.arange(pen.shape[-1], device=dev)
     pen = pen.masked_fill(~((col >= lo) & (col < hi)), float("-inf"))
     return (pen, cache) if with_cache else pen
+
+
+def _forced_logits(rt, prompt, toks, sampling):
+    """The logits the greedy sampler ranks at every step of `toks`, each
+    given the prompt and the tokens before it (teacher-forced): one forward
+    over prompt + toks[:-1] into a one-slot cache of the runtime's kind,
+    then each step's repetition penalty (the prompt and toks[:i] seen) and
+    the token range, as ``_allowed_logits`` applies them to one step.
+    (steps, V - logits_base) on the runtime's device."""
+    from tts_inference_tpu_torch.models import llama
+    from tts_inference_tpu_torch.ops import sampling as S
+
+    core, cfg, dev = rt.engine.core, rt.config.model, rt.engine.core.device
+    base = core.logits_base
+    cache = _one_slot_cache(rt)
+    ids = torch.tensor([list(prompt) + list(toks[:-1])], dtype=torch.int32,
+                       device=dev)
+    n = torch.tensor([ids.shape[1]], dtype=torch.int32, device=dev)
+    hidden, _ = llama.forward(core.params, cfg, ids, cache,
+                              torch.zeros_like(n), n, kv_window=ids.shape[1])
+    logits = llama.compute_logits(core.params, cfg,
+                                  hidden[0, len(prompt) - 1:], base)
+    steps, v = logits.shape
+    # step i has seen token t when t is in the prompt or t's first step < i
+    first = torch.full((v,), steps, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, torch.tensor(toks, device=dev) - base,
+                          torch.arange(steps, device=dev), reduce="amin")
+    first[[t - base for t in prompt if t >= base]] = -1
+    seen = torch.arange(steps, device=dev)[:, None] > first[None, :]
+    pen = S.apply_repetition_penalty(
+        logits, seen, torch.full((steps,), sampling.repetition_penalty,
+                                 device=dev))
+    lo, hi = sampling.token_range
+    col = base + torch.arange(v, device=dev)
+    return pen.masked_fill(~((col >= lo) & (col < hi)), float("-inf"))
 
 
 def _tiny_check(name: str, device, flip_gap=None, quantize=False,
@@ -2127,8 +2213,11 @@ def _graph_run(rt, graphs: bool, max_tokens: int = MAX_TOKENS) -> dict:
 
 
 # the graph phase's requests where no preemption is needed: 10 frames each
-# (the paged_int8 phase keeps MAX_TOKENS, which its pool cannot hold)
 GRAPH_TOKENS = 70
+# the paged_int8 phase's: 30 frames, which its pool of 16 blocks cannot
+# hold for 8 streams of a ~62-token prompt (3 blocks each past 256
+# positions, from the ~190th token), so it preempts
+PAGED_GRAPH_TOKENS = 210
 
 
 def graph_phase(name: str, rt, max_tokens: int = GRAPH_TOKENS) -> dict:
@@ -2370,7 +2459,7 @@ def native_reference_phase(device="cuda") -> dict:
 # tool's 4096 MB and 0.5 (PERF.md, section 6). No warm-up round: the serve phase warmed the
 # scheduler (every graph captured, no late capture allowed). 15 s each since
 # PR 16 (30 before), to keep the whole run inside its time limit.
-SOAK = {"duration_s": 8.0, "target_streams": 8, "cancel_rate": 0.1,
+SOAK = {"duration_s": 5.0, "target_streams": 8, "cancel_rate": 0.1,
         "seed": 0, "warm_s": 0.0}
 SOAKS = {"preempt": {**SOAK, "max_tokens_range": (300, 900)},
          "churn": SOAK}
@@ -3426,31 +3515,247 @@ def _free(phase: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# The serve phases after the dense one (which boots the `cli serve`
+# defaults: 6 prompt buckets, KV windows 256 ... 4,096 and max_seq 4,608)
+# boot a smaller census, so that the full run stays within its time limit
+# on a slow host: prompts to 128 tokens (buckets 16 ... 128) and a
+# 384-token budget (max_seq 512: windows 256 and 512), a third of the
+# defaults' decode graphs; every request of these phases needs at most
+# ~410 positions. A paged phase gets a pool of 4,096 tokens (32 blocks of
+# 128: 8 streams of 3 blocks each, no held queue). paged_int8 keeps its
+# 2,048-token pool and the default prompt buckets, so that its resumes
+# re-prefill through the 512 bucket as before, and takes max_seq 2,048
+# (windows 256 ... 1,024 and 2,048): its resume tier is 1,024 and 2,048.
+SMALL_SERVE = ["--max-input-len", "128", "--prefill-buckets",
+               "16,32,64,128", "--max-output-len", "384"]
+SMALL_POOL = ["--kv-pool-tokens", "4096"]
+
 # name → (cli argv, expected launches, serve_phase keywords)
 SERVE_PHASES = {
     "dense": (["serve"], {"K1": PER_STEP}, {}),
     "paged_int8": (["serve", "--paged-kv", "--kv-int8", "--kv-on-demand",
-                    "--kv-block-size", "128", "--kv-pool-tokens", "2048"],
+                    "--kv-block-size", "128", "--kv-pool-tokens", "2048",
+                    "--max-output-len", "1536"],
                    {"K3b": PER_STEP},
                    {"generate": False, "min_preemptions": 1,
                     "resume": True}),
-    "paged_bf16": (["serve", "--paged-kv"], {"K3a": PER_STEP}, {}),
+    "paged_bf16": (["serve", "--paged-kv", *SMALL_SERVE, *SMALL_POOL],
+                   {"K3a": PER_STEP}, {}),
     "int4": (["serve", "--quantize", "--weight-bits", "4", "--paged-kv",
-              "--kv-int4"], {"K4": LINEARS, "K5": PER_STEP, "K2": HEAD},
+              "--kv-int4", *SMALL_SERVE, *SMALL_POOL],
+             {"K4": LINEARS, "K5": PER_STEP, "K2": HEAD},
              {"generate": False}),
-    "int8w": (["serve", "--quantize"],
+    "int8w": (["serve", "--quantize", *SMALL_SERVE],
               {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, {"generate": False}),
     # int8w with the C++ extractor and deinterleave: bench.py's default
     # weights under `serve --native-protocol`
-    "native": (["serve", "--quantize", "--native-protocol"],
+    "native": (["serve", "--quantize", "--native-protocol", *SMALL_SERVE],
                {"K2": LINEARS_AND_HEAD, "K1": PER_STEP}, {"generate": False}),
     # two waves sharing an opener: the first request misses, 15 hit
-    "prefix": (["serve", "--prefix-cache"], {"K1": PER_STEP},
+    "prefix": (["serve", "--prefix-cache", *SMALL_SERVE], {"K1": PER_STEP},
                {"waves": 2, "opener": OPENER, "prefix_counts": (1, 15)}),
     # the bf16 vocoder: K6-bf16 carries every residual unit
-    "vocoder_bf16": (["serve", "--vocoder-bf16"], {"K1": PER_STEP},
-                     {"vocoder_kernel": "K6-bf16"}),
+    "vocoder_bf16": (["serve", "--vocoder-bf16", *SMALL_SERVE],
+                     {"K1": PER_STEP}, {"vocoder_kernel": "K6-bf16"}),
 }
+
+
+# ---- the long phase: bench.py --mode long's engine class --------------------
+
+# `cli serve` at bench.py --mode long's geometry: 4 slots, int8 weights,
+# paged bf16 KV, one prompt bucket of 128 and a 12,032-token budget
+# (max_seq 12,160; --max-input-len 128, where the port's default is 512),
+# the pool 4 x (128 + 12,032 + 16) tokens; 4 streams of 1,197 frames
+# (102.1 s of audio, under the server's 120 s cap) that cross the 4,096 and
+# 8,192 windows into max_seq
+LONG_ARGV = ["serve", "--quantize", "--paged-kv", "--max-batch-size", "4",
+             "--max-input-len", "128", "--prefill-buckets", "128",
+             "--max-output-len", "12032", "--kv-pool-tokens", "48704"]
+LONG_TOKENS = 8379
+LONG_STREAMS = 4
+LONG_WINDOWS = (4096, 8192, 12160)
+# the tiny long geometry on the card: the JAX package's long-audio test
+# (tests/test_long_audio.py): >= 2,000 frames through the pipeline, and
+# greedy tokens against the CPU's to this depth, past the 4,096 window
+LONG_TINY_FRAMES = 2016
+LONG_TINY_GREEDY = 4300
+LONG_TINY_WINDOWS = (4096, 8192, 14400)
+
+
+def long_serve_phase() -> dict:
+    """The long serve phase: `cli serve` at LONG_ARGV, 4 concurrent
+    /ws/tts streams of LONG_TOKENS tokens. Every stream delivers all its
+    frames (samples = frames x 2,048); the scheduler's decode launches
+    replay at the 4,096, 8,192 and 12,160 windows with no late capture (and
+    every vocoder call a replay); K3a carries every layer of every decode
+    step, K2 every linear and the head, K6 12 units a vocoder call, and no
+    other kernel runs."""
+    ph = serve_phase("long", LONG_ARGV,
+                     {"K3a": PER_STEP, "K2": LINEARS_AND_HEAD},
+                     generate=False, max_tokens=LONG_TOKENS,
+                     streams=LONG_STREAMS, windows=LONG_WINDOWS)
+    core = ph["sched"].core
+    want = {f"capture_decode_n{core.engine_cfg.decode_steps_per_call}_w{w}"
+            for w in LONG_WINDOWS}
+    if core.max_seq != 12160 or not want <= set(core.graph_census_ms):
+        raise AssertionError(f"serve[long]: max_seq {core.max_seq}, census "
+                             f"{sorted(core.graph_census_ms)} lacks "
+                             f"{sorted(want)}")
+    rtf = ph["per_stream_rtf"]
+    print("serve[long] [" + card_line() + "]:", json.dumps({
+        "streams": LONG_STREAMS, "tokens": LONG_TOKENS,
+        "frames": LONG_TOKENS // 7,
+        "audio_s_per_stream": (LONG_TOKENS // 7) * 2048 / 24000,
+        "ttfa_ms_p50": ph["ttfa_ms_p50"], "ttfa_ms_p95": ph["ttfa_ms_p95"],
+        "per_stream_rtf_min": min(rtf), "per_stream_rtf_max": max(rtf),
+        "aggregate_rtf": ph["aggregate_rtf"],
+        "worst_gap_ms_max": ph["worst_gap_ms_max"],
+        "decode_launches_by_window": ph["decode_launches_by_window"],
+        "launches": {k: n for k, n in ph["launches"].items() if n},
+        "peak_allocated_gb": ph["max_memory_allocated"] / 1e9,
+        "peak_reserved_gb": ph["max_memory_reserved"] / 1e9}), flush=True)
+    return ph
+
+
+def _long_tiny_config():
+    """The JAX package's long-audio test geometry (``long_tiny_config``):
+    the tiny model at Orpheus's vocabulary, max_seq 14,400, 2 slots, paged
+    KV in blocks of 64 over 2 x 14,400 tokens, windows to 8,192."""
+    from tts_inference_tpu_torch.config import (Config, EngineConfig,
+                                                ModelConfig, SnacConfig,
+                                                extended_kv_buckets)
+
+    eng = EngineConfig(
+        max_input_len=64, max_output_len=14400 - 64, max_batch_size=2,
+        prefill_buckets=(16, 32, 64), decode_steps_per_call=14,
+        paged_kv=True, kv_block_size=64, kv_pool_tokens=2 * 14400,
+        kv_buckets=extended_kv_buckets((256, 512, 1024, 2048, 4096), 14400))
+    return Config(model=ModelConfig.tiny(vocab_size=156940),
+                  snac=SnacConfig(latent_dim=32, decoder_dim=64,
+                                  codebook_dim=4), engine=eng)
+
+
+def long_tiny_phase(device="cuda") -> dict:
+    """The JAX package's long-audio test on the card: the tiny model at
+    ``_long_tiny_config`` (graphs captured at boot), the weights copied
+    from a CPU twin. (1) LONG_TINY_FRAMES frames through
+    ``rt.pipeline.stream`` (engine → extractor → windowed lookahead):
+    samples = frames x 2,048, the re-decoded frames O(n) (at most frames +
+    windows x (left context + lookahead), under 3 x frames), the decode
+    launches replays at the 4,096, 8,192 and 14,400 windows with no late
+    capture, and the streamed PCM within PCM16_TOL of one batch decode of
+    the same codes. (2) LONG_TINY_GREEDY greedy tokens on the card, past
+    the 4,096 window, against the CPU's greedy choice at every step given
+    the card's tokens before it (``_forced_logits``: one forward on the
+    CPU): each the CPU's best, or within GRAPH_FLIP_GAP of its logit; the
+    depth compared and any differing step are printed."""
+    import numpy as np
+
+    from tts_inference_tpu_torch import protocol
+    from tts_inference_tpu_torch.config import SamplingConfig, StreamConfig
+    from tts_inference_tpu_torch.models.snac import to_pcm16
+    from tts_inference_tpu_torch.runtime import Runtime
+
+    audio = (protocol.TOKEN_AUDIO_BASE,
+             protocol.TOKEN_AUDIO_BASE + protocol.AUDIO_VOCAB)
+    cfg = _long_tiny_config()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = Runtime.create(cfg, seed=0, device="cpu")
+        gpu = Runtime.create(cfg, seed=0, device=device, warmup=True)
+        _copy_tree(gpu.engine.core.params, cpu.engine.core.params)
+        _copy_tree(gpu.vocoder.params, cpu.vocoder.params)
+        core = gpu.engine.core
+        boot_s = time.perf_counter() - t0
+        # (1) the stream, its tokens and its decode launches recorded
+        tokens, by_window = [], collections.Counter()
+        stream, launch = gpu.engine.stream, core._launch
+
+        def recording_stream(*a, **kw):
+            for chunk in stream(*a, **kw):
+                tokens.extend(int(t) for t in chunk)
+                yield chunk
+
+        def recording_launch(key, *a, **kw):
+            if key[0] == "decode":
+                by_window[key[2]] += 1
+            return launch(key, *a, **kw)
+
+        gpu.engine.stream, core._launch = recording_stream, recording_launch
+        late0 = core.late_captures
+        uses0 = (core.launches.copy(), core.replays.copy())
+        sampling = SamplingConfig(max_tokens=LONG_TINY_FRAMES * 7 + 2,
+                                  seed=11, token_range=audio)
+        t1 = time.perf_counter()
+        pcm = b"".join(c.pcm for c in gpu.pipeline.stream(
+            "long audio capacity", "tara", sampling,
+            StreamConfig(frames_per_chunk=16), force_speech=True))
+        stream_s = time.perf_counter() - t1
+        del gpu.engine.stream, core._launch
+        m, la = gpu.pipeline.last_metrics, gpu.pipeline.last_lookahead
+        spf = gpu.vocoder.cfg.samples_per_frame
+        overhead = (la.stream_cfg.left_context_frames
+                    + la.stream_cfg.lookahead_frames)
+        uses = {"launches": dict(core.launches - uses0[0]),
+                "replays": dict(core.replays - uses0[1])}
+        res = {"boot_s": boot_s, "stream_s": stream_s, "frames": m.frames,
+               "samples": len(pcm) // 2, "audio_s": len(pcm) / 2 / 24000,
+               "decode_calls": la.decode_calls,
+               "frames_decoded_total": la.frames_decoded_total,
+               "frames_decoded_bound": m.frames + la.decode_calls * overhead,
+               "decode_launches_by_window": dict(sorted(by_window.items())),
+               "late_captures": core.late_captures - late0, "uses": uses}
+        if (m.frames < LONG_TINY_FRAMES or len(pcm) // 2 != m.frames * spf
+                or la.frames_decoded_total > res["frames_decoded_bound"]
+                or la.frames_decoded_total >= 3 * m.frames
+                or res["late_captures"]
+                or uses["launches"] != uses["replays"]
+                or not all(by_window[w] for w in LONG_TINY_WINDOWS)):
+            raise AssertionError(f"long tiny stream: {res}")
+        ex = protocol.TokenExtractor()
+        ex.started = True
+        codes = ex.feed_many(tokens)[:m.frames * protocol.FRAME_SIZE]
+        l1, l2, l3 = protocol.deinterleave_frames(codes)
+        batch = to_pcm16(torch.from_numpy(gpu.vocoder.decode_frames(
+            l1, l2, l3, noise_seed=0))).numpy().astype(np.int32)
+        streamed = np.frombuffer(pcm, np.int16).astype(np.int32)
+        if batch.shape != streamed.shape:
+            raise AssertionError(f"long tiny: batch {batch.shape} vs "
+                                 f"streamed {streamed.shape}")
+        diff = np.abs(batch - streamed)
+        res.update(max_pcm16_diff=int(diff.max()),
+                   samples_differing=int((diff > 0).sum()))
+        if res["max_pcm16_diff"] > PCM16_TOL:
+            raise AssertionError(f"long tiny: streamed vs batch PCM off by "
+                                 f"{res['max_pcm16_diff']} LSB")
+        # (2) greedy tokens, card against CPU, through the 4,096 crossing
+        greedy = SamplingConfig(greedy=True, max_tokens=LONG_TINY_GREEDY,
+                                token_range=audio)
+        prompt = cpu.pipeline.build_prompt("long audio capacity",
+                                           force_speech=True)
+        t2 = time.perf_counter()
+        toks = [t for c in gpu.engine.stream(prompt, greedy) for t in c]
+        if len(toks) != LONG_TINY_GREEDY:
+            raise AssertionError(f"long tiny greedy: {len(toks)} tokens")
+        logits = _forced_logits(cpu, prompt, toks, greedy)
+        best = logits.max(-1)
+        picked = logits.gather(1, torch.tensor(toks)[:, None]
+                               - cpu.engine.core.logits_base)[:, 0]
+        steps = [i for i, (a, b) in enumerate(zip(
+            (best.indices + cpu.engine.core.logits_base).tolist(), toks))
+            if a != b]
+        gaps = (best.values - picked)[steps].tolist()
+        res.update(greedy_s=time.perf_counter() - t2,
+                   greedy_compared=len(toks),
+                   greedy_equal_depth=steps[0] if steps else len(toks),
+                   greedy_differing_steps=steps,
+                   greedy_differing_cpu_gaps=gaps)
+        if any(g > GRAPH_FLIP_GAP for g in gaps):
+            raise AssertionError(f"long tiny greedy: the card's token at "
+                                 f"steps {steps} is not the CPU's best, "
+                                 f"CPU logit gaps {gaps}")
+    print(f"long[tiny] [{card_line()}]:", json.dumps(res), flush=True)
+    return res
 
 
 def fidelity_phase() -> dict:
@@ -3868,7 +4173,7 @@ def tools_phase(full: bool, runtime_part=None) -> dict:
 
 MG_ENGINE = dict(max_batch_size=4, max_input_len=128, max_output_len=256,
                  prefill_buckets=(128,), kv_buckets=(256,))
-MG_TOKENS = 70                      # 10 frames a request
+MG_TOKENS = 35                      # 5 frames a request
 MG_DIR = Path(__file__).resolve().parent / "build" / "multigpu"
 
 
@@ -4075,7 +4380,7 @@ MG_REQUESTS = 1
 MG_GEN_TEXT = "Mirror probe: the quick brown fox jumps over the lazy dog."
 # the training legs: train_step.CARD_*'s step, MG_TRAIN_STEPS times on one
 # batch, tp 2 and dp 2 over the two ranks
-MG_TRAIN_LR, MG_TRAIN_STEPS = 1e-3, 3
+MG_TRAIN_LR, MG_TRAIN_STEPS = 1e-3, 2
 MG_TRAIN_MESHES = (("tp2", 1, 2), ("dp2", 2, 1))
 # a loss known to one rounding step of bf16 (2^-8 relative) passes
 BF16_STEP = 2.0 ** -8
@@ -4647,7 +4952,7 @@ def lockstep_overhead_phase() -> dict:
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = LO.main(["--iters", "50"])
+        rc = LO.main(["--iters", "25"])
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     print(f"multigpu[lockstep_overhead] [{card_line()}]:", json.dumps(line),
           flush=True)
@@ -4867,8 +5172,8 @@ def _hop_ms(router: int, replica: int) -> dict:
 
 
 def replicas_leg(card: str, dense=None, during_boot=None) -> dict:
-    """Two full-width replicas of the ``cli serve`` defaults behind the
-    router, with the warm build; traffic, failover, restart, drain.
+    """Two full-width replicas of ``cli serve`` (``SMALL_SERVE``) behind
+    the router, with the warm build; traffic, failover, restart, drain.
     `during_boot()` starts work that runs while the replicas boot and
     returns its future; its result is out["during_boot"]."""
     import os
@@ -4886,7 +5191,7 @@ def replicas_leg(card: str, dense=None, during_boot=None) -> dict:
     t0, wall0 = time.perf_counter(), time.time()
     proc = _launch(["--host", "127.0.0.1", "--port", str(port),
                     "--replicas", "2", "--build-info", str(info_path),
-                    *DEPLOY_ARGS], log)
+                    *DEPLOY_ARGS, "--", *SMALL_SERVE], log)
     pids: list = []
     try:
         beside = during_boot() if during_boot is not None else None
@@ -5088,7 +5393,7 @@ def ttfa_leg(card: str) -> dict:
 
     res = subprocess.run(
         [sys.executable, "-m", "tts_inference_tpu_torch.tools.profile_ttfa",
-         "--quantize", "--iters", "6"], cwd=ROOT,
+         "--quantize", "--iters", "3"], cwd=ROOT,
         capture_output=True, text=True, timeout=600)
     lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
     for line in lines:
@@ -5166,7 +5471,9 @@ def main(argv=None) -> int:
                          "measurement and diagnostic tools with every flag "
                          "set and rung, multigpu = the sharded serving path "
                          "and its kernel shapes, deploy = the launcher, "
-                         "its router and the TTFA anatomy, compare = the "
+                         "its router and the TTFA anatomy, long = "
+                         "bench.py --mode long's serve and the tiny long "
+                         "stream, compare = the "
                          "serve phases eager and replayed, gap = the "
                          "paged_int8 phase alone) and print no result "
                          "line; the full run takes no arguments")
@@ -5228,10 +5535,12 @@ def main(argv=None) -> int:
     stamp("dense")
     if on("checkpoint"):
         # the train phase fine-tunes the checkpoint phase's HF dir
-        phases["checkpoint"] = checkpoint_phase(keep=on("train"))
+        phases["checkpoint"] = checkpoint_phase(SMALL_SERVE,
+                                                keep=on("train"))
     stamp("checkpoint")
     if on("train"):
-        phases["train"] = train_phase(phases.get("checkpoint", {}).get("dirs"))
+        phases["train"] = train_phase(
+            phases.get("checkpoint", {}).get("dirs"), SMALL_SERVE)
     stamp("train")
     if on("paged"):
         phases["paged_int8"] = run_serve_phase("paged_int8")
@@ -5244,7 +5553,7 @@ def main(argv=None) -> int:
                 "paged_int8", phases["paged_int8"]["sched"], "churn")
         graphs["paged_int8"] = graph_phase("paged_int8",
                                            phases["paged_int8"]["rt"],
-                                           MAX_TOKENS)
+                                           PAGED_GRAPH_TOKENS)
         if graphs["paged_int8"]["preemptions"] < 1:
             raise AssertionError("graph[paged_int8]: no preemption")
         _free(phases["paged_int8"])
@@ -5326,6 +5635,11 @@ def main(argv=None) -> int:
     if on("deploy"):
         phases["deploy"] = deploy_phase(phases.get("dense"))
     stamp("deploy")
+    if on("long"):
+        phases["long"] = long_serve_phase()
+        _free(phases["long"])
+        phases["long_tiny"] = long_tiny_phase()
+    stamp("long")
     print("chip_smoke: seconds by block", json.dumps(times), "total",
           round(time.perf_counter() - t_run, 1), flush=True)
     if only is not None:

@@ -145,6 +145,58 @@ def engine_run(cfg, ecfg, script, dp=None, tp=None, bits=0, seed=0,
         return SCRIPTS[script](core)
 
 
+def _surface(core, sp=None):
+    """The JAX engine's host surface, mirrored under lockstep: seed_slots,
+    a fused admission, decode_steps (host arrays), reset_slots, a second
+    admission by prefill_slots and decode_steps; greedy (`sp`: the
+    sampling parameters of another package's core)."""
+    if sp is None:
+        sp = S.SamplingParams.from_config(SamplingConfig(greedy=True), 4)
+    active = np.array([True, True, False, False])
+    core.seed_slots([0, 1], [5, 9])
+    t0, tok, act = core.prefill_decode_launch(
+        [[7, 8, 9, 10], [11, 12, 13]], [0, 1], sp, np.zeros(4, np.int32),
+        np.zeros(4, bool), n=3)
+    t1, _, _ = core.decode_steps(sp, tok, act)
+    core.reset_slots([0, 1])
+    first = core.prefill_slots([[14, 15], [16, 17, 18, 19]], [0, 1], sp)
+    t2, _, _ = core.decode_steps(sp, first, active, n=5)
+    return np.concatenate([_np(t0), t1, first[:, None], t2], axis=1)[:2]
+
+
+def _host_state(core) -> dict:
+    ss = core.sampling_state
+    return {"seed": _np(ss.seed), "step": _np(ss.step),
+            "len_bounds": core._len_bounds.copy()}
+
+
+def mirrored_surface(cfg, ecfg, dp=None, tp=None, lport=0, seed=0):
+    """``_surface`` on rank 0's core mirrored to the other ranks over the
+    lockstep side channel at `lport` (unsharded with dp None). Rank 0
+    returns {"tokens", its host state}; a follower {"replayed": the calls
+    it replayed, its host state}."""
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    core = EngineCore(_params(cfg, seed, mesh=mesh), cfg, ecfg, eos_id=5,
+                      mesh=mesh)
+    with torch.no_grad():
+        if mesh is None:
+            return {"tokens": _surface(core), **_host_state(core)}
+        if mesh.rank:
+            sock = LS.follower_channel("127.0.0.1", lport,
+                                       process_id=mesh.rank)
+            return {"replayed": LS.follower_loop(core, sock),
+                    **_host_state(core)}
+        mirror = LS.MirroredCore(
+            core, LS.coordinator_channel(lport, mesh.world - 1))
+        try:
+            toks = _surface(mirror)
+        finally:
+            mirror.close()
+        return {"tokens": toks, **_host_state(core)}
+
+
 def int4_kv_pairs_raise(cfg, ecfg, dp, tp):
     """EngineCore's message when tp does not divide the int4 head pairs."""
     member, mesh = _mesh(dp, tp)

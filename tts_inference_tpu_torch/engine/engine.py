@@ -133,6 +133,23 @@ _SLOT_INPUTS = frozenset(("last_tok", "active", "lens", "mask", "seeds",
                           "reseed", "tokens", "ptoks", "plens", "pidx", "sp"))
 
 
+class _StepCount(int):
+    """``EngineCore.decode_steps``: the decode steps the core launched (all
+    slots at once), an int as the port's tools and tests read it, that is
+    also the JAX package's blocking ``decode_steps(sparams, last_tok,
+    active, n=None)`` when called."""
+
+    def __new__(cls, n: int, core: "EngineCore"):
+        return super().__new__(cls, n)
+
+    def __init__(self, n: int, core: "EngineCore"):
+        super().__init__()
+        self._core = core
+
+    def __call__(self, sparams, last_tok, active, n=None):
+        return self._core._decode_steps_host(sparams, last_tok, active, n)
+
+
 @dataclasses.dataclass
 class GenerationResult:
     token_ids: List[int]
@@ -214,7 +231,7 @@ class EngineCore:
         # host-side upper bounds on per-slot lengths: the KV window bucket
         # is picked without a device sync
         self._len_bounds = np.zeros(self.batch, np.int64)
-        self.decode_steps = 0   # decode steps launched (all slots at once)
+        self.steps_launched = 0   # decode steps (all slots at once)
         self.prefills = 0       # prefill passes launched
         self.prefix_hits = 0
         self.prefix_misses = 0
@@ -267,14 +284,19 @@ class EngineCore:
         presence and speech state cleared; those with reseed restart their
         noise counter at the request's seed."""
         self.cache.lengths.masked_fill_(mask, 0)
-        rs = mask & reseed
-        return ss._replace(
+        return self._reseed(ss._replace(
             presence=ss.presence.masked_fill(mask[:, None], False),
-            seed=torch.where(rs, S.slot_seed(seeds), ss.seed),
-            step=torch.where(rs, torch.zeros_like(ss.step), ss.step),
             in_speech=ss.in_speech & ~mask,
             frame_pos=ss.frame_pos.masked_fill(mask, 0),
-        )
+        ), mask & reseed, seeds)
+
+    @staticmethod
+    def _reseed(ss: S.SamplingState, rs, seeds) -> S.SamplingState:
+        """Restart the noise counter of the slots in rs at their seeds (the
+        noise of step t is a hash of the seed and t)."""
+        return ss._replace(
+            seed=torch.where(rs, S.slot_seed(seeds), ss.seed),
+            step=torch.where(rs, torch.zeros_like(ss.step), ss.step))
 
     def _prefill_state(self, ss: S.SamplingState, tokens, lens, sparams,
                        slot_mask, prefix=None, cache=None):
@@ -972,6 +994,23 @@ class EngineCore:
             self._t(self._local(seed_arr), torch.int64),
             self._t(self._local(reseed), torch.bool)))
 
+    @torch.no_grad()
+    def reset_slots(self, slots: Sequence[int]) -> None:
+        """Clear the slots' lengths, presence and speech state for reuse
+        (paged: release their blocks); their noise seeds stay."""
+        self.reset_and_seed(slots)
+
+    @torch.no_grad()
+    def seed_slots(self, slots: Sequence[int], seeds: Sequence[int]) -> None:
+        """Restart the slots' noise counters at the requests' seeds (the
+        per-request ``seed`` sampling knob), as an admission's reseed does;
+        nothing else of the slots changes."""
+        seed_arr, reseed = self._seed_arrays(slots, seeds)
+        S.copy_state(self.sampling_state, self._reseed(
+            self.sampling_state,
+            self._t(self._local(reseed), torch.bool),
+            self._t(self._local(seed_arr), torch.int64)))
+
     def _prompt_batch(self, prompts, slots, bucket):
         """Host arrays (tokens (B, bucket), lens (B,), mask (B,))."""
         tokens = np.zeros((self.batch, bucket), np.int32)
@@ -1155,7 +1194,7 @@ class EngineCore:
         toks, tok, act = self._launch(("decode", n, window), last_tok=tok0,
                                       active=act0)
         self.prefills += 1
-        self.decode_steps += n
+        self.steps_launched += n
         self._len_bounds[self._len_bounds > 0] += n
         return torch.cat([tok0[:, None], toks], dim=1), tok.clone(), \
             act.clone()
@@ -1173,10 +1212,24 @@ class EngineCore:
         window = self.kv_bucket(needed)
         toks, tok, act = self._launch(("decode", n, window), sp=sparams,
                                       last_tok=last_tok, active=active)
-        self.decode_steps += n
+        self.steps_launched += n
         # conservative host bound: every occupied slot may grow by n
         self._len_bounds[self._len_bounds > 0] += n
         return toks.clone(), tok.clone(), act.clone()
+
+    @property
+    def decode_steps(self) -> _StepCount:
+        """The decode steps launched so far; called, n decode steps that
+        return host arrays (tokens (B, n), last_tok (B,), active (B,)), as
+        the JAX package's ``decode_steps``: a blocking
+        ``decode_steps_launch``."""
+        return _StepCount(self.steps_launched, self)
+
+    def _decode_steps_host(self, sparams: S.SamplingParams, last_tok,
+                           active, n: Optional[int] = None):
+        toks, tok, act = self.decode_steps_launch(sparams, last_tok, active,
+                                                  n)
+        return to_numpy(toks), to_numpy(tok), to_numpy(act)
 
     def _masked_resume(self, bucket: int, sp: S.SamplingParams) -> None:
         """Launch (capture) the resume tier's graph of `bucket` with every

@@ -105,6 +105,19 @@ class TTSRequest:
     def cancel(self) -> None:
         self.cancelled = True
 
+    def iter_chunks(self, timeout: Optional[float] = None):
+        """Blocking iterator over the audio chunks; returns on done, raises
+        RuntimeError on error (``queue.Empty`` after `timeout` seconds
+        without an event)."""
+        while True:
+            kind, payload = self.events.get(timeout=timeout)
+            if kind == "chunk":
+                yield payload
+            elif kind == "done":
+                return
+            else:
+                raise RuntimeError(payload)
+
 
 class _SlotState:
     """Host-side runtime of a request while it occupies a slot."""
@@ -292,6 +305,12 @@ class Scheduler:
         self.pending.put(req)
         self._wakeup.set()
         return req
+
+    def synthesize_request(self, req: TTSRequest):
+        """Submit + the request's blocking chunk iterator (waits at most the
+        server's request timeout for each event)."""
+        self.submit(req)
+        return req.iter_chunks(timeout=self.config.server.request_timeout_s)
 
     def warmup(self) -> dict:
         """Capture every engine launch this scheduler can make

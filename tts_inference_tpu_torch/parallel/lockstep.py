@@ -96,8 +96,11 @@ MIRRORED = (
     "warmup_graphs",
     "prefill_decode_launch",
     "decode_steps_launch",
+    "decode_steps",
     "prefill_slots",
+    "reset_slots",
     "reset_and_seed",
+    "seed_slots",
     "_free_slot_blocks",
     "snapshot_slot",
     "restore_slot",

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Iterator, List, Optional
+from typing import TYPE_CHECKING, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -24,12 +24,15 @@ from tts_inference_tpu_torch.config import Config, SamplingConfig, StreamConfig
 from tts_inference_tpu_torch.utils.audio import pcm16_bytes
 from tts_inference_tpu_torch.utils.timing import PhaseTimer
 from tts_inference_tpu_torch.utils.tokenizer import TokenizerProtocol
-from tts_inference_tpu_torch.engine.engine import GenerationEngine
 from tts_inference_tpu_torch.models.snac import (SnacDecoder, decode_codes,
                                                  to_pcm16)
 from tts_inference_tpu_torch.streaming.lookahead import \
     LookaheadStreamingDecoder
 from tts_inference_tpu_torch.utils import to_numpy
+
+if TYPE_CHECKING:   # engine/__init__ imports the scheduler, which imports
+    #               this module
+    from tts_inference_tpu_torch.engine.engine import GenerationEngine
 
 
 @dataclasses.dataclass
@@ -179,6 +182,7 @@ class TTSPipeline:
         self.tokenizer = tokenizer
         self.config = config or Config()
         self.last_metrics: Optional[StreamMetrics] = None
+        self.last_lookahead: Optional[LookaheadStreamingDecoder] = None
 
     def build_prompt(self, text: str, voice: str = "tara",
                      force_speech: bool = False) -> List[int]:
@@ -204,6 +208,7 @@ class TTSPipeline:
         if force_speech:
             extractor.started = True   # the prompt already ends in SOS
         la = LookaheadStreamingDecoder(self.vocoder, scfg, noise_seed)
+        self.last_lookahead = la    # decode-work counters (O(n) windows)
         chunk_index = 0
 
         def cut(samples: np.ndarray) -> Iterator[AudioChunk]:
@@ -244,6 +249,7 @@ class TTSPipeline:
                 if metrics.chunks == 0:
                     la = LookaheadStreamingDecoder(self.vocoder, scfg,
                                                    noise_seed)
+                    self.last_lookahead = la
             if new_codes:
                 la.feed(new_codes)
                 if fused:

@@ -24,8 +24,12 @@ It takes the place of the JAX package's ``tools/profile_decode.py``: its
 ``--steps`` are ``--launches`` × 7, its ``--batch`` is ``--max-batch-size``,
 its ``--prefill-len``, ``--quantize``, ``--weight-bits``, ``--paged-kv``,
 ``--kv-int8``, ``--kv-int4`` and ``--tiny`` keep their names, its ``--cpu``
-is ``--device cpu``; its ``--trace-dir`` has no counterpart (the profile is
-read in process and summed by kernel family).
+is ``--device cpu``, and its ``--trace-dir DIR`` keeps its name: after the
+timed launches, as many more of each core's launches (or vocoder calls) run
+under ``utils/timing.maybe_profile`` and are written as a torch.profiler
+Chrome trace, ``DIR/decode_eager.json`` and ``DIR/decode_replayed.json``
+(``DIR/vocoder_<mode>.json`` with ``--vocoder``), listed under
+"trace_files" in the JSON line; the numbers come from the untraced runs.
 
 With ``--train`` it times LoRA steps of the fine-tune instead (``python
 -m tts_inference_tpu_torch.tools.step_profile --train``: the shape of
@@ -52,10 +56,13 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+
+from tts_inference_tpu_torch.utils.timing import maybe_profile
 
 FAMILIES = (      # kernel-name fragment → family, first match wins
     ("qmm_rows", "K2 w8_mm rows (head)"),
@@ -149,6 +156,10 @@ def vocoder_call(rt, args, flags) -> dict:
             voc.decode_frames_batch_fetch(handle)   # waits for the copy
             walls.append((time.perf_counter() - t0) * 1e3)
             enqueues.append((t1 - t0) * 1e3)
+        if args.trace_dir:
+            with maybe_profile(args.trace_dir, f"vocoder_{tag}"):
+                for _ in range(args.launches):
+                    voc.decode_frames_batch_fetch(launch())
         row = {"samples_per_row": int(audio[0].shape[0]),
                "wall_ms_per_call": float(np.median(walls)),
                "enqueue_ms_per_call": float(np.median(enqueues)),
@@ -168,10 +179,12 @@ def vocoder_call(rt, args, flags) -> dict:
 
 
 def decode_launches(rt, core, launches: int,
-                    prefill_len: Optional[int] = None) -> dict:
+                    prefill_len: Optional[int] = None,
+                    trace: Optional[tuple] = None) -> dict:
     """Admit a prompt into every slot of `core` (`prefill_len` tokens of id
     1 when given: it sets the cache depth, so the KV window the decode
-    runs at), then time `launches` decode launches; per decode step."""
+    runs at), then time `launches` decode launches; per decode step.
+    `trace` (dir, name): then `launches` more under ``maybe_profile``."""
     from tts_inference_tpu_torch.config import SamplingConfig
     from tts_inference_tpu_torch.ops import sampling as S
 
@@ -184,7 +197,7 @@ def decode_launches(rt, core, launches: int,
     _, tok, act = core.prefill_decode_launch(
         [prompt] * core.batch, list(range(core.batch)), sp,
         np.zeros(core.batch, np.int32), np.zeros(core.batch, bool), n=n,
-        reserve_extra=[n * (2 * launches + 8)] * core.batch)
+        reserve_extra=[n * (3 * launches + 8)] * core.batch)
     on_card = core.device.type == "cuda"
 
     def sync():
@@ -205,6 +218,11 @@ def decode_launches(rt, core, launches: int,
         sync()
         walls.append((time.perf_counter() - t0) / n * 1e3)
         enqueues.append((t1 - t0) / n * 1e3)
+    if trace:
+        with maybe_profile(*trace):
+            for _ in range(launches):
+                launch()
+                sync()
     out = {"wall_ms_per_step": float(np.median(walls)),
            "host_enqueue_ms_per_step": float(np.median(enqueues)),
            "graphs": len(core.graph_census_ms) if core.use_graphs else 0,
@@ -335,6 +353,9 @@ def main(argv=None) -> int:
                     help="decode profile: prompt length per slot (default: "
                          "the envelope of a short sentence); sets the cache "
                          "depth, and so the KV window the decode runs at")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="also write the profiled launches (or vocoder "
+                         "calls) as torch.profiler Chrome traces under DIR")
     args = ap.parse_args(argv)
     args.no_warmup = True
     flags = [a for a in (argv or sys.argv[1:])]
@@ -344,7 +365,8 @@ def main(argv=None) -> int:
     with torch.no_grad():
         rt = cli._build_runtime(args)
         if args.vocoder:
-            print(json.dumps(vocoder_call(rt, args, flags)), flush=True)
+            out = vocoder_call(rt, args, flags)
+            print(json.dumps(_traced(out, args.trace_dir)), flush=True)
             return 0
         on_card = rt.device.type == "cuda"
         out = {"flags": flags, "device": str(rt.device),
@@ -354,15 +376,24 @@ def main(argv=None) -> int:
             core = EngineCore(rt.engine.core.params, rt.config.model,
                               rt.config.engine, device=rt.device,
                               graphs=graphs)
-            out[tag] = decode_launches(rt, core, args.launches,
-                                       args.prefill_len)
+            out[tag] = decode_launches(
+                rt, core, args.launches, args.prefill_len,
+                (args.trace_dir, f"decode_{tag}") if args.trace_dir else None)
             del core
             gc.collect()
         if on_card:
             out["card"] = out["eager"].pop("card")
             out["replayed"].pop("card")
-        print(json.dumps(out), flush=True)
+        print(json.dumps(_traced(out, args.trace_dir)), flush=True)
     return 0
+
+
+def _traced(out: dict, trace_dir: Optional[str]) -> dict:
+    """The JSON line, with the trace files written under `trace_dir`."""
+    if trace_dir:
+        out["trace_files"] = sorted(
+            str(p) for p in Path(trace_dir).glob("*.json"))
+    return out
 
 
 if __name__ == "__main__":

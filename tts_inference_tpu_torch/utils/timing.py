@@ -1,8 +1,9 @@
 """Phase timing: the reference's perf_counter-at-every-boundary discipline
 (SURVEY.md §5.1 — load split, TTFT, TTFA, per-chunk decode; exported in
 result dicts and X-* headers) as a reusable utility. The port's copy of the
-``PhaseTimer`` of ``tts_inference_tpu/utils/timing.py``; profiling a decode
-step on the card is ``tools/step_profile.py``.
+``PhaseTimer`` and ``maybe_profile`` of ``tts_inference_tpu/utils/timing.py``
+(the trace is torch.profiler's, where the JAX package's is jax.profiler's);
+profiling a decode step on the card is ``tools/step_profile.py``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import contextlib
 import os
 import sys
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 class PhaseTimer:
@@ -56,3 +57,24 @@ class PhaseTimer:
         for k, v in self.series.items():
             out[k] = v
         return out
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: Optional[str], name: str = "trace"):
+    """torch.profiler over the block, written on exit as a Chrome trace,
+    ``<trace_dir>/<name>.json`` (``export_chrome_trace``); the host's ops,
+    and the card's kernels where there is a card. Yields the profiler;
+    without `trace_dir`, nothing is traced and it yields None."""
+    if not trace_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
