@@ -1,0 +1,3 @@
+"""`step_mfu.readaloud`: see `ttsbench.readers.step_mfu`."""
+
+from ttsbench.readers import step_mfu as read  # noqa: F401
