@@ -95,7 +95,7 @@ import torch
 from tts_inference_tpu_torch import protocol
 from tts_inference_tpu_torch.config import (EngineConfig, ModelConfig,
                                             SamplingConfig)
-from tts_inference_tpu_torch.utils.timing import PhaseTimer
+from tts_inference_tpu_torch.utils.timing import SPANS, PhaseTimer
 from tts_inference_tpu_torch.models import llama
 from tts_inference_tpu_torch.ops import _build
 from tts_inference_tpu_torch.ops import sampling as S
@@ -254,6 +254,9 @@ class EngineCore:
         # resume tier's warmup launches count as "warmup", not as resumes)
         self.launches = collections.Counter()
         self.replays = collections.Counter()
+        # the span log's launch id: one per launch call, shared by the
+        # graphs a fused admission replays
+        self.launch_seq = 0
 
     # -- device code --------------------------------------------------------
 
@@ -626,20 +629,29 @@ class EngineCore:
         graph's own tensors, good until the next replay of any of the
         core's graphs: they share one memory pool, so a graph captured
         later may keep its intermediates where an earlier one keeps its
-        outputs. The caller clones or copies them before that."""
+        outputs. The caller clones or copies them before that. While the
+        span log is on, the launch is a ``launch`` span with id
+        ``launch_seq`` and its key's kind."""
+        on = SPANS.on
+        if on:
+            t0 = time.perf_counter()
         self._put(**inputs)
         kind = kind or _launch_kind(key)
         self.launches[kind] += 1
         if self.use_graphs:
             graph = self._graphs.get(key) or self._capture(key)
             self.replays[kind] += 1
-            return graph.replay()
-        t0 = time.perf_counter()
-        out = self._body(key)()
-        name = _census_name(key)
-        if name not in self.graph_census_ms:
-            # the eager census: the keys the card would capture
-            self.graph_census_ms[name] = (time.perf_counter() - t0) * 1e3
+            out = graph.replay()
+        else:
+            t = time.perf_counter()
+            out = self._body(key)()
+            name = _census_name(key)
+            if name not in self.graph_census_ms:
+                # the eager census: the keys the card would capture
+                self.graph_census_ms[name] = (time.perf_counter() - t) * 1e3
+        if on:
+            SPANS.record("launch", t0, time.perf_counter(), self.launch_seq,
+                         extra={"kind": key[0]})
         return out
 
     def _warmed(self, *keys) -> bool:
@@ -1137,6 +1149,7 @@ class EngineCore:
                     None if reserve_extra is None else [reserve_extra[i]],
                     None if seeds is None else [seeds[i]], bucket)[sl]
             return toks
+        self.launch_seq += 1
         key, inp, bounds = self._admission(prompts, slots, bucket)
         if key[1] in self.resume_tier() and len(slots) == 1:
             # else the bucket's admission graph
@@ -1174,6 +1187,7 @@ class EngineCore:
         reserve_extra as in prefill_slots."""
         n = n or self.engine_cfg.decode_steps_per_call
         assert len(prompts) == len(slots)
+        self.launch_seq += 1
         key, inp, bounds = self._admission(prompts, slots)
         self._reset_host(slots)
         seed_arr, reseed = self._seed_arrays(slots, seeds)
@@ -1206,6 +1220,7 @@ class EngineCore:
         (tokens (B, n), last_tok, active). last_tok/active may be device
         tensors of a previous launch: launches chain on the device."""
         n = n or self.engine_cfg.decode_steps_per_call
+        self.launch_seq += 1
         if self.engine_cfg.paged_kv and self.engine_cfg.kv_on_demand:
             self._grow_blocks(n)
         needed = int(self._len_bounds.max(initial=0)) + n + 1

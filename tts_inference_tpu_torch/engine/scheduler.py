@@ -30,7 +30,14 @@ Port of ``tts_inference_tpu/engine/scheduler.py``:
   that library cannot be built — it never falls back to Python;
 - ``pipeline_depth`` (launches in flight, default 2) and
   ``enable_tick_profile`` / ``tick_profile`` (wall seconds per tick phase,
-  the JAX package's six keys) are the surface ``bench.py`` drives.
+  the JAX package's six keys) are the surface ``bench.py`` drives;
+- ``enable_tick_profile`` also empties and turns on the span log
+  (``utils/timing.SPANS``; ``stop`` turns it off): each tick phase is a
+  ``sched.<phase>`` span (``sched.fetch``'s id: the core's id of the launch
+  fetched), each admitted request an ``admit`` span (id: the request's;
+  parent: its launch), each vocoder call a ``vocode.launch`` span.
+  ``counters`` (rows admitted, prefilled, decoded and vocoded; the wait
+  for a slot) are always kept.
 
 Under a (dp, tp) mesh the core is this rank's shard (``mesh=``), and
 lockstep serving wraps it (``wrap_core=``, ``parallel/lockstep.py``): every
@@ -73,6 +80,7 @@ from tts_inference_tpu_torch.streaming.pipeline import (AudioChunk,
                                                         first_chunk_launch,
                                                         warmup_first_chunks)
 from tts_inference_tpu_torch.utils import copy_async, native, to_numpy
+from tts_inference_tpu_torch.utils.timing import SPANS
 
 log = logging.getLogger("tts_inference_tpu_torch.scheduler")
 
@@ -140,6 +148,7 @@ class _SlotState:
         self.chunk_index = 0
         self._restarts_seen = 0
         self.t0 = time.perf_counter()
+        self.metrics.queue_ms = (self.t0 - req.submitted_at) * 1000.0
         # preemption resume: the raw token stream (the re-prefill input)
         # and the sampling-state snapshot taken at preemption
         self.prompt_ids: List[int] = []
@@ -275,25 +284,41 @@ class Scheduler:
         self.on_fatal = None
         # tick-phase profile: wall seconds per step() phase, once enabled
         self._prof: Optional[dict] = None
+        # always kept (/metrics → scheduler): the admissions, the rows they
+        # admit and prefill, the live rows summed over decode launches and
+        # over vocoder calls (per launch: over the core's and the vocoder's
+        # launch counts), and the requests' wait for a slot
+        self.counters = dict.fromkeys(
+            ("admissions", "admitted_rows", "prefilled_rows", "decode_rows",
+             "vocoder_rows", "queue_ms_count"), 0)
+        self.counters["queue_ms_sum"] = 0.0
 
     def enable_tick_profile(self) -> None:
         """Accumulate wall seconds per step() phase into ``tick_profile``:
         the fetch of a launch's tokens, the host token processing, the
         fused first chunks' emission, the vocode planning, and the
-        admission and decode launches (``ticks``: launches fetched)."""
+        admission and decode launches (``ticks``: launches fetched). Also
+        empties the process's span log, ``utils/timing.SPANS``, and turns
+        it on until ``stop()`` (module docstring)."""
         self._prof = {"fetch_s": 0.0, "host_tokens_s": 0.0,
                       "fused_pcm_s": 0.0, "vocode_plan_s": 0.0,
                       "admit_launch_s": 0.0, "ticks": 0}
+        SPANS.clear()
+        SPANS.enable()
 
     @property
     def tick_profile(self) -> Optional[dict]:
         return dict(self._prof) if self._prof is not None else None
 
-    def _lap(self, key: str, t: float) -> float:
-        """Add the seconds since `t` to the profile's `key`; returns now."""
+    def _lap(self, key: str, t: float, id=None) -> float:
+        """Add the seconds since `t` to the profile's `key` and, while the
+        span log is on, record them as the phase's span (``fetch_s`` →
+        ``sched.fetch``, with `id`); returns now."""
         now = time.perf_counter()
         if self._prof is not None:
             self._prof[key] += now - t
+        if SPANS.on:
+            SPANS.record("sched." + key[:-2], t, now, id)
         return now
 
     # -- public API -----------------------------------------------------------
@@ -377,6 +402,8 @@ class Scheduler:
             time.sleep(0.002)
 
     def stop(self) -> None:
+        if self._prof is not None:
+            SPANS.disable()     # its spans stay for snapshot()
         self._stop.set()
         self._wakeup.set()
         if self._thread is not None:
@@ -449,12 +476,22 @@ class Scheduler:
         if not eligible:
             return None
         n_codes, nf, emit = geo
+        t0 = time.perf_counter()
         seeds = np.zeros(self.core.batch, np.int64)
         for slot, req, _ in batch:
             seeds[slot] = req.noise_seed & 0xFFFFFFFF
         pcm_h, ok_h = first_chunk_launch(
             self.vocoder, toks_d, n_codes, nf, emit, torch.from_numpy(seeds))
+        self._count_vocode(len(eligible))
+        if SPANS.on:
+            SPANS.record("vocode.launch", t0, time.perf_counter(),
+                         extra={"kind": "first_chunk"})
         return (eligible, pcm_h, ok_h, nf, emit)
+
+    def _count_vocode(self, rows: int) -> None:
+        # the scheduler thread (first chunks) and the vocode worker count
+        with self._vocode_plock:
+            self.counters["vocoder_rows"] += rows
 
     def _set_sp_row(self, slot: int, sp: SamplingConfig) -> None:
         self._sp["temperature"][slot] = 0.0 if sp.greedy else sp.temperature
@@ -629,10 +666,12 @@ class Scheduler:
                          else req.id)
             extras.append(self._budget(req))
             self._set_sp_row(slot, req.sampling)
+        t_admit = time.perf_counter()
         sp_arr = self._sampling_params()
         toks, tok, act = self.core.prefill_decode_launch(
             prompts, slots_idx, sp_arr, self._last_tok, self._active,
             n=self.admission_steps, reserve_extra=extras, seeds=seeds)
+        launch = self.core.launch_seq
         with torch.no_grad():
             fused_pcm = self._launch_admit_pcm(toks, batch)
         admitted = set(slots_idx)
@@ -642,10 +681,26 @@ class Scheduler:
                                for s in range(len(self.slots))])
         for slot in slots_idx:
             self._active[slot] = True
+        c = self.counters
+        c["admissions"] += 1
+        c["admitted_rows"] += len(batch)
+        # the admission graph prefills every row of the batch at the bucket
+        c["prefilled_rows"] += self.core.batch
+        c["queue_ms_count"] += len(batch)
+        c["queue_ms_sum"] += sum(self.slots[sl].metrics.queue_ms
+                                 for sl in slots_idx)
+        self._count_decode()
+        if SPANS.on:
+            t1 = time.perf_counter()
+            for _, req, _ in batch:
+                SPANS.record("admit", t_admit, t1, req.id, parent=launch)
         self._inflight.append(
             ((toks, tok, act), copy_async(toks, tok, act), sp_arr,
-             self._launch_ids(), skip_first, fused_pcm))
+             self._launch_ids(), skip_first, fused_pcm, launch))
         return True
+
+    def _count_decode(self) -> None:
+        self.counters["decode_rows"] += int(np.count_nonzero(self._active))
 
     def _release(self, slot: int) -> None:
         self.slots[slot] = None
@@ -688,6 +743,10 @@ class Scheduler:
                             first_frames=[pl.w0 for _, pl, _ in payload],
                             noise_seeds=[st.lookahead.noise_seed
                                          for st, _, _ in payload])
+                    self._count_vocode(len(payload))
+                    if SPANS.on:
+                        SPANS.record("vocode.launch", t0, time.perf_counter(),
+                                     extra={"kind": "decode"})
                     self._emit_q.put(("decode", (payload, handle, t0)))
                 except Exception as e:  # noqa: BLE001 — fail these streams
                     log.exception("vocoder launch failed")
@@ -739,12 +798,12 @@ class Scheduler:
         if not self._inflight:
             return False
         (_, hosts, _, launch_ids, skip_first,
-         fused_pcm) = self._inflight.popleft()
+         fused_pcm, launch) = self._inflight.popleft()
         t = time.perf_counter()
         toks = to_numpy(hosts[0])         # overlaps the in-flight launch
         self._last_tok = to_numpy(hosts[1]).copy()
         active = to_numpy(hosts[2])
-        t = self._lap("fetch_s", t)
+        t = self._lap("fetch_s", t, launch)
         if self._prof is not None:
             self._prof["ticks"] += 1
         finishing = []
@@ -863,8 +922,9 @@ class Scheduler:
 
     def _push_decode(self, sp, tok, act) -> None:
         nxt = self.core.decode_steps_launch(sp, tok, act)
+        self._count_decode()
         self._inflight.append((nxt, copy_async(*nxt), sp, self._launch_ids(),
-                               None, None))
+                               None, None, self.core.launch_seq))
 
     def step(self) -> bool:
         """One scheduler iteration; True if any work was done. While this
@@ -875,7 +935,7 @@ class Scheduler:
         while (self._inflight and self.pending.empty() and not self._backlog
                and not self._held and self._active.any()
                and len(self._inflight) < self.pipeline_depth):
-            (_, tok_d, act_d), _, sp_used, _, _, _ = self._inflight[-1]
+            (_, tok_d, act_d), _, sp_used = self._inflight[-1][:3]
             self._push_decode(sp_used, tok_d, act_d)
         did = self._consume_one() or did
         t = time.perf_counter()

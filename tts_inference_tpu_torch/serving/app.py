@@ -42,7 +42,7 @@ import contextlib
 import dataclasses
 import json
 import time
-from typing import AsyncIterator, Tuple
+from typing import AsyncIterator, Optional, Tuple
 
 import torch
 from aiohttp import WSMsgType, web
@@ -128,6 +128,8 @@ class Server:
         self.lock = asyncio.Lock()
         self.started_at = time.time()
         self.requests_served = 0
+        # the most recently finished request's metrics (/metrics →
+        # last_request); a handler reads its own request's from chunk_stream
         self._last_metrics = None
         # dedicated pool for per-request event pumps: each live scheduler
         # stream parks one thread for its lifetime; the default executor
@@ -142,10 +144,16 @@ class Server:
     async def chunk_stream(
         self, text: str, voice: str, sampling: SamplingConfig,
         stream_cfg: StreamConfig, force_speech: bool,
+        result: Optional[dict] = None,
     ) -> AsyncIterator:
+        """The request's audio chunks; once they end, ``result["metrics"]``
+        holds this request's ``StreamMetrics`` (None for a request
+        cancelled before it finished)."""
+        if result is None:
+            result = {}
         if self.scheduler is not None:
             async for chunk in self._scheduler_stream(
-                text, voice, sampling, stream_cfg, force_speech
+                text, voice, sampling, stream_cfg, force_speech, result
             ):
                 yield chunk
             return
@@ -166,7 +174,8 @@ class Server:
                     asyncio.run_coroutine_threadsafe(
                         q.put(("chunk", chunk)), loop
                     ).result()
-                self._last_metrics = self.rt.pipeline.last_metrics
+                result["metrics"] = self._last_metrics = \
+                    self.rt.pipeline.last_metrics
                 asyncio.run_coroutine_threadsafe(q.put((DONE, None)), loop).result()
             except Exception as e:  # noqa: BLE001 — surfaced to the client
                 asyncio.run_coroutine_threadsafe(q.put((ERR, e)), loop).result()
@@ -184,7 +193,7 @@ class Server:
             await task
 
     async def _scheduler_stream(
-        self, text, voice, sampling, stream_cfg, force_speech
+        self, text, voice, sampling, stream_cfg, force_speech, result
     ) -> AsyncIterator:
         """Multi-stream path: submit to the continuous-batching scheduler and
         drain the request's event queue without blocking the event loop."""
@@ -234,7 +243,9 @@ class Server:
                 if kind == "chunk":
                     yield payload
                 elif kind == "done":
-                    self._last_metrics = payload
+                    result["metrics"] = payload
+                    if payload is not None:
+                        self._last_metrics = payload
                     return
                 else:
                     raise RuntimeError(payload)
@@ -313,6 +324,7 @@ class Server:
             if core.engine_cfg.prefix_cache:
                 sch["prefix_hits"] = core.prefix_hits
                 sch["prefix_misses"] = core.prefix_misses
+            sch.update(s.counters)
             body["scheduler"] = sch
         # the CUDA-graph census of the engine core that serves, and the
         # vocoder's (on the CPU: the keys the card would capture)
@@ -321,7 +333,9 @@ class Server:
         voc = self.rt.vocoder.census()
         voc.pop("vocoder_graph_census_ms")
         body["graphs"] = {"graphs_compiled": len(core.graph_census_ms),
-                          "late_captures": core.late_captures, **voc}
+                          "late_captures": core.late_captures,
+                          "launches": dict(core.launches),
+                          "replays": dict(core.replays), **voc}
         if self.rt.device.type == "cuda":
             stats = torch.cuda.memory_stats(self.rt.device)
             body["device_memory"] = {
@@ -362,15 +376,16 @@ class Server:
                 {"error": "Generation in progress, try again later"},
                 status=503,
             )
+        res: dict = {}
         async with self._slot():
             t0 = time.perf_counter()
             chunks = []
             async for chunk in self.chunk_stream(
-                text, voice, sampling, scfg, opts["force_speech"]
+                text, voice, sampling, scfg, opts["force_speech"], res
             ):
                 chunks.append(chunk.pcm)
             total_ms = (time.perf_counter() - t0) * 1000.0
-        m = self.metrics()
+        m = res["metrics"]
         pcm = b"".join(chunks)
         if not pcm:
             return web.json_response(
@@ -412,15 +427,16 @@ class Server:
         scfg = dataclasses.replace(
             self.rt.config.stream, frames_per_chunk=10**9
         )
+        res: dict = {}
         async with self._slot():
             t0 = time.perf_counter()
             chunks = []
             async for chunk in self.chunk_stream(
-                text, voice, sampling, scfg, opts["force_speech"]
+                text, voice, sampling, scfg, opts["force_speech"], res
             ):
                 chunks.append(chunk.pcm)
             total_ms = (time.perf_counter() - t0) * 1000.0
-        m = self.metrics()
+        m = res["metrics"]
         pcm = b"".join(chunks)
         if not pcm:
             return web.json_response(
@@ -490,15 +506,16 @@ class Server:
                         {"error": "Generation in progress, try again later"}
                     )
                     continue
+                res: dict = {}
                 async with self._slot():
                     n_chunks, n_bytes = 0, 0
                     async for chunk in self.chunk_stream(
-                        text, voice, sampling, scfg, opts["force_speech"]
+                        text, voice, sampling, scfg, opts["force_speech"], res
                     ):
                         await ws.send_bytes(chunk.pcm)
                         n_chunks += 1
                         n_bytes += len(chunk.pcm)
-                m = self.metrics()
+                m = res["metrics"]
                 done = {
                     "done": True,
                     "chunks": n_chunks,

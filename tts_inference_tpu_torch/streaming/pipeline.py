@@ -61,6 +61,9 @@ class StreamMetrics:
     frames_per_sec: float = 0.0
     rtf: float = 0.0
     decode_times_ms: List[float] = dataclasses.field(default_factory=list)
+    # submission → admission into a slot (the scheduler's; ttft_ms and
+    # ttfa_ms count from the admission)
+    queue_ms: float = 0.0
 
     def finalize(self) -> "StreamMetrics":
         s = self.generation_time_ms / 1000.0
@@ -74,6 +77,7 @@ class StreamMetrics:
         return {
             "server_ttft_ms": round(self.ttft_ms, 2),
             "server_ttfa_ms": round(self.ttfa_ms, 2),
+            "server_queue_ms": round(self.queue_ms, 2),
             "server_rtf": round(self.rtf, 4),
             "tokens": self.tokens,
             "tokens_per_sec": round(self.tokens_per_sec, 2),

@@ -4,13 +4,19 @@ result dicts and X-* headers) as a reusable utility. The port's copy of the
 ``PhaseTimer`` and ``maybe_profile`` of ``tts_inference_tpu/utils/timing.py``
 (the trace is torch.profiler's, where the JAX package's is jax.profiler's);
 profiling a decode step on the card is ``tools/step_profile.py``.
+
+``SPANS`` is the serving path's span log (``SpanLog``): the scheduler, the
+engine core and the vocode worker record their boundaries into it while it
+is on (``Scheduler.enable_tick_profile`` empties it and turns it on,
+``Scheduler.stop`` turns it off).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
-import sys
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -27,17 +33,11 @@ class PhaseTimer:
     @contextlib.contextmanager
     def phase(self, name: str):
         start = time.perf_counter()
-        verbose = os.environ.get("TTS_WARMUP_LOG")
-        if verbose:
-            print(f"[phase+] {name}", file=sys.stderr, flush=True)
         try:
             yield
         finally:
             dt = (time.perf_counter() - start) * 1000.0
             self.phases[name] = self.phases.get(name, 0.0) + dt
-            if verbose:
-                print(f"[phase-] {name} {dt:.0f} ms", file=sys.stderr,
-                      flush=True)
 
     def mark(self, name: str) -> float:
         """Record time since construction (ms) the first time `name` fires."""
@@ -57,6 +57,68 @@ class PhaseTimer:
         for k, v in self.series.items():
             out[k] = v
         return out
+
+
+class SpanLog:
+    """A bounded in-memory log of spans, off until ``enable()``.
+
+    A span is the tuple ``(name, t0_ns, t1_ns, thread, id, parent,
+    extra)``: its start and end, the recording thread's name, the
+    request's or launch's id, the id of what caused it, and a dict of what
+    else it carries (or None). Its ends are ``time.perf_counter()``
+    readings (``ns``) moved onto ``time.time_ns()``, the clock of
+    torch.profiler's device events, by the offset read at ``enable()``:
+    spans and device operations compare directly, and a step of the wall
+    clock never shows up as a duration. Appends go to a
+    ``collections.deque`` with ``maxlen``, atomic under the interpreter
+    lock, so recording threads take no lock and the oldest spans drop once
+    the log is full. A record point tests ``on`` before it computes
+    anything, so while the log is off it costs one attribute test."""
+
+    def __init__(self, maxlen: int = 2 ** 18):
+        self.on = False
+        self._offset = 0
+        self._spans: collections.deque = collections.deque(maxlen=maxlen)
+
+    def enable(self) -> None:
+        # the offset from the tightest of five bracketed readings
+        best = None
+        for _ in range(5):
+            a, p, b = time.time_ns(), time.perf_counter_ns(), time.time_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, (a + b) // 2 - p)
+        self._offset = best[1]
+        self.on = True
+
+    def disable(self) -> None:
+        self.on = False
+
+    def clear(self) -> None:
+        self._spans.clear()
+
+    def ns(self, t: float) -> int:
+        """A ``time.perf_counter()`` reading on the log's clock."""
+        return int(t * 1e9) + self._offset
+
+    def record(self, name: str, t0: float, t1: float, id=None, parent=None,
+               extra: Optional[dict] = None) -> None:
+        """A span from ``time.perf_counter()`` readings `t0` to `t1`."""
+        if not self.on:
+            return
+        self._spans.append((name, self.ns(t0), self.ns(t1),
+                            threading.current_thread().name, id, parent,
+                            extra))
+
+    def snapshot(self) -> list:
+        """The spans held, oldest first (a copy)."""
+        while True:
+            try:
+                return list(self._spans)
+            except RuntimeError:    # appended to while copied: copy again
+                continue
+
+
+SPANS = SpanLog()
 
 
 @contextlib.contextmanager

@@ -1,0 +1,3 @@
+"""`idle_sched_host_share.agent`: see `ttsbench.spans.idle_sched_host_share`."""
+
+from ttsbench.spans import idle_sched_host_share as read  # noqa: F401
