@@ -3,8 +3,9 @@ the CPU (where the same launch bodies run eagerly):
 
 - the census of ``warmup_graphs`` against the JAX package's: every graph
   the JAX core compiles has its counterpart among the port's captures —
-  a fused (bucket, steps, window) admission becomes the admission graph of
-  the bucket plus the decode graph of (steps, window), a decode graph of a
+  a fused (bucket, steps, window) admission becomes the admission graphs of
+  the bucket (one per row bucket) plus the decode graph of (steps,
+  window), a decode graph of a
   window the decode graph of (decode_steps_per_call, window) — at 8 slots
   with the scheduler's admission step counts and at 1 slot with the
   single-stream first bursts;
@@ -78,18 +79,26 @@ def _stub_launches(core: JCore) -> None:
     core.reset_slots = lambda *a, **kw: None
 
 
-def _expected_captures(jax_census: dict, n: int, prefix: bool) -> set:
-    """The port's capture names for the JAX package's compile names; with
-    the prefix cache the admissions are prefix admissions of the suffix
-    bucket, and the build has its own graph (the JAX package compiles it
-    inside its first probe)."""
+def _expected_captures(jax_census: dict, n: int, prefix: bool, batch: int,
+                       mesh: bool = False) -> set:
+    """The port's capture names for the JAX package's compile names: a
+    fused admission of a bucket maps onto the bucket's admission graph of
+    every row bucket (the powers of two below the slot batch, named with
+    their row count, and the batch, the JAX package's whole-batch graph;
+    under a mesh that one alone) and the decode graph; with the prefix
+    cache the admissions are prefix admissions of the suffix bucket, and
+    the build has its own graph (the JAX package compiles it inside its
+    first probe)."""
     admit = "capture_prefill_prefix_" if prefix else "capture_prefill_"
+    rows = [] if mesh else [f"_r{1 << i}" for i in range(batch.bit_length())
+                            if 1 << i < batch]
     out = {"capture_prefix_build"} if prefix else set()
     for name in jax_census:
         parts = name.split("_")
         if name.startswith("compile_prefill_decode_"):
             b, nn, w = parts[3], parts[4][1:], parts[5][1:]
-            out |= {admit + b, f"capture_decode_n{nn}_w{w}"}
+            out |= {admit + b + r for r in rows + [""]}
+            out.add(f"capture_decode_n{nn}_w{w}")
         elif name.startswith("compile_decode_w"):
             out.add(f"capture_decode_n{n}_w{name[len('compile_decode_w'):]}")
     return out
@@ -103,8 +112,8 @@ def test_warmup_census_covers_the_jax_graphs(trees, slots, prefix):
     decode_steps_per_call]); 1 slot: the single-stream engine's (its first
     bursts); each without and with the prefix cache (probes padded by
     prefix_len). The port's census holds exactly the counterparts of the
-    JAX core's graphs, one admission graph per prompt bucket, and JAX's
-    four result keys."""
+    JAX core's graphs, one admission graph per (prompt bucket, row
+    bucket), and JAX's four result keys."""
     from tts_inference_tpu_torch.engine.engine import GenerationEngine
     from tts_inference_tpu_torch.engine.scheduler import Scheduler
     from tts_inference_tpu_torch.models.snac import SnacDecoder
@@ -133,14 +142,18 @@ def test_warmup_census_covers_the_jax_graphs(trees, slots, prefix):
             admission_ns=[sched.admission_steps, n])
         info, core = sched.warmup(), sched.core
     assert JAX_KEYS <= set(info)
-    want = _expected_captures(jinfo["graph_census_ms"], n, prefix)
+    want = _expected_captures(jinfo["graph_census_ms"], n, prefix, slots)
     assert set(info["graph_census_ms"]) == want
     assert info["graphs_compiled"] == len(want)
     assert info["warmed_windows"] == jinfo["warmed_windows"]
     assert info["warmed_buckets"] == jinfo["warmed_buckets"]
-    # every bucket has its admission graph; decode at every window
+    # every bucket has its admission graph of every row bucket, the
+    # whole batch's among them; decode at every window
     admit = "capture_prefill_prefix_" if prefix else "capture_prefill_"
     assert {f"{admit}{b}" for b in cfg.engine.prefill_buckets} <= want
+    assert {f"{admit}{b}_r{r}" for b in cfg.engine.prefill_buckets
+            for r in core.row_buckets()[:-1]} <= want
+    assert core.row_buckets() == ([1, 2, 4, 8] if slots == 8 else [1])
     assert {f"capture_decode_n{n}_w{w}" for w in jinfo["warmed_windows"]} \
         <= want
     # the decode graphs are shared by the buckets: fewer captures than

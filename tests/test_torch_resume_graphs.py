@@ -118,16 +118,20 @@ def test_census_holds_the_jax_resume_tier(warmed):
     jnames = warmed["jinfo"]["graph_census_ms"]
     resume = {n for n in jnames if n.startswith("compile_prefill_resume_")}
     assert resume == {f"compile_prefill_resume_{b}" for b in RESUME}
-    want = _expected_captures(jnames, warmed["cfg"].engine
-                              .decode_steps_per_call, warmed["prefix"])
+    ecfg = warmed["cfg"].engine
+    want = _expected_captures(jnames, ecfg.decode_steps_per_call,
+                              warmed["prefix"], ecfg.max_batch_size)
     want |= {"capture_" + n[len("compile_"):] for n in resume}
     got = warmed["info"]["graph_census_ms"]
     assert set(got) == want and warmed["info"]["graphs_compiled"] == len(want)
     assert warmed["sched"].core.resume_tier() == list(RESUME)
     core = warmed["sched"].core
-    # the tier's warmup launches are not resumes
+    # the tier's warmup launches are not resumes; nor are those of the
+    # admission graphs that the one-prompt probes do not reach (row
+    # buckets above one)
     assert core.late_captures == 0 and core.launches["resume"] == 0
-    assert core.launches["warmup"] == len(RESUME)
+    assert core.launches["warmup"] == len(RESUME) + len(
+        ecfg.prefill_buckets) * (len(core.row_buckets()) - 1)
 
 
 def test_warmup_reserves_no_block(warmed):
@@ -180,9 +184,9 @@ def test_prefill_slots_routes_through_launch(rt):
     assert int(core.cache.lengths[1]) == 111
     core.prefill_slots([prompt], [2], sp, seeds=[None],
                        bucket=core.resume_bucket_len(len(prompt)))
-    assert keys[1] == (("admit", 32), "resume")
+    assert keys[1] == (("admit", 32, 1), "resume")
     assert core.launches == {"resume": 2}
-    assert {"capture_prefill_resume_128", "capture_prefill_32"} <= set(
+    assert {"capture_prefill_resume_128", "capture_prefill_32_r1"} <= set(
         core.graph_census_ms)
 
 

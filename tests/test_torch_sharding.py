@@ -237,6 +237,26 @@ def test_sharded_engine_core_matches(pool, dp, tp):
     np.testing.assert_array_equal(got, _jax_engine(DENSE, "tick"))
 
 
+def test_mesh_admissions_keep_the_whole_batch_graph(pool):
+    """Under dp × tp an admission prefills the whole slot batch, one graph
+    per prompt bucket (the dp row split crosses any subset of rows): the
+    census is the JAX core's counterparts with the admissions mapped onto
+    the whole-batch graph alone. Unsharded, every row bucket's graph."""
+    from tests.test_torch_graphs import _expected_captures, _stub_launches
+    from tts_inference_tpu.engine.engine import EngineCore as JCore
+
+    jcore = JCore(to_jax(numpy_llama_tree(CFG, 0)), CFG, DENSE, eos_id=5)
+    _stub_launches(jcore)
+    jnames = jcore.warmup_graphs(admission_ns=[27, 4])["graph_census_ms"]
+    kw = dict(cfg=port_config(CFG), ecfg=port_config(DENSE))
+    names, rows = _sharded(pool, "warmup_census", dp=2, tp=2, **kw)
+    assert rows == [4]
+    assert set(names) == _expected_captures(jnames, 4, False, 4, mesh=True)
+    names, rows = W.warmup_census(**kw)
+    assert rows == [1, 2, 4]
+    assert set(names) == _expected_captures(jnames, 4, False, 4)
+
+
 @pytest.mark.parametrize("dp,tp", MESHES, ids=ids)
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 def test_sharded_quantized_engine_matches(pool, bits, dp, tp):

@@ -17,6 +17,7 @@
 """
 
 import asyncio
+import collections
 import json
 import sys
 import threading
@@ -259,7 +260,12 @@ def test_counters_agree_with_the_spans(traced):
     admitting = {sp[5] for sp in _named(spans, "admit")}
     assert c["admissions"] == len(admitting) >= 2
     assert c["admitted_rows"] == len(reqs) == c["queue_ms_count"]
-    assert c["prefilled_rows"] == c["admissions"] * s.core.batch
+    # each admission prefills its row bucket: its admitted rows, padded
+    per_launch = collections.Counter(sp[5] for sp in _named(spans, "admit"))
+    assert c["prefilled_rows"] == sum(
+        s.core.row_bucket(n) for n in per_launch.values())
+    assert c["admitted_rows"] <= c["prefilled_rows"] \
+        < c["admissions"] * s.core.batch
     assert c["queue_ms_sum"] == pytest.approx(sum(m.queue_ms for m in done))
     decodes = [sp for sp in _named(spans, "launch")
                if sp[6]["kind"] == "decode"]

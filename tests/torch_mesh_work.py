@@ -164,6 +164,20 @@ def _surface(core, sp=None):
     return np.concatenate([_np(t0), t1, first[:, None], t2], axis=1)[:2]
 
 
+def warmup_census(cfg, ecfg, dp=None, tp=None, admission_ns=(27, 4)):
+    """(the capture names of warmup_graphs, the row buckets) of an
+    EngineCore sharded over (dp, tp); on the CPU the census names what the
+    card would capture."""
+    member, mesh = _mesh(dp, tp)
+    if not member:
+        return None
+    core = EngineCore(_params(cfg, 0, mesh=mesh), cfg, ecfg, eos_id=5,
+                      mesh=mesh)
+    with torch.no_grad():
+        info = core.warmup_graphs(admission_ns=list(admission_ns))
+    return sorted(info["graph_census_ms"]), core.row_buckets()
+
+
 def _host_state(core) -> dict:
     ss = core.sampling_state
     return {"seed": _np(ss.seed), "step": _np(ss.step),

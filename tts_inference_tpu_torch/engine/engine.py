@@ -12,13 +12,19 @@ Port of the dense path of ``tts_inference_tpu/engine/engine.py``:
 - the KV cache and the sampling state live on the core and are updated in
   place where JAX donated buffers;
 - where JAX compiled each launch once per shape with ``jax.jit``, a CUDA
-  device replays CUDA graphs: the admission graph of a prompt bucket (slot
-  reset + prefill + first sample) and the decode graph of (steps, KV
-  window), captured by ``warmup_graphs`` or, like a first ``jax.jit``
-  call, on first use; the fused admission launch replays the two back to
-  back. Inputs are copied into the graphs' fixed tensors, outputs are
-  cloned out of them. The CPU, and a core built with ``graphs=False``, run
-  the same launch bodies eagerly;
+  device replays CUDA graphs: the admission graph of (prompt bucket, row
+  bucket) (slot reset + prefill + first sample) and the decode graph of
+  (steps, KV window), captured by ``warmup_graphs`` or, like a first
+  ``jax.jit`` call, on first use; the fused admission launch replays the
+  two back to back. Inputs are copied into the graphs' fixed tensors,
+  outputs are cloned out of them. The CPU, and a core built with
+  ``graphs=False``, run the same launch bodies eagerly;
+- an admission prefills only the rows it admits: the model runs over the
+  R admitted slots, padded up to a row bucket (a power of two below the
+  slot batch, or the batch itself) with slots that are not admitted,
+  whose rows are masked and change no byte. The JAX package prefills
+  every slot of the batch; under a mesh the port does too (the dp row
+  split crosses any subset of rows);
 - launches are asynchronous: ``*_launch`` returns device tensors and
   ``copy_async`` queues their device→host copies (pinned memory + a CUDA
   event), so the host fetches one launch while the next runs (depth-2
@@ -56,11 +62,11 @@ where that is a prompt bucket, else the graph of its resume-tier bucket
 (``resume_buckets`` above the largest prompt bucket, captured by
 ``warmup_graphs`` on a paged on-demand core, as the JAX package compiles
 them there). A resume re-prefills one slot, so a tier graph prefills that
-one row, not the slot batch: over the batch, the prefill attention's f32
-scores grow with B × bucket² (``tools/warmup_memory.py`` on an H100 80GB:
-the 2048 graph held 14.5 GB at 8 slots and ran out of memory at 32; one
-row, 1.6 GB). Its launches are counted as resumes, apart from
-admissions.
+one row, as a one-row admission does, not the slot batch: over the batch,
+the prefill attention's f32 scores grow with B × bucket²
+(``tools/warmup_memory.py`` on an H100 80GB: the 2048 graph held 14.5 GB
+at 8 slots and ran out of memory at 32; one row, 1.6 GB). Its launches
+are counted as resumes, apart from admissions.
 
 Under a (dp, tp) mesh (``parallel/mesh.py``, one process per device) the
 core holds this rank's shard: the parameters and the KV heads of its tp
@@ -111,16 +117,19 @@ _CAPTURE_LOCK = cuda_graphs.CAPTURE_LOCK
 _Graph = cuda_graphs.Graph
 
 
-def _census_name(key) -> str:
+def _census_name(key, batch: int) -> str:
+    """The capture name of `key`; an admission graph over fewer rows than
+    the slot `batch` carries its row count."""
     if key[0] == "decode":
         return f"capture_decode_n{key[1]}_w{key[2]}"
-    if key[0] == "admit_prefix":
-        return f"capture_prefill_prefix_{key[1]}"
     if key[0] == "prefix_build":
         return "capture_prefix_build"
     if key[0] == "resume":
         return f"capture_prefill_resume_{key[1]}"
-    return f"capture_prefill_{key[1]}"
+    rows = "" if key[2] == batch else f"_r{key[2]}"
+    if key[0] == "admit_prefix":
+        return f"capture_prefill_prefix_{key[1]}{rows}"
+    return f"capture_prefill_{key[1]}{rows}"
 
 
 def _launch_kind(key) -> str:
@@ -239,8 +248,8 @@ class EngineCore:
             self._init_prefix_pool()
         # CUDA graphs on a CUDA device (graphs=False: the eager launches,
         # for comparisons on the card); key ("decode", steps, window),
-        # ("admit", bucket), ("admit_prefix", suffix bucket), ("resume",
-        # resume-tier bucket) or ("prefix_build",) → _Graph
+        # ("admit", bucket, rows), ("admit_prefix", suffix bucket, rows),
+        # ("resume", resume-tier bucket) or ("prefix_build",) → _Graph
         self.use_graphs = graphs and self.device.type == "cuda"
         self._graphs: dict = {}
         self._graph_pool = None      # one memory pool for the core's graphs
@@ -324,18 +333,23 @@ class EngineCore:
     def _row_prefill_state(self, ss: S.SamplingState, tokens, rows, lens,
                            sparams, slot_mask, prefix=None):
         """_prefill_state for the slots `rows` (R,) alone, `tokens` (R, S
-        bucket): the model runs over R rows of a paged cache view (the
-        pools, the rows' block tables and lengths), the other inputs are the
-        slot batch's. Returns (the rows' tokens (R,), the slot batch's
-        sampling state after, the rows' lengths after)."""
+        bucket): the model runs over R rows of a cache view — paged: the
+        pools, the rows' block tables and lengths; dense: the cache with
+        its rows named (``KVCache.rows``) and their lengths — the other
+        inputs are the slot batch's. The rows are distinct, so that every
+        write of one launch has an index of its own; a row outside
+        slot_mask writes nothing. Returns (the rows' tokens (R,), the slot
+        batch's sampling state after, the rows' lengths after)."""
         c = self.cache
-        assert isinstance(c, llama.PagedKVCache)
 
         def sub(t):
             return t.index_select(0, rows)
 
-        view = dataclasses.replace(c, block_table=sub(c.block_table),
-                                   lengths=sub(c.lengths))
+        if isinstance(c, llama.PagedKVCache):
+            view = dataclasses.replace(c, block_table=sub(c.block_table),
+                                       lengths=sub(c.lengths))
+        else:
+            view = dataclasses.replace(c, rows=rows, lengths=sub(c.lengths))
         tok, new = self._prefill_state(
             S.SamplingState(*map(sub, ss)), tokens, sub(lens),
             S.SamplingParams(*map(sub, sparams)), sub(slot_mask),
@@ -429,11 +443,13 @@ class EngineCore:
                                        n_mid=2 if scale and cache.int4
                                        else 1, memo=memo)
             return
+        at = (slice(None) if cache.rows is None else cache.rows,
+              slice(None, pb))
         for cs, pools in zip(caches, self._pool):
             for c, p in zip(cs, pools):
                 sel = p.index_select(0, pidx).to(c.dtype)
                 m = inject.view((-1,) + (1,) * (sel.dim() - 1))
-                c[:, :pb].copy_(torch.where(m, sel, c[:, :pb]))
+                c[at] = torch.where(m, sel, c[at])
 
     def _prefix_prefill_state(self, ss, tokens, lens, ptoks, plens, pidx,
                               sparams, slot_mask, cache):
@@ -473,10 +489,14 @@ class EngineCore:
         return (torch.where(mask, ptok, last_tok),
                 torch.where(mask, ptok != self.eos_id, active))
 
-    def _resume_impl(self, tokens, rows, lens, sparams, mask, last_tok,
-                     active, seeds, reseed, prefix=None):
-        """The resume tier's launch: _admit_impl for the one slot `rows`
-        (1,), `tokens` (1, tier bucket), its prefill over that row alone."""
+    def _rows_impl(self, tokens, rows, lens, sparams, mask, last_tok,
+                   active, seeds, reseed, prefix=None):
+        """_admit_impl with the prefill over the slots `rows` (R,) alone,
+        `tokens` (R, bucket): the admission graph of a row bucket (the
+        admitted slots, then slots that are not admitted, masked), or the
+        resume tier's one row. The rows' lengths, sampled state and first
+        tokens are copied back into the slot batch's by index; the rows
+        outside `mask` copy back what they held."""
         ss = self._reset_state(self.sampling_state, mask, seeds, reseed)
         rtok, ss, lengths = self._row_prefill_state(ss, tokens, rows, lens,
                                                     sparams, mask, prefix)
@@ -526,9 +546,10 @@ class EngineCore:
                 "lens": zeros(torch.int32), "mask": zeros(torch.bool),
                 "seeds": zeros(torch.int64), "reseed": zeros(torch.bool),
                 "tokens": {},        # prompt bucket → (B, bucket) int32
-                # the resume tier's one row: bucket → (1, bucket), its slot
+                # a row graph's prompts: (R, bucket) → (R, bucket) int32,
+                # and its slots: R → (R,) int64
                 "row_tokens": {},
-                "rows": torch.zeros(1, dtype=torch.int64, device=dev),
+                "rows": {},
             }
             if self.engine_cfg.prefix_cache:
                 pb = self.engine_cfg.prefix_len
@@ -551,9 +572,9 @@ class EngineCore:
         """Copy a launch's inputs (host arrays or device tensors) into the
         input tensors, in stream order — under a mesh, this rank's slot rows
         of them; the resume row as this rank's index of the slot (0 where
-        another dp rank holds it: the sliced mask masks it). A host array is
-        pageable memory, which the CUDA driver stages before the copy call
-        returns."""
+        another dp rank holds it: the sliced mask masks it; under a mesh
+        only the resume tier takes rows). A host array is pageable memory,
+        which the CUDA driver stages before the copy call returns."""
         st = self._static_inputs()
         for name, x in inputs.items():
             if name in _SLOT_INPUTS:
@@ -566,11 +587,15 @@ class EngineCore:
                 for dst, src in zip(st["sp"], x):
                     dst.copy_(src, non_blocking=True)
                 continue
-            if name in ("tokens", "row_tokens"):
-                dst = st[name].get(x.shape[1])
+            if name in ("tokens", "row_tokens", "rows"):
+                # by prompt bucket, by (rows, bucket), by row count
+                at = (x.shape[1] if name == "tokens" else len(x)
+                      if name == "rows" else tuple(x.shape))
+                dst = st[name].get(at)
                 if dst is None:
-                    dst = st[name][x.shape[1]] = torch.zeros(
-                        x.shape, dtype=torch.int32, device=self.device)
+                    dst = st[name][at] = torch.zeros(
+                        np.shape(x), dtype=torch.int64 if name == "rows"
+                        else torch.int32, device=self.device)
             else:
                 dst = st[name]
             if not isinstance(x, torch.Tensor):
@@ -607,20 +632,28 @@ class EngineCore:
         if key[0] == "prefix_build":
             return lambda: self._prefix_build_impl(
                 st["build_toks"], st["build_len"], st["build_idx"])
-        if key[0] == "resume":
-            # a resume-tier bucket admits as the core admits: through the
-            # prefix cache when it is on
-            prefix = ((st["ptoks"], st["plens"], st["pidx"])
-                      if self.engine_cfg.prefix_cache else None)
-            return lambda: self._resume_impl(
-                st["row_tokens"][key[1]], st["rows"], st["lens"], st["sp"],
-                st["mask"], st["last_tok"], st["active"], st["seeds"],
-                st["reseed"], prefix)
+        # a resume-tier bucket admits as the core admits: through the
+        # prefix cache when it is on
         prefix = ((st["ptoks"], st["plens"], st["pidx"])
-                  if key[0] == "admit_prefix" else None)
+                  if key[0] == "admit_prefix" or (
+                      key[0] == "resume" and self.engine_cfg.prefix_cache)
+                  else None)
+        r = self._graph_rows(key)
+        if r is not None:
+            return lambda: self._rows_impl(
+                st["row_tokens"][(r, key[1])], st["rows"][r], st["lens"],
+                st["sp"], st["mask"], st["last_tok"], st["active"],
+                st["seeds"], st["reseed"], prefix)
         return lambda: self._admit_impl(
             st["tokens"][key[1]], st["lens"], st["sp"], st["mask"],
             st["last_tok"], st["active"], st["seeds"], st["reseed"], prefix)
+
+    def _graph_rows(self, key) -> Optional[int]:
+        """The rows that an admission or resume key's launch prefills by
+        the row path (_rows_impl), None for the slot batch's launch."""
+        if key[0] == "resume":
+            return 1
+        return key[2] if key[2] < self.batch else None
 
     def _launch(self, key, kind: Optional[str] = None, **inputs):
         """Write the inputs, then replay the graph of `key` (captured on
@@ -645,7 +678,7 @@ class EngineCore:
         else:
             t = time.perf_counter()
             out = self._body(key)()
-            name = _census_name(key)
+            name = _census_name(key, self.batch)
             if name not in self.graph_census_ms:
                 # the eager census: the keys the card would capture
                 self.graph_census_ms[name] = (time.perf_counter() - t) * 1e3
@@ -657,7 +690,8 @@ class EngineCore:
     def _warmed(self, *keys) -> bool:
         """Whether every key's graph is captured (its launch has run, on the
         eager path)."""
-        return all(_census_name(k) in self.graph_census_ms for k in keys)
+        return all(_census_name(k, self.batch) in self.graph_census_ms
+                   for k in keys)
 
     def _graph_windows(self) -> List[int]:
         """Every KV window a decode launch can take."""
@@ -681,11 +715,11 @@ class EngineCore:
     def _prepare(self) -> None:
         """Before this thread's first capture: one eager pass over every
         shape the graphs take — a decode step at each KV window, a prefill
-        at each prompt bucket, a one-row prefill at each resume-tier bucket,
-        the prefix build's prefill — with every slot masked, so that it
-        changes no state (writes land in the trash row or block or the
-        build's scratch cache, lengths stay, the sampled state is dropped)
-        and counts no launch. It does what a capture must not: the kernel
+        at each (prompt bucket, row bucket), a one-row prefill at each
+        resume-tier bucket, the prefix build's prefill — with every slot
+        masked, so that it changes no state (writes land in the trash row
+        or block or the build's scratch cache, or rewrite what a row held;
+        lengths stay, the sampled state is dropped) and counts no launch. It does what a capture must not: the kernel
         build, this thread's cuBLAS handles, the rope table, the kernels'
         one-time attributes, the K4 / K2 plans, and the growth of the
         attention / K4 workspace to every shape. Under a mesh the first pass
@@ -728,11 +762,15 @@ class EngineCore:
                                      device=dev)
                 self._prefill_state(self.sampling_state, tokens, zeros, sp,
                                     none, prefix)
-            for bucket in self.resume_tier():
-                tokens = torch.zeros((1, bucket), dtype=torch.int32,
+            rows = ([(r, bucket) for bucket in buckets
+                     for r in self.row_buckets() if r < self.batch]
+                    + [(1, bucket) for bucket in self.resume_tier()])
+            for r, bucket in rows:
+                tokens = torch.zeros((r, bucket), dtype=torch.int32,
                                      device=dev)
-                self._row_prefill_state(self.sampling_state, tokens,
-                                        st["rows"], zeros, sp, none, prefix)
+                self._row_prefill_state(
+                    self.sampling_state, tokens,
+                    torch.arange(r, device=dev), zeros, sp, none, prefix)
         torch.cuda.synchronize(dev)
         self._prepared.add(tid)
         self.prepare_ms += (time.perf_counter() - t0) * 1e3
@@ -754,7 +792,7 @@ class EngineCore:
                 outputs = self._body(key)()
             ms = (time.perf_counter() - t0) * 1e3
         self._graphs[key] = g = _Graph(graph, outputs, launches)
-        name = _census_name(key)
+        name = _census_name(key, self.batch)
         self.graph_census_ms[name] = ms
         if not self._warming:
             self.late_captures += 1
@@ -769,6 +807,28 @@ class EngineCore:
             if n <= b:
                 return b
         return self.engine_cfg.max_input_len
+
+    def row_buckets(self) -> List[int]:
+        """The row counts of the admission graphs: the powers of two below
+        the slot batch, and the batch (today's graph); under a mesh the
+        batch alone, since the dp row split crosses any subset of rows."""
+        if self.mesh is not None:
+            return [self.batch]
+        return [1 << i for i in range(self.batch.bit_length())
+                if 1 << i < self.batch] + [self.batch]
+
+    def row_bucket(self, n: int) -> int:
+        """The rows an admission of n slots prefills: the smallest row
+        bucket covering n."""
+        return next(r for r in self.row_buckets() if n <= r)
+
+    def _pad_rows(self, slots: Sequence[int], r: int) -> np.ndarray:
+        """The r rows of a row graph: `slots`, then the lowest slots that
+        are not among them (masked: they write nothing), so that no index
+        repeats."""
+        taken = set(slots)
+        pad = [sl for sl in range(self.batch) if sl not in taken]
+        return np.asarray(list(slots) + pad[:r - len(slots)], np.int64)
 
     def kv_bucket(self, needed: int) -> int:
         for b in self.engine_cfg.kv_buckets:
@@ -1105,23 +1165,31 @@ class EngineCore:
 
     def _admission(self, prompts, slots, bucket=None):
         """(launch key, host inputs, the admitted slots' length bounds) of
-        admitting `prompts` into `slots`: the plain admission of the prompt
-        bucket, or with the prefix cache the prefix admission of the suffix
-        bucket (missing prefixes built first). `bucket` overrides the
-        (suffix) bucket."""
+        admitting `prompts` into `slots`: the plain admission of (prompt
+        bucket, row bucket), or with the prefix cache the prefix admission
+        of the suffix bucket (missing prefixes built first). `bucket`
+        overrides the (suffix) bucket. Below the slot batch the prompts go
+        in as `row_tokens` (R, bucket) of the `rows` (_pad_rows)."""
         if self.engine_cfg.prefix_cache:
             tokens, lens, ptoks, plens, pidx, mask, bounds = \
                 self._prefix_batch_arrays(prompts, slots, bucket)
-            return (("admit_prefix", tokens.shape[1]),
-                    dict(tokens=tokens, lens=lens, mask=mask, ptoks=ptoks,
-                         plens=plens, pidx=pidx), bounds)
-        bucket = bucket or self.bucket_len(
-            max((len(p) for p in prompts), default=1))
-        tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
-        bounds = {sl: min(len(p), bucket) + 1
-                  for p, sl in zip(prompts, slots)}
-        return ("admit", bucket), dict(tokens=tokens, lens=lens,
-                                       mask=mask), bounds
+            kind, inp = "admit_prefix", dict(ptoks=ptoks, plens=plens,
+                                             pidx=pidx)
+        else:
+            bucket = bucket or self.bucket_len(
+                max((len(p) for p in prompts), default=1))
+            tokens, lens, mask = self._prompt_batch(prompts, slots, bucket)
+            bounds = {sl: min(len(p), bucket) + 1
+                      for p, sl in zip(prompts, slots)}
+            kind, inp = "admit", {}
+        r = self.row_bucket(len(slots))
+        if r < self.batch:
+            rows = self._pad_rows(slots, r)
+            inp.update(row_tokens=tokens[rows], rows=rows)
+        else:
+            inp.update(tokens=tokens)
+        return ((kind, tokens.shape[1], r), dict(inp, lens=lens, mask=mask),
+                bounds)
 
     @torch.no_grad()
     def prefill_slots(self, prompts: Sequence[Sequence[int]],
@@ -1130,7 +1198,7 @@ class EngineCore:
                       seeds: Optional[Sequence[Optional[int]]] = None,
                       bucket: Optional[int] = None) -> np.ndarray:
         """Prefill the given slots; returns their first tokens (B,) on the
-        host (other slots: 0). Runs over the whole slot batch; other slots
+        host (other slots: 0). Runs over the slots' row bucket; other slots
         are untouched. Paged, each slot reserves its injected prefix +
         bucket + reserve_extra[i] tokens of blocks (default
         max_output_len). ``bucket`` overrides the prompt's (with the prefix
@@ -1154,8 +1222,9 @@ class EngineCore:
         if key[1] in self.resume_tier() and len(slots) == 1:
             # else the bucket's admission graph
             key = ("resume", key[1])
-            inp["row_tokens"] = inp.pop("tokens")[list(slots)]
-            inp["rows"] = np.asarray(slots, np.int64)
+            if "tokens" in inp:     # a one-slot core, or a mesh
+                inp["row_tokens"] = inp.pop("tokens")[list(slots)]
+                inp["rows"] = np.asarray(slots, np.int64)
         self._reset_host(slots)
         seed_arr, reseed = self._seed_arrays(slots, seeds)
         self._maybe_reserve(slots, key[1], reserve_extra, inp.get("plens"))
@@ -1246,39 +1315,46 @@ class EngineCore:
                                                   n)
         return to_numpy(toks), to_numpy(tok), to_numpy(act)
 
-    def _masked_resume(self, bucket: int, sp: S.SamplingParams) -> None:
-        """Launch (capture) the resume tier's graph of `bucket` with every
-        slot masked out, as the eager pass of _prepare runs: the writes land
-        in the trash block, no length and no sampled state changes, and no
-        block is reserved. The block table is read inside the graph, so the
-        one graph serves every table state. Counted as a warmup launch, not
-        as a resume."""
+    def _masked_launch(self, key, sp: S.SamplingParams) -> None:
+        """Launch (capture) the admission graph of `key` — a resume-tier
+        bucket's or a (prompt bucket, row bucket)'s — with every slot
+        masked out, as the eager pass of _prepare runs: the writes land in
+        the trash block (paged) or rewrite what the rows held (dense), no
+        length and no sampled state changes, and no block is reserved. The
+        block table is read inside the graph, so the one graph serves every
+        table state. Counted as a warmup launch, not as an admission or a
+        resume."""
         b, pb = self.batch, self.engine_cfg.prefix_len
-        inp = dict(row_tokens=np.zeros((1, bucket), np.int32),
-                   rows=np.zeros(1, np.int64),
-                   lens=np.zeros(b, np.int32), mask=np.zeros(b, bool),
+        inp = dict(lens=np.zeros(b, np.int32), mask=np.zeros(b, bool),
                    last_tok=np.zeros(b, np.int32), active=np.zeros(b, bool),
                    seeds=np.zeros(b, np.int64), reseed=np.zeros(b, bool))
+        r = self._graph_rows(key)
+        if r is not None:
+            inp.update(row_tokens=np.zeros((r, key[1]), np.int32),
+                       rows=np.arange(r, dtype=np.int64))
+        else:
+            inp.update(tokens=np.zeros((b, key[1]), np.int32))
         if self.engine_cfg.prefix_cache:
             inp.update(ptoks=np.zeros((b, pb), np.int32),
                        plens=np.zeros(b, np.int32), pidx=np.zeros(b, np.int64))
-        to_numpy(self._launch(("resume", bucket), kind="warmup", sp=sp,
-                              **inp)[0])
+        to_numpy(self._launch(key, kind="warmup", sp=sp, **inp)[0])
 
     def warmup_graphs(self, timer: Optional[PhaseTimer] = None,
                       first_bursts: Sequence[int] = (),
                       admission_ns: Optional[Sequence[int]] = None) -> dict:
-        """Capture the admission graph of every prompt bucket and the decode
-        graph of every (steps, KV window) the engine can reach — the JAX
-        package's enumeration (``EngineCore.warmup_graphs`` there), whose
-        fused (bucket, steps, window) graphs map here onto an admission
-        graph and a decode graph each (the prefix cache's admission graph
-        of the suffix bucket, and its build graph, with ``prefix_cache``).
-        A paged on-demand core also captures the resume tier
+        """Capture the admission graph of every (prompt bucket, row bucket)
+        and the decode graph of every (steps, KV window) the engine can
+        reach — the JAX package's enumeration (``EngineCore.warmup_graphs``
+        there), whose fused (bucket, steps, window) graphs map here onto
+        the bucket's admission graphs and a decode graph each (the prefix
+        cache's admission graphs of the suffix bucket, and its build graph,
+        with ``prefix_cache``). The enumeration's one-prompt probes capture
+        the one-row admission graphs; the other row buckets' graphs, and on
+        a paged on-demand core the resume tier
         (``capture_prefill_resume_{b}``, the JAX package's
-        ``compile_prefill_resume_{b}``), every slot masked, so that no
-        block is reserved. On the CPU the same launches run eagerly, so the
-        census names what the card would capture.
+        ``compile_prefill_resume_{b}``), are captured with every slot
+        masked, so that no block is reserved. On the CPU the same launches
+        run eagerly, so the census names what the card would capture.
 
         `first_bursts`: extra fused-launch step counts (the single-stream
         first dispatch covers the whole first audio chunk); `admission_ns`:
@@ -1332,7 +1408,8 @@ class EngineCore:
                         direct = self.kv_bucket(length + plen + nn + 2) == w
                         if not direct and self.batch == 1:
                             continue  # one slot cannot reach w here
-                        if self._warmed((admit, b), ("decode", nn, w)):
+                        if self._warmed((admit, b, self.row_bucket(1)),
+                                        ("decode", nn, w)):
                             continue    # both graphs captured already
                         probe = [1] * ((length if direct else min_len) + plen)
                         saved = self._len_bounds.copy()
@@ -1352,11 +1429,17 @@ class EngineCore:
             # bounds would grow them to the whole window, which an on-demand
             # pool smaller than that cannot give (the JAX package's fault)
             self._reset_host(list(range(self.batch)))
+            for b in self.engine_cfg.prefill_buckets:
+                for r in self.row_buckets():
+                    if self._warmed((admit, b, r)):
+                        continue
+                    with t.phase(f"warmup_prefill_{b}_r{r}"):
+                        self._masked_launch((admit, b, r), sp)
             for b in self.resume_tier():
                 if self._warmed(("resume", b)):
                     continue
                 with t.phase(f"warmup_prefill_resume_{b}"):
-                    self._masked_resume(b, sp)
+                    self._masked_launch(("resume", b), sp)
             for w in windows:
                 if self._warmed(("decode", n, w)):
                     continue

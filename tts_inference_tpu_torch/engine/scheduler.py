@@ -684,8 +684,9 @@ class Scheduler:
         c = self.counters
         c["admissions"] += 1
         c["admitted_rows"] += len(batch)
-        # the admission graph prefills every row of the batch at the bucket
-        c["prefilled_rows"] += self.core.batch
+        # the admission graph prefills the admitted rows, padded up to its
+        # row bucket
+        c["prefilled_rows"] += self.core.row_bucket(len(batch))
         c["queue_ms_count"] += len(batch)
         c["queue_ms_sum"] += sum(self.slots[sl].metrics.queue_ms
                                  for sl in slots_idx)

@@ -17,6 +17,10 @@ Differences from the JAX package, all deliberate:
   kernel on CUDA, its plain version on the CPU. Prefill and other chunks
   (s > 1) run ``_attention`` over the gathered (and, for quantized pools,
   dequantized) window;
+- a dense cache may name some of its slots (``KVCache.rows``): a forward
+  pass over R token rows then reads and writes those slots' rows, so that
+  an admission prefills only the rows it admits (the JAX package prefills
+  every slot);
 - the linears go through ``models.quant.mm``: plain weights to
   ``torch.matmul``, int8 and int4 leaves to the kernels K2 and K4;
 - under a tensor-parallel mesh (``parallel/mesh.py``) the layer reads its
@@ -127,6 +131,9 @@ class KVCache:
     (batch,) int32 — tokens currently valid per slot. int8 mode: k/v are
     int8 with per-(slot, position, head) f32 scales in k_scale/v_scale,
     (batch, max_seq, kv_heads); empty scale lists mean full precision.
+    rows: a view of some slots — (R,) distinct slot indices, the rows that
+    a forward pass over R token rows reads and writes (lengths then holds
+    those R slots'); None = every slot, in order.
     """
 
     k: List[torch.Tensor]
@@ -134,6 +141,7 @@ class KVCache:
     lengths: torch.Tensor
     k_scale: List[torch.Tensor] = dataclasses.field(default_factory=list)
     v_scale: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    rows: Optional[torch.Tensor] = None
 
     @property
     def max_seq(self) -> int:
@@ -315,14 +323,16 @@ def _attention(q, k, v, mask):
 
 
 def _write_cache(c: torch.Tensor, new: torch.Tensor, write_pos: torch.Tensor,
-                 write_mask: torch.Tensor) -> None:
+                 write_mask: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> None:
     """Write new (B, S, …) at each slot's write_pos of a dense (B, max_seq,
     …) cache or scale tensor, in place, only for slots in write_mask
     (continuous batching: prefilling one slot must not clobber a slot that
-    is mid-generation)."""
+    is mid-generation). `rows` (B,): the distinct slots that new's rows
+    belong to (``KVCache.rows``), by default slot i for row i."""
     b, s = new.shape[:2]
     max_seq = c.shape[1]
-    bi = torch.arange(b, device=c.device)
+    bi = torch.arange(b, device=c.device) if rows is None else rows
     if s == 1:
         # decode: masked slots write the trash row max_seq-1, which is never
         # attended (active slots are frozen before reaching it)
@@ -406,7 +416,7 @@ def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
             pool_scatter(c, paged_at[0], paged_at[1], new, n_mid=n_mid,
                          memo=paged_at[2])
         else:
-            _write_cache(c, new, write_pos, write_mask)
+            _write_cache(c, new, write_pos, write_mask, cache.rows)
 
     if paged_at is not None:
         bs = ck.shape[2]
@@ -436,7 +446,8 @@ def _layer(lp: Params, cfg: ModelConfig, x, cos, sin, cache, li: int,
                 vw = _dequant(vw, gather_window(vs, idx), k.dtype)
             attn = _attention(q, kw, vw, mask)
     else:
-        win = (slice(None), slice(None, kv_window))
+        win = (slice(None) if cache.rows is None else cache.rows,
+               slice(None, kv_window))
         kw, vw = ck[win], cv[win]
         if cache.quantized:
             kw = _dequant(kw, ks[win], k.dtype)
