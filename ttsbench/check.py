@@ -28,7 +28,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ttsbench.reference import llama as ref_llama
+from ttsbench import families
 from ttsbench.reference import protocol as P
 from ttsbench.reference import snac as ref_snac
 
@@ -54,11 +54,13 @@ def gaps(logits: torch.Tensor, served: List[int]) -> torch.Tensor:
     return lg.max(dim=1).values - got
 
 
-def compare(model: Dict, llama, snac, requests: Dict[int, Dict],
+def compare(model: Dict, params, snac, requests: Dict[int, Dict],
             served: Dict[str, Dict], out: Dict,
             vocoder_control: bool = False) -> Dict[str, float]:
-    """The numbers compared. `vocoder_control`: the reference vocoder in
+    """The numbers compared; the logits are the configuration's family's
+    reference (`families.of`). `vocoder_control`: the reference vocoder in
     TF32 stands in the port's place for the PCM (the control)."""
+    family = families.of(model)
     n = {k: 0 for k in COUNTS}
     worst, gsum, gcnt, sq, cnt = [], 0.0, 0, 0.0, 0
     lo, hi = P.AUDIO_RANGE
@@ -80,8 +82,8 @@ def compare(model: Dict, llama, snac, requests: Dict[int, Dict],
             n["out_of_range"] += 1
             continue
         if r["greedy"]:
-            lg = ref_llama.logits(llama, model, prompt + toks[:-1],
-                                  len(prompt) - 1, lo, hi)
+            lg = family.logits(params, model, prompt + toks[:-1],
+                               len(prompt) - 1, lo, hi)
             g = gaps(lg, toks)
             worst.append(float(g.max()))
             gsum += float(g.sum())

@@ -13,7 +13,7 @@ from __future__ import annotations
 import statistics
 from typing import Dict, Optional
 
-from ttsbench import roofline, stats, tracing
+from ttsbench import families, roofline, stats, tracing
 from ttsbench.roofline import PEAK_FLOPS
 
 
@@ -78,8 +78,8 @@ def step_mfu(run: Dict) -> Optional[float]:
     dur = sum(g["dur_ns"] for g, _ in pairs) / 1e9
     if not dur:
         return None
-    flops = sum(roofline.decode_launch(run["model"], s)["flops"]
-                for _, s in pairs)
+    launch = families.of(run["model"]).decode_launch
+    flops = sum(launch(run["model"], s)["flops"] for _, s in pairs)
     return 100.0 * flops / (dur * PEAK_FLOPS["bf16"])
 
 
@@ -89,8 +89,8 @@ def k1_roofline(run: Dict) -> Optional[float]:
             if tracing.K1.search(op[2])) / 1e9
     if not t:
         return None
-    b = sum(roofline.decode_launch(run["model"], s)["k1_bound_s"]
-            for _, s in pairs)
+    launch = families.of(run["model"]).decode_launch
+    b = sum(launch(run["model"], s)["k1_bound_s"] for _, s in pairs)
     return 100.0 * b / t
 
 

@@ -1,5 +1,6 @@
-"""Peaks of one H100 SXM, the bound of a K1 and a K6 call, and the model
-FLOPs of a decode step.
+"""Peaks of one H100 SXM, the bound of a K1 and a K6 call (shared by every
+block family), and the Llama family's model FLOPs of a decode step
+(`families/llama.py`; another family counts its own).
 
 Peaks: NVIDIA's data sheet, dense rates — 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on the tensor cores, 67 TFLOP/s f32 outside them. A bound is the

@@ -137,14 +137,15 @@ def run_cell(model: Dict, mix: Dict, seed: int, seconds: float,
     of the check, never a benchmark run."""
     import torch
 
-    from ttsbench import check, serve, stats, traffic, weights
+    from ttsbench import check, families, serve, stats, traffic, weights
     from ttsbench.tracing import Trace
 
     dev = torch.device(device)
+    family = families.of(model)
     note("weights")
-    llama = weights.make_llama(model, seed, dev)
+    params = family.make_weights(model, seed, dev)
     snac = weights.make_snac(seed ^ 0x5AC, dev)
-    system = serve.build(model, mix, llama, snac, dev, seed, control,
+    system = serve.build(model, mix, params, snac, dev, seed, control,
                          log_launches=trace)
     tr = Trace() if trace else None
     if trace:
@@ -216,7 +217,7 @@ def run_cell(model: Dict, mix: Dict, seed: int, seconds: float,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     note("reference check")
-    nums = check.compare(model, llama, snac, requests, served, out,
+    nums = check.compare(model, params, snac, requests, served, out,
                          vocoder_control=bool(control and control.get(
                              "tf32_vocoder")))
     verdict = check.judge(nums, model["check"])
@@ -267,6 +268,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cache_dirs()
     cell, model, mix, ends, layers = load_cell(args.workload)
+    from ttsbench import families
+
+    families.of(model)      # a block no family serves: refused here
     import torch
 
     if not torch.cuda.is_available() or \

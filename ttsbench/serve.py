@@ -18,14 +18,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-
-# Keys of a configuration file that change what the block computes. The
-# port's decoder and the benchmark's reference implement neither rope
-# scaling, a sliding window, biases nor another activation, so a
-# configuration that states one is refused rather than run without it.
-_UNSUPPORTED = {"rope_scaling": None, "sliding_window": None,
-                "attention_bias": False, "mlp_bias": False,
-                "hidden_act": "silu"}
+from ttsbench import families
 
 
 def _kv_label(ec) -> str:
@@ -46,33 +39,15 @@ def _fields(cls, block: Dict, what: str) -> Dict:
             for k, v in block.items()}
 
 
-def port_config(model: Dict, mix: Dict):
-    """The port's `Config` for a configuration file and a traffic mix: the
-    model's widths, then every key of the model's and the mix's `engine`
-    blocks (the mix's win) and of the model's `snac` block, passed to the
-    port's dataclass field of the same name. `kv_cache` names the cache
-    those fields give ("dense bfloat16", "paged int8", ...) and must agree
-    with them."""
+def assemble_config(mc, model: Dict, mix: Dict):
+    """The port's `Config` around a family's `ModelConfig` (`mc`): every
+    key of the model's and the mix's `engine` blocks (the mix's win) and
+    of the model's `snac` block, passed to the port's dataclass field of
+    the same name. `kv_cache` names the cache those fields give ("dense
+    bfloat16", "paged int8", ...) and must agree with them."""
     from tts_inference_tpu_torch.config import (Config, EngineConfig,
-                                                ModelConfig, SnacConfig)
+                                                SnacConfig)
 
-    for key, plain in _UNSUPPORTED.items():
-        if model.get(key, plain) != plain:
-            raise ValueError(f"{key} = {model[key]!r}: the benchmark runs "
-                             f"only {key} = {plain!r}")
-    h, nq = model["hidden_size"], model["num_attention_heads"]
-    mc = ModelConfig(
-        vocab_size=model["vocab_size"], hidden_size=h,
-        intermediate_size=model["intermediate_size"],
-        num_hidden_layers=model["num_hidden_layers"],
-        num_attention_heads=nq,
-        num_key_value_heads=model["num_key_value_heads"],
-        head_dim=model.get("head_dim") or h // nq,
-        rms_norm_eps=model["rms_norm_eps"], rope_theta=model["rope_theta"],
-        rope_scaling_factor=None,
-        max_position_embeddings=model["max_position_embeddings"],
-        tie_word_embeddings=model["tie_word_embeddings"],
-        dtype=model["torch_dtype"])
     eng = dict(model["engine"], **mix["engine"])
     label = eng.pop("kv_cache", "dense bfloat16")
     ec = EngineConfig(**_fields(EngineConfig, eng, "engine"))
@@ -220,17 +195,17 @@ class System:
         self.scheduler.stop()
 
 
-def build(model: Dict, mix: Dict, llama, snac, device, seed: int,
+def build(model: Dict, mix: Dict, params, snac, device, seed: int,
           control: Optional[Dict] = None, log_launches: bool = False
           ) -> System:
-    """The port's runtime and scheduler over the given weights, warmed up
-    on the cell's own shapes: the scheduler's decode windows, prompt
+    """The port's runtime and scheduler over the given weights (the
+    family's `control_params` of them for the `quantize` control), warmed
+    up on the cell's own shapes: the scheduler's decode windows, prompt
     buckets and vocoder buckets (the single-stream engine, which no
     request of the benchmark reaches, is built and not warmed)."""
     from tts_inference_tpu_torch import protocol
     from tts_inference_tpu_torch.engine.engine import GenerationEngine
     from tts_inference_tpu_torch.engine.scheduler import Scheduler
-    from tts_inference_tpu_torch.models.quant import quantize_llama_params
     from tts_inference_tpu_torch.models.snac import SnacDecoder
     from tts_inference_tpu_torch.runtime import Runtime
     from tts_inference_tpu_torch.streaming.lookahead import \
@@ -238,12 +213,10 @@ def build(model: Dict, mix: Dict, llama, snac, device, seed: int,
     from tts_inference_tpu_torch.streaming.pipeline import TTSPipeline
     from tts_inference_tpu_torch.utils.tokenizer import ByteTokenizer
 
-    config = port_config(model, mix)
-    params = llama
+    family = families.of(model)
+    config = family.port_config(model, mix)
     if control and control.get("quantize"):
-        # the port's own int8 path, from the same bf16 weights (kept)
-        params = quantize_llama_params(dict(llama, layers=[
-            dict(lp) for lp in llama["layers"]]), bits=8)
+        params = family.control_params(params)
     vocoder = SnacDecoder(snac, config.snac)
     vocoder.graph_max_frames = vocoder.bucket_frames(max_window_frames(
         config.stream, config.engine.decode_steps_per_call))

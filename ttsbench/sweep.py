@@ -30,11 +30,12 @@ def main(argv=None) -> int:
     run.cache_dirs()
     import torch
 
-    from ttsbench import serve, stats, traffic, weights
+    from ttsbench import families, serve, stats, traffic, weights
 
     cell, model, mix, _, _ = run.load_cell(args.workload)
     dev = torch.device("cuda")
-    system = serve.build(model, mix, weights.make_llama(model, args.seed, dev),
+    params = families.of(model).make_weights(model, args.seed, dev)
+    system = serve.build(model, mix, params,
                          weights.make_snac(args.seed ^ 0x5AC, dev), dev,
                          args.seed)
     system.start()

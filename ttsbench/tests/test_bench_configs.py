@@ -11,28 +11,17 @@ ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 HERE = ROOT / "ttsbench"
 
-WIDTHS = {
-    "mistral7b-tts": dict(hidden_size=4096, intermediate_size=14336,
-                          num_hidden_layers=32, num_attention_heads=32,
-                          num_key_value_heads=8, head_dim=128,
-                          rope_theta=1000000.0, rms_norm_eps=1e-5,
-                          tie_word_embeddings=False,
-                          torch_dtype="bfloat16", vocab_size=156940),
-    "smollm2-1.7b-tts": dict(hidden_size=2048, intermediate_size=8192,
-                             num_hidden_layers=24, num_attention_heads=32,
-                             num_key_value_heads=32, head_dim=64,
-                             rope_theta=130000.0, rms_norm_eps=1e-5,
-                             tie_word_embeddings=True,
-                             torch_dtype="bfloat16", vocab_size=156940),
-}
+PUBLISHED = HERE / "tests" / "published"
 
 
-@pytest.mark.parametrize("name", sorted(WIDTHS))
+@pytest.mark.parametrize("name", sorted(c["name"] for c in BENCH["configs"]))
 def test_config_holds_published_widths(name):
+    """`tests/published/<config>.json`: the published values the file has
+    to hold, and its `reduced`."""
     cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
-    for k, v in WIDTHS[name].items():
+    want = json.loads((PUBLISHED / f"{name}.json").read_text())
+    for k, v in want.items():
         assert cfg[k] == v, k
-    assert cfg["reduced"] == ["vocab_size"]
     entry = next(c for c in BENCH["configs"] if c["name"] == name)
     assert entry["file"] == f"ttsbench/configs/{name}.json"
     assert entry["source"] == cfg["source"]
@@ -42,12 +31,13 @@ def test_config_holds_published_widths(name):
 
 
 def test_every_cell_finds_its_files_and_metrics():
-    from ttsbench import run
+    from ttsbench import families, run
 
     names = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
     for w in BENCH["workloads"]:
         assert names.match(w["name"]) and w["chips"] == 1
         cell, model, mix, ends, layers = run.load_cell(w["name"])
+        assert families.of(model).MODEL_TYPES
         assert "setup_s" in ends and len(ends) >= 2 and layers
         for m in layers:
             assert callable(run.reader(m))
@@ -66,10 +56,10 @@ def _model_and_mix(cell):
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_engine_blocks_reach_the_port(cell):
-    from ttsbench.serve import port_config
+    from ttsbench import families
 
     model, mix = _model_and_mix(cell)
-    ec = port_config(model, mix).engine
+    ec = families.of(model).port_config(model, mix).engine
     for block in (model["engine"], mix["engine"]):
         for k, v in block.items():
             if k != "kv_cache":
@@ -88,21 +78,21 @@ def test_engine_blocks_reach_the_port(cell):
     {"snac": {"dtype": "float32", "width": 3}},
 ])
 def test_port_config_refuses_what_it_cannot_run(change):
-    from ttsbench.serve import port_config
+    from ttsbench import families
     from ttsbench.tests.tiny import TINY_MODEL, TINY_OPEN
 
+    model = dict(TINY_MODEL, **change)
     with pytest.raises(ValueError):
-        port_config(dict(TINY_MODEL, **change), TINY_OPEN)
+        families.of(model).port_config(model, TINY_OPEN)
 
 
 def test_reference_refuses_rope_scaling():
-    from ttsbench.reference import llama
+    from ttsbench import families
     from ttsbench.tests.tiny import TINY_MODEL
 
+    model = dict(TINY_MODEL, rope_scaling={"factor": 8.0})
     with pytest.raises(ValueError):
-        llama.logits({"embed": None},
-                     dict(TINY_MODEL, rope_scaling={"factor": 8.0}),
-                     [1, 2], 0, 0, 2)
+        families.of(model).logits({"embed": None}, model, [1, 2], 0, 0, 2)
 
 
 @pytest.mark.parametrize("mix", sorted(

@@ -1,16 +1,16 @@
 """The plain references against the port at a tiny size on the CPU: the
-decoder's logits (prefill through the port's cache) and the vocoder's
-whole-utterance decode."""
+decoder's logits (prefill through the port's cache), reached through the
+configuration's family, and the vocoder's whole-utterance decode."""
 
 import numpy as np
 import torch
 
-from ttsbench import weights
-from ttsbench.reference import llama as ref_llama
+from ttsbench import families, weights
 from ttsbench.reference import protocol as P
 from ttsbench.reference import snac as ref_snac
-from ttsbench.serve import port_config
 from ttsbench.tests.tiny import TINY_MODEL, TINY_OPEN
+
+LLAMA = families.of(TINY_MODEL)
 
 
 def test_prompt_envelope_matches_the_port():
@@ -26,8 +26,8 @@ def test_prompt_envelope_matches_the_port():
 def test_decoder_logits_match_the_port():
     from tts_inference_tpu_torch.models import llama
 
-    cfg = port_config(TINY_MODEL, TINY_OPEN).model
-    params = weights.make_llama(TINY_MODEL, 5, "cpu")
+    cfg = LLAMA.port_config(TINY_MODEL, TINY_OPEN).model
+    params = LLAMA.make_weights(TINY_MODEL, 5, "cpu")
     ids = P.prompt_ids("a short line", "tara") + list(
         range(P.AUDIO_BASE, P.AUDIO_BASE + 40 * 97, 97))
     t = len(ids)
@@ -38,7 +38,7 @@ def test_decoder_logits_match_the_port():
     lo, hi = P.AUDIO_RANGE
     got = llama.compute_logits(params, cfg, hidden[0], P.HEAD_BASE)
     got = got[:, lo - P.HEAD_BASE: hi - P.HEAD_BASE]
-    want = ref_llama.logits(params, TINY_MODEL, ids, 0, lo, hi)
+    want = LLAMA.logits(params, TINY_MODEL, ids, 0, lo, hi)
     assert got.shape == want.shape
     assert (got - want).abs().max().item() < 1e-4
 
@@ -47,8 +47,8 @@ def test_untied_head_matches_the_port():
     from tts_inference_tpu_torch.models import llama
 
     model = dict(TINY_MODEL, tie_word_embeddings=False)
-    cfg = port_config(model, TINY_OPEN).model
-    params = weights.make_llama(model, 6, "cpu")
+    cfg = LLAMA.port_config(model, TINY_OPEN).model
+    params = LLAMA.make_weights(model, 6, "cpu")
     assert "lm_head" in params
     ids = P.prompt_ids("untied", "tara")
     cache = llama.init_kv_cache(cfg, 1, 64, dtype=torch.float32)
@@ -57,7 +57,7 @@ def test_untied_head_matches_the_port():
                               torch.tensor([len(ids)], dtype=torch.int32))
     lo, hi = P.AUDIO_RANGE
     got = llama.compute_logits(params, cfg, hidden[0], lo)[:, : hi - lo]
-    want = ref_llama.logits(params, model, ids, 0, lo, hi)
+    want = LLAMA.logits(params, model, ids, 0, lo, hi)
     assert (got - want).abs().max().item() < 1e-4
 
 

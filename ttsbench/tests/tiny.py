@@ -2,8 +2,8 @@
 CPU: the port's full path at test size."""
 
 TINY_MODEL = {
-    "name": "tiny", "hidden_size": 64, "intermediate_size": 128,
-    "num_hidden_layers": 2, "num_attention_heads": 4,
+    "name": "tiny", "model_type": "llama", "hidden_size": 64,
+    "intermediate_size": 128, "num_hidden_layers": 2, "num_attention_heads": 4,
     "num_key_value_heads": 2, "head_dim": 16, "max_position_embeddings": 512,
     "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "tie_word_embeddings": True,
     "torch_dtype": "float32", "vocab_size": 156940,
